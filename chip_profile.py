@@ -8,20 +8,21 @@ Two phases, each printing one JSON line; with ``--out`` the full profiler
 tables are written to DIR as text.
 
 - ``profile``: the port's ``EncodePipeline`` (UYVY -> JPEG q80 -> LDGM
-  256:26:5) at 1920x1080 and 7680x2160.  For each: CUDA events around one
-  call (median), the host clock over STEPS back-to-back calls, and
-  ``torch.profiler`` device time per step and per kernel over STEPS.  The
-  device idle share is 1 - device time / host time, back to back.
+  256:26:5) at 1920x1080 and 7680x2160.  For each: CUDA events over 100
+  back-to-back calls (mean), the host clock over STEPS back-to-back calls, and
+  ``torch.profiler`` device time and launches per step and per kernel over
+  STEPS.  The device idle share is 1 - device time / host time, back to
+  back.
 - ``sum_order``: at 1920x1080 4:2:2 (K = 256) and 1024x512 4:2:0 (K = 512),
   the coefficients round(bytes @ W - const) computed four ways on the same
-  frame (the fused multiply-add chain in ascending k that kernel K1 and the
-  plain twin use; ``torch.matmul`` on the card, i.e. cuBLAS;
+  frame (the fused multiply-add chain in ascending k that kernel K1 and its
+  plain version use; ``torch.matmul`` on the card, i.e. cuBLAS;
   ``torch.matmul`` on the host CPU; float64 on the card).  For each way: the
   coefficients that differ from the chain's, and the blocks whose symbols
   differ from K1's output.
 
-Like ``chip_smoke.py`` it imports nothing of JAX and leaves
-``JAX_PLATFORMS`` unset; it exits non-zero without a card.
+Like ``chip_smoke.py`` it imports nothing of JAX or of the JAX package; it
+exits non-zero without a card.
 """
 
 from __future__ import annotations
@@ -84,6 +85,7 @@ def profile_step(label, pipe, frame, steps: int, out_dir):
         "geometry": label, "step_ms_cuda_events": step_ms,
         "host_ms_back_to_back": host_ms,
         "device_ms_per_step": device_ms if rows else None,
+        "launches_per_step": sum(r[1] for r in rows) if rows else None,
         "device_idle_share": (1.0 - device_ms / host_ms) if rows else None,
         "kernels": [{"name": n[:90], "per_step": c, "ms_per_step": ms} for n, c, ms in rows[:12]],
     }
@@ -96,20 +98,21 @@ def sum_order(JpegEncoder, Codec, vc_get_linesize, dev):
         frame = torch.as_tensor(content(h, vc_get_linesize(w, Codec.UYVY), 1)).to(dev)
         k1 = [o.cpu() for o in enc._encode(frame)]
         q_chain = enc.front_end(frame)
-        t = enc.tables(dev)
+        W = torch.as_tensor(enc.state["W"], device=dev)
+        const = torch.as_tensor(enc.state["const"], device=dev)
         x = enc.mcu_bytes(frame).to(torch.float32)
         ways = {
             "fma_chain": q_chain,
-            "cublas_matmul": torch.round(x @ t["W"] - t["const"]).to(torch.int64),
-            "cpu_matmul": torch.round(x.cpu() @ t["W"].cpu() - t["const"].cpu()).to(torch.int64).to(dev),
-            "float64": torch.round(x.double() @ t["W"].double() - t["const"].double()).to(torch.int64),
+            "cublas_matmul": torch.round(x @ W - const).to(torch.int64),
+            "cpu_matmul": torch.round(x.cpu() @ W.cpu() - const.cpu()).to(torch.int64).to(dev),
+            "float64": torch.round(x.double() @ W.double() - const.double()).to(torch.int64),
         }
         res = {}
         for name, q in ways.items():
             syms = [o.cpu() for o in enc.symbols_and_pack(q, enc.wwords)]
             res[name] = {"coefficients_differing_from_chain": int((q != q_chain).sum()),
                          "blocks_differing_from_k1": differing_blocks(syms, k1)}
-        out.append({"geometry": f"{w}x{h} UYVY q80 {enc.subsampling}", "K": int(t["W"].shape[0]),
+        out.append({"geometry": f"{w}x{h} UYVY q80 {enc.subsampling}", "K": int(W.shape[0]),
                     "coefficients": int(q_chain.numel()), "blocks": enc.nblocks, "ways": res})
     return out
 
@@ -118,14 +121,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="directory for the full profiler tables")
     args = ap.parse_args()
-    os.environ.pop("JAX_PLATFORMS", None)
     if not torch.cuda.is_available():
         print("chip_profile: torch.cuda.is_available() is False; this needs a CUDA card", file=sys.stderr)
         return 1
-    from ultragrid_tpu.types import Codec, VideoDesc, vc_get_linesize
     from ultragrid_tpu_torch import get_device
     from ultragrid_tpu_torch.models.encode import EncodeConfig, EncodePipeline
     from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
+    from ultragrid_tpu_torch.types import Codec, VideoDesc, vc_get_linesize
 
     dev = get_device("cuda")
     smi = nvidia_smi_line()

@@ -5,9 +5,10 @@ Needs a CUDA card and nvcc; skips without a card.  On the card's machine
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-K1 sums each coefficient as a fused multiply-add chain in ascending k, the
-order of the plain front end, so both are bit-equal even under the real
-mega matrix; K2 is integer work.  Tolerance: exact equality.
+K1 sums each coefficient as a fused multiply-add chain over the non-zero
+rows of its block group in ascending k, the order of the plain front end, so
+both are bit-equal even under the real mega matrix; K2 is integer work.
+Tolerance: exact equality.
 """
 
 import numpy as np
@@ -15,10 +16,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from ultragrid_tpu.types import Codec, VideoDesc, vc_get_linesize  # noqa: E402
 from ultragrid_tpu_torch.models.encode import EncodeConfig, EncodePipeline  # noqa: E402
 from ultragrid_tpu_torch.ops import fec, jpeg_cuda  # noqa: E402
 from ultragrid_tpu_torch.ops.jpeg import JpegEncoder  # noqa: E402
+from ultragrid_tpu_torch.types import Codec, VideoDesc, vc_get_linesize  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -44,6 +45,12 @@ def content(w, h, codec, seed):
     (1024, 512, Codec.RGB, 80, None, None),
     (1024, 512, Codec.RGBA, 90, 7, None),
     (80, 104, Codec.UYVY, 80, 3, None),
+    # restart intervals: every MCU, a non-divisor of the row, one segment
+    # for the frame; tiles of 16 MCUs start inside segments
+    (1920, 1080, Codec.UYVY, 80, 1, None),
+    (1920, 1080, Codec.UYVY, 80, 7, None),
+    (1920, 1080, Codec.UYVY, 80, 16200, None),
+    (272, 48, Codec.UYVY, 80, 5, "420"),
 ])
 def test_k1_matches_plain(cuda, w, h, codec, q, ri, sub):
     enc = JpegEncoder(w, h, in_codec=codec, quality=q, restart_interval=ri, subsampling=sub)
@@ -66,7 +73,7 @@ def test_k1_overflow_and_escalation(cuda):
     file_gpu = enc.encode(torch.as_tensor(frame_np).to(cuda))
     cpu = JpegEncoder(256, 64, quality=95)
     cpu.wwords = 2
-    assert np.array_equal(file_gpu, cpu.encode(frame_np)) and enc.wwords == cpu.wwords
+    assert np.array_equal(file_gpu, cpu.encode(frame_np, device="cpu")) and enc.wwords == cpu.wwords
 
 
 def test_k2_matches_plain(cuda):
@@ -81,11 +88,23 @@ def test_k2_matches_plain(cuda):
     assert torch.equal(got.cpu(), par.plain(data.cpu()))
 
 
+@pytest.mark.parametrize("w,h", [(1920, 1080), (7680, 2160)])
+def test_k2_fused_matches_plain_on_pipeline_parts(cuda, w, h):
+    pipe = EncodePipeline(VideoDesc(w, h, Codec.UYVY, 60.0), EncodeConfig(compress="jpeg", fec="ldgm:256:26:5"))
+    gen = torch.Generator().manual_seed(w)
+    parts = [torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32, generator=gen).to(cuda)
+             for n in pipe.part_words]
+    before = fec.LAUNCHES.count
+    got = pipe.parity(*parts)
+    assert fec.LAUNCHES.count == before + 1
+    assert torch.equal(got, pipe.parity.plain(*parts))
+
+
 def test_pipeline_on_card_equals_cpu(cuda):
     desc = VideoDesc(1920, 1080, Codec.UYVY, 60.0)
     cfg = EncodeConfig(compress="jpeg", fec="ldgm:256:26:5")
     frame = content(1920, 1080, Codec.UYVY, 3)
-    gpu = EncodePipeline(desc, cfg, device=cuda)(frame)
+    gpu = EncodePipeline(desc, cfg)(frame)
     cpu = EncodePipeline(desc, cfg, device="cpu")(frame)
     for a, b in zip(gpu, cpu):
         assert torch.equal(a.cpu(), b)
@@ -95,7 +114,7 @@ def test_pipeline_never_moves_a_tensor_between_devices(cuda):
     desc = VideoDesc(256, 64, Codec.UYVY, 60.0)
     cfg = EncodeConfig(compress="jpeg", fec="ldgm:32:16:5")
     frame = content(256, 64, Codec.UYVY, 5)
-    on_cpu, on_card = EncodePipeline(desc, cfg), EncodePipeline(desc, cfg, device=cuda)
+    on_cpu, on_card = EncodePipeline(desc, cfg, device="cpu"), EncodePipeline(desc, cfg)
     before = (jpeg_cuda.LAUNCHES.count, fec.LAUNCHES.count)
     with pytest.raises(ValueError, match="tensor is on cuda:0.*runs on cpu"):
         on_cpu(torch.as_tensor(frame).to(cuda))

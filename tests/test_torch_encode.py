@@ -14,6 +14,7 @@ import jax  # noqa: E402
 from ultragrid_tpu.models import encode as ref_encode  # noqa: E402
 from ultragrid_tpu.ops.fec import build_ldgm_matrix as ref_ldgm_matrix  # noqa: E402
 from ultragrid_tpu.types import Codec, VideoDesc, vc_get_linesize  # noqa: E402
+from ultragrid_tpu_torch import types as port_types  # noqa: E402
 from ultragrid_tpu_torch.models import encode as port_encode  # noqa: E402
 
 NAMES = ("ys", "ybits", "us", "ubits", "vs", "vbits", "parity", "overflow")
@@ -37,12 +38,16 @@ def assert_all_equal(ref_out, port_out, names=NAMES):
         assert np.array_equal(a, b), f"{name} differs"
 
 
+def port_desc(w, h, codec=port_types.Codec.UYVY):
+    return port_types.VideoDesc(w, h, port_types.Codec(codec), 30.0)
+
+
 def pipelines(w, h, codec, sub, fec, quality=80):
-    desc = VideoDesc(w, h, codec, 30.0)
-    ref = ref_encode.EncodePipeline(desc, ref_encode.EncodeConfig(
+    ref = ref_encode.EncodePipeline(VideoDesc(w, h, codec, 30.0), ref_encode.EncodeConfig(
         in_codec=codec, compress="jpeg", quality=quality, subsampling=sub, fec=fec))
-    port = port_encode.EncodePipeline(desc, port_encode.EncodeConfig(
-        in_codec=codec, compress="jpeg", quality=quality, subsampling=sub, fec=fec), device="cpu")
+    port = port_encode.EncodePipeline(port_desc(w, h, codec), port_encode.EncodeConfig(
+        in_codec=port_types.Codec(codec), compress="jpeg", quality=quality, subsampling=sub, fec=fec),
+        device="cpu")
     return ref, port
 
 
@@ -90,9 +95,8 @@ def test_state_from_reference_round_trip(sub):
     ref, port = pipelines(256, 64, Codec.UYVY, sub, "ldgm:32:16:5")
     loaded = port_encode.state_from_reference(reference_arrays(ref, 32, 16, 5))
     _state_equal(port.state, loaded)
-    desc = VideoDesc(256, 64, Codec.UYVY, 30.0)
-    cfg = port_encode.EncodeConfig(in_codec=Codec.UYVY, compress="jpeg", subsampling=sub, fec="ldgm:32:16:5")
-    on_loaded = port_encode.EncodePipeline(desc, cfg, device="cpu", state=loaded)
+    cfg = port_encode.EncodeConfig(compress="jpeg", subsampling=sub, fec="ldgm:32:16:5")
+    on_loaded = port_encode.EncodePipeline(port_desc(256, 64), cfg, device="cpu", state=loaded)
     frame = content(256, 64, Codec.UYVY, 23)
     for a, b in zip(port(frame), on_loaded(frame)):
         assert torch.equal(a, b)
@@ -105,9 +109,9 @@ def test_loaded_state_is_what_runs():
     arrays = reference_arrays(ref, 32, 16, 5)
     W, const, bpr = arrays["_mega"]
     arrays["_mega"] = (W * 2, const * 2, bpr)
-    desc = VideoDesc(64, 16, Codec.UYVY, 30.0)
-    cfg = port_encode.EncodeConfig(in_codec=Codec.UYVY, compress="jpeg", fec="ldgm:32:16:5")
-    doubled = port_encode.EncodePipeline(desc, cfg, state=port_encode.state_from_reference(arrays))
+    cfg = port_encode.EncodeConfig(compress="jpeg", fec="ldgm:32:16:5")
+    doubled = port_encode.EncodePipeline(port_desc(64, 16), cfg, device="cpu",
+                                         state=port_encode.state_from_reference(arrays))
     frame = content(64, 16, Codec.UYVY, 24)
     assert not torch.equal(doubled(frame)[0], port(frame)[0])
 
@@ -120,26 +124,35 @@ def test_loaded_state_is_what_runs():
 ])
 def test_unported_options_raise(cfg, match):
     with pytest.raises(NotImplementedError, match=match):
-        port_encode.EncodePipeline(VideoDesc(128, 64, Codec.UYVY, 30.0), port_encode.EncodeConfig(**cfg))
+        port_encode.EncodePipeline(port_desc(128, 64), port_encode.EncodeConfig(**cfg), device="cpu")
 
 
 @pytest.mark.parametrize("pipe_dev,frame_dev", [("cpu", "meta"), ("meta", "cpu")])
 def test_frame_on_another_device_raises(pipe_dev, frame_dev):
     """A tensor frame is never moved between devices behind the caller's
     back (a card frame copied to the host would skip the kernels)."""
-    desc = VideoDesc(64, 16, Codec.UYVY, 30.0)
     cfg = port_encode.EncodeConfig(compress="jpeg", fec="ldgm:32:16:5")
-    pipe = port_encode.EncodePipeline(desc, cfg, device=pipe_dev)
+    pipe = port_encode.EncodePipeline(port_desc(64, 16), cfg, device=pipe_dev)
     frame = torch.zeros((16, 128), dtype=torch.uint8, device=frame_dev)
     with pytest.raises(ValueError, match=f"tensor is on {frame_dev}.*runs on {pipe_dev}"):
         pipe(frame)
 
 
+def test_default_device_is_the_card():
+    """Without a device the pipeline selects the card, and raises where
+    there is none."""
+    cfg = port_encode.EncodeConfig(compress="jpeg", fec="ldgm:32:16:5")
+    if torch.cuda.is_available():
+        assert port_encode.EncodePipeline(port_desc(64, 16), cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            port_encode.EncodePipeline(port_desc(64, 16), cfg)
+
+
 def test_array_frame_goes_to_the_pipeline_device():
-    desc = VideoDesc(64, 16, Codec.UYVY, 30.0)
     cfg = port_encode.EncodeConfig(compress="jpeg", fec="ldgm:32:16:5")
     frame = content(64, 16, Codec.UYVY, 25)
-    pipe = port_encode.EncodePipeline(desc, cfg, device="cpu")
+    pipe = port_encode.EncodePipeline(port_desc(64, 16), cfg, device="cpu")
     for a, b in zip(pipe(frame), pipe(torch.as_tensor(frame))):
         assert a.device.type == "cpu" and torch.equal(a, b)
 

@@ -1,4 +1,4 @@
-"""The port's LDGM parity (plain twin of kernel K2) against the JAX reference.
+"""The port's LDGM parity (plain version of kernel K2) against the JAX reference.
 
 Inputs are made with numpy from a seed and go through the reference's
 ``gf2_matmul`` (XLA on the CPU) or its Pallas kernel in interpret mode, and
@@ -35,13 +35,15 @@ def test_gf2_matmul_matches_reference(k, m, c, ps, staircase):
 
 def test_gf2_parity_twin_matches_pallas_interpret_and_xla():
     """The ``psw=700`` case of tests/test_fec.py: a column count that the
-    Pallas kernel pads to 4096 words (K2 needs no padding)."""
+    Pallas kernel pads to 4096 words (K2 needs no padding).  K2 applies the
+    staircase, which the Pallas kernel leaves to its caller."""
     k, m, c = 32, 6, 4
     psw = 700
     mask = ref_fec.build_ldgm_matrix(k, m, c, 1).astype(np.float32)
     data = np.random.default_rng(3).integers(0, 2**32, (k, psw), dtype=np.uint32)
     pallas = np.asarray(ref_fec.make_gf2_parity_pallas(mask, psw, interpret=True)(jnp.asarray(data)))
-    xla = np.asarray(ref_fec.gf2_matmul(jnp.asarray(mask), jnp.asarray(_bytes_of(data)), False))
+    pallas = np.bitwise_xor.accumulate(pallas, axis=0)
+    xla = np.asarray(ref_fec.gf2_matmul(jnp.asarray(mask), jnp.asarray(_bytes_of(data)), True))
     par = port_fec.make_gf2_parity(mask, psw)
     got = par(torch.as_tensor(data.view(np.int32)))
     assert got.dtype == torch.int32 and tuple(got.shape) == (m, psw)
@@ -76,8 +78,52 @@ def test_parity_with_staircase_matches_c_ldgm_encoder():
     want = np.zeros((m, ps), np.uint8)
     lib.ldgm_encode_xor(data.ctypes.data, k, ps, idx.ctypes.data, m, row_len, want.ctypes.data)
     words = torch.as_tensor(data.view(np.int32))
-    got = port_fec.apply_staircase(port_fec.make_gf2_parity(mask, ps // 4)(words))
+    got = port_fec.make_gf2_parity(mask, ps // 4)(words)
     assert np.array_equal(got.numpy().view(np.uint8), want)
+
+
+@pytest.mark.parametrize("k,m,c,psw,part_words", [
+    (32, 16, 5, 40, [400, 25, 100, 25, 100, 25]),
+    (64, 12, 3, 33, [660, 41, 330, 41, 330, 41]),
+    (256, 26, 5, 21, [2048, 128, 1024, 64, 1024, 64]),
+])
+def test_fused_parity_plain_matches_reference(k, m, c, psw, part_words):
+    """K2's plain version (parts -> container -> parity -> staircase)
+    equals the reference's ``gf2_matmul(mask, container_bytes, True)``."""
+    rng = np.random.default_rng(k + psw)
+    parts = [torch.as_tensor(rng.integers(-2**31, 2**31, w, dtype=np.int64).astype(np.int32))
+             for w in part_words]
+    rows = sum(-(-w // psw) for w in part_words)
+    mask = ref_fec.build_ldgm_matrix(k, m, c, 1)
+    par = port_fec.make_gf2_parity(mask[:, :rows], psw, part_words=part_words)
+    got = par(*parts)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, psw)
+    cont = np.zeros((k, psw), np.int32)
+    cont[:rows] = par.container(parts).numpy()
+    want = np.asarray(ref_fec.gf2_matmul(jnp.asarray(mask.astype(np.float32)),
+                                         jnp.asarray(cont.view(np.uint8)), True))
+    assert np.array_equal(got.numpy().view(np.uint8), want)
+
+
+def test_port_native_ldgm_encoder_matches_reference_loader():
+    """The port's own loader builds the same C encoder as the reference's."""
+    from ultragrid_tpu.native import ldgm_xor_lib as ref_lib
+    from ultragrid_tpu_torch.native import ldgm_xor_lib
+
+    k, m, c, ps = 32, 8, 3, 40
+    mask = port_fec.build_ldgm_matrix(k, m, c, 1)
+    data = np.random.default_rng(2).integers(0, 256, (k, ps), dtype=np.uint8)
+    row_len = int(mask.sum(axis=1).max())
+    idx = np.full((m, row_len), -1, np.int32)
+    for r in range(m):
+        nz = np.nonzero(mask[r])[0]
+        idx[r, : nz.size] = nz
+    outs = []
+    for lib in (ldgm_xor_lib(), ref_lib()):
+        out = np.zeros((m, ps), np.uint8)
+        lib.ldgm_encode_xor(data.ctypes.data, k, ps, idx.ctypes.data, m, row_len, out.ctypes.data)
+        outs.append(out)
+    assert outs[0].any() and np.array_equal(outs[0], outs[1])
 
 
 def test_cpu_tensor_never_launches_k2():

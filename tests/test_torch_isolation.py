@@ -1,8 +1,9 @@
-"""The port runs without JAX: the card's machine has none installed.
+"""The port stands alone: it imports neither JAX nor the JAX package.
 
-A subprocess blocks ``jax`` in ``sys.modules`` (so any import of it, direct or
-through a reference module, fails) and leaves ``JAX_PLATFORMS`` unset (under
-``cpu`` the reference package's ``__init__`` imports jax itself).
+A subprocess blocks ``jax`` and ``ultragrid_tpu`` in ``sys.modules`` (so any
+import of either, direct or indirect, fails) and drives the port with its own
+types.  A source scan rejects any ``import`` of either in the port,
+``chip_smoke.py`` and ``chip_profile.py``.
 """
 
 import os
@@ -19,14 +20,14 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 SCRIPT = r"""
 import sys
 sys.modules["jax"] = None
+sys.modules["ultragrid_tpu"] = None
 import numpy as np
 import torch
 import ultragrid_tpu_torch
-from ultragrid_tpu_torch import get_device
+from ultragrid_tpu_torch import Codec, VideoDesc, VideoFrame, get_device
 from ultragrid_tpu_torch.models.encode import EncodeConfig, EncodePipeline
 from ultragrid_tpu_torch.modules.video_compress import JpegCompress
 from ultragrid_tpu_torch.ops import fec, jpeg_cuda
-from ultragrid_tpu.types import Codec, VideoDesc, VideoFrame
 
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 if not torch.cuda.is_available():
@@ -40,12 +41,24 @@ assert get_device("cpu") == torch.device("cpu")
 
 desc = VideoDesc(64, 32, Codec.UYVY, 30.0)
 frame = np.random.default_rng(0).integers(0, 256, (32, 128), dtype=np.uint8)
+if not torch.cuda.is_available():
+    # the entry points select the card by default
+    from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
+    for make in (lambda: EncodePipeline(desc, EncodeConfig(compress="jpeg")),
+                 lambda: JpegCompress("80"), lambda: JpegEncoder(64, 32).encode(frame)):
+        try:
+            make()
+        except RuntimeError:
+            pass
+        else:
+            raise SystemExit("an entry point ran without a card on its default device")
 out = EncodePipeline(desc, EncodeConfig(compress="jpeg", fec="ldgm:32:16:5"), device="cpu")(frame)
 assert len(out) == 8 and tuple(out[6].shape)[0] == 16
 jpg = JpegCompress("80", device="cpu").compress(VideoFrame(desc, [frame])).data
 assert bytes(jpg[:2]) == b"\xff\xd8" and bytes(jpg[-2:]) == b"\xff\xd9"
 assert jpeg_cuda.LAUNCHES.count == 0 and fec.LAUNCHES.count == 0
-loaded = [m for m, mod in sys.modules.items() if (m == "jax" or m.startswith("jax.")) and mod is not None]
+loaded = [m for m, mod in sys.modules.items()
+          if m.split(".")[0] in ("jax", "ultragrid_tpu") and mod is not None]
 assert not loaded, loaded
 print("ISOLATED-OK")
 """
@@ -69,4 +82,4 @@ def test_port_sources_never_name_jax():
         for line in path.read_text().splitlines():
             words = line.split()
             assert not (words[:1] in (["import"], ["from"]) and len(words) > 1
-                        and words[1].split(".")[0] == "jax"), f"{path}: {line}"
+                        and words[1].split(".")[0] in ("jax", "ultragrid_tpu")), f"{path}: {line}"

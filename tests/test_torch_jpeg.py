@@ -9,6 +9,8 @@ another order than the fused multiply-add chain both use for larger frames,
 and one case documents that bound.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -18,6 +20,7 @@ import jax  # noqa: E402
 from ultragrid_tpu.ops import jpeg as ref_jpeg  # noqa: E402
 from ultragrid_tpu.ops import jpeg_pallas  # noqa: E402
 from ultragrid_tpu.types import Codec, VideoDesc, VideoFrame, vc_get_linesize  # noqa: E402
+from ultragrid_tpu_torch import types as port_types  # noqa: E402
 from ultragrid_tpu_torch.ops import jpeg as port_jpeg  # noqa: E402
 
 NAMES = ("ys", "ybits", "us", "ubits", "vs", "vbits", "overflow")
@@ -45,7 +48,8 @@ def assert_outputs_equal(ref_out, port_out):
 
 def pair(w, h, codec, q, ri=None, sub=None):
     return (ref_jpeg.JpegEncoder(w, h, in_codec=codec, quality=q, restart_interval=ri, subsampling=sub),
-            port_jpeg.JpegEncoder(w, h, in_codec=codec, quality=q, restart_interval=ri, subsampling=sub))
+            port_jpeg.JpegEncoder(w, h, in_codec=port_types.Codec(codec), quality=q, restart_interval=ri,
+                                  subsampling=sub))
 
 
 CASES = [
@@ -104,7 +108,7 @@ def test_escalation_gives_the_reference_file():
     ref.wwords = enc.wwords = 2
     frame = frame_for(256, 32, Codec.UYVY, 9, "noise")
     want = ref.encode(frame)
-    got = enc.encode(frame)
+    got = enc.encode(frame, device="cpu")
     assert enc.wwords == ref.wwords > 2
     assert np.array_equal(got, want)
 
@@ -119,7 +123,7 @@ def test_escalation_gives_the_reference_file():
 def test_file_byte_equal_to_reference(w, h, codec, q, ri, sub):
     ref, enc = pair(w, h, codec, q, ri, sub)
     frame = frame_for(w, h, codec, 11)
-    got = enc.encode(frame)
+    got = enc.encode(frame, device="cpu")
     assert bytes(got[:2]) == b"\xff\xd8" and bytes(got[-2:]) == b"\xff\xd9"
     assert np.array_equal(got, ref.encode(frame))
 
@@ -148,19 +152,43 @@ def test_front_end_summation_order_bound():
     assert int((diff != 0).sum()) <= 1
 
 
+@pytest.mark.parametrize("kind", ["content", "noise"])
+@pytest.mark.parametrize("codec,sub", [
+    (Codec.UYVY, None), (Codec.YUYV, None), (Codec.UYVY, "420"), (Codec.YUYV, "420"),
+    (Codec.RGB, None), (Codec.RGBA, None),
+])
+def test_compact_chain_equals_dense_chain(codec, sub, kind):
+    """The front end skips the rows of W that are zero in a block group;
+    the dense chain, one multiply-add per k over all rows in ascending k,
+    gives the same coefficients bit for bit."""
+    w, h = 128, 64
+    enc = port_jpeg.JpegEncoder(w, h, in_codec=port_types.Codec(codec), quality=80, subsampling=sub)
+    frame = torch.as_tensor(frame_for(w, h, codec, 17, kind))
+    x = enc.mcu_bytes(frame).to(torch.float32)
+    W = torch.as_tensor(enc.state["W"])
+    acc = torch.zeros(x.shape[0], W.shape[1])
+    for k in range(W.shape[0]):
+        acc = torch.addcmul(acc, x[:, k: k + 1], W[k: k + 1])
+    dense = torch.round(acc - torch.as_tensor(enc.state["const"])).to(torch.int64)
+    assert torch.equal(enc.front_end(frame), dense)
+
+
 def test_jpeg_compress_module_matches_reference():
     from ultragrid_tpu.modules.video_compress import JpegCompress as RefCompress
     from ultragrid_tpu_torch.modules.video_compress import JpegCompress
 
-    desc = VideoDesc(256, 64, Codec.UYVY, 30.0)
-    frame = VideoFrame(desc, [frame_for(256, 64, Codec.UYVY, 13)], timestamp=1.5)
+    data = frame_for(256, 64, Codec.UYVY, 13)
+    frame = port_types.VideoFrame(port_types.VideoDesc(256, 64, port_types.Codec.UYVY, 30.0), [data],
+                                  timestamp=1.5)
+    ref_frame = VideoFrame(VideoDesc(256, 64, Codec.UYVY, 30.0), [data], timestamp=1.5)
     for cfg in ("", "90", "80:4", "80:0:420"):
         got = JpegCompress(cfg, device="cpu").compress(frame)
-        want = RefCompress(cfg).compress(frame)
-        assert got.desc == want.desc and got.desc.color_spec == Codec.JPEG
+        want = RefCompress(cfg).compress(ref_frame)
+        assert dataclasses.astuple(got.desc) == dataclasses.astuple(want.desc)
+        assert got.desc.color_spec == Codec.JPEG
         assert got.timestamp == 1.5
         assert np.array_equal(got.data, np.asarray(want.data))
-    meta = VideoFrame(desc, [torch.zeros((64, 512), dtype=torch.uint8, device="meta")])
+    meta = port_types.VideoFrame(frame.desc, [torch.zeros((64, 512), dtype=torch.uint8, device="meta")])
     with pytest.raises(ValueError, match="tensor is on meta"):
         JpegCompress("", device="cpu").compress(meta)
 
@@ -170,9 +198,10 @@ def test_cpu_tensor_never_launches_a_kernel():
 
     before = jpeg_cuda.LAUNCHES.count
     enc = port_jpeg.JpegEncoder(64, 16)
-    enc.encode(frame_for(64, 16, Codec.UYVY, 1))
+    enc.encode(frame_for(64, 16, Codec.UYVY, 1), device="cpu")
     assert jpeg_cuda.LAUNCHES.count == before
     with pytest.raises(ValueError, match="CUDA"):
         t = enc.tables("cpu")
-        jpeg_cuda.fused_encode(torch.zeros(16, 128, dtype=torch.uint8), t["W"], t["const"], t["huff"],
-                               layout=0, nmcux=4, nmcuy=2, restart_interval=2, wwords=16)
+        jpeg_cuda.fused_encode(torch.zeros(16, 128, dtype=torch.uint8), t["wc"], t["rows"], t["groups"],
+                               t["const"], t["huff"], layout=0, nmcux=4, nmcuy=2, restart_interval=2,
+                               wwords=16)

@@ -12,9 +12,10 @@ torch = pytest.importorskip("torch")
 
 from ultragrid_tpu.ops import fec as ref_fec  # noqa: E402
 from ultragrid_tpu.ops import jpeg as ref_jpeg  # noqa: E402
-from ultragrid_tpu.types import Codec  # noqa: E402
+from ultragrid_tpu.types import Codec as RefCodec  # noqa: E402
 from ultragrid_tpu_torch.ops import fec as port_fec  # noqa: E402
 from ultragrid_tpu_torch.ops import jpeg as port_jpeg  # noqa: E402
+from ultragrid_tpu_torch.types import Codec  # noqa: E402
 
 
 def _bits_equal(a, b):
@@ -58,7 +59,7 @@ MEGA_CASES = [
 
 @pytest.mark.parametrize("codec,sub,q", MEGA_CASES)
 def test_mega_matrix_and_state(codec, sub, q):
-    ref = ref_jpeg.JpegEncoder(64, 32, in_codec=codec, quality=q, subsampling=sub)
+    ref = ref_jpeg.JpegEncoder(64, 32, in_codec=RefCodec(codec), quality=q, subsampling=sub)
     enc = port_jpeg.JpegEncoder(64, 32, in_codec=codec, quality=q, subsampling=sub)
     W, const, bpr = ref._mega
     assert _bits_equal(enc.state["W"], W)
@@ -71,6 +72,33 @@ def test_mega_matrix_and_state(codec, sub, q):
             assert _bits_equal(a, b)
 
 
+# |S_g| of each 64-column block group: the bytes that feed the block
+SUPPORT = {(Codec.UYVY, None): [64] * 4, (Codec.YUYV, None): [64] * 4,
+           (Codec.UYVY, "420"): [64] * 4 + [128] * 2, (Codec.YUYV, "420"): [64] * 4 + [128] * 2,
+           (Codec.RGB, None): [192] * 3, (Codec.RGBA, None): [192] * 3}
+
+
+@pytest.mark.parametrize("codec,sub,q", MEGA_CASES)
+def test_support_plan(codec, sub, q):
+    """The compact front end's plan: S_g ascending, every skipped row of W
+    zero in that group, Wc_g = W[S_g, group], equal Wc_g stored once."""
+    enc = port_jpeg.JpegEncoder(64, 32, in_codec=codec, quality=q, subsampling=sub)
+    W = enc.state["W"]
+    rows, groups, wc = port_jpeg.support_plan(W)
+    assert groups[:, 2].tolist() == SUPPORT[(codec, sub)]
+    distinct = set()
+    for g, (ro, wo, n) in enumerate(groups):
+        s = rows[ro: ro + n]
+        assert np.all(np.diff(s) > 0)
+        cols = W[:, 64 * g: 64 * g + 64]
+        assert not cols[np.setdiff1d(np.arange(W.shape[0]), s)].any()
+        assert (cols[s] != 0).any(axis=1).all()
+        assert _bits_equal(wc[wo: wo + n], cols[s])
+        distinct.add(wo)
+    assert len(wc) == sum(int(groups[groups[:, 1] == wo][0, 2]) for wo in distinct)
+    assert len(distinct) == (3 if codec in (Codec.RGB, Codec.RGBA) else 2)
+
+
 @pytest.mark.parametrize("w,h,codec,q,ri,sub", [
     (64, 16, Codec.UYVY, 80, None, None),
     (80, 16, Codec.UYVY, 80, 3, None),
@@ -79,7 +107,7 @@ def test_mega_matrix_and_state(codec, sub, q):
     (1920, 1080, Codec.UYVY, 80, None, None),
 ])
 def test_header_bytes(w, h, codec, q, ri, sub):
-    ref = ref_jpeg.JpegEncoder(w, h, in_codec=codec, quality=q, restart_interval=ri, subsampling=sub)
+    ref = ref_jpeg.JpegEncoder(w, h, in_codec=RefCodec(codec), quality=q, restart_interval=ri, subsampling=sub)
     enc = port_jpeg.JpegEncoder(w, h, in_codec=codec, quality=q, restart_interval=ri, subsampling=sub)
     assert enc.restart_interval == ref.restart_interval
     assert enc.nseg == ref.nseg
@@ -88,7 +116,7 @@ def test_header_bytes(w, h, codec, q, ri, sub):
 
 def test_geometry_without_mega_matrix_raises():
     # UYVY forced to 4:4:4 has no mega formulation in the reference either
-    assert ref_jpeg.JpegEncoder(64, 16, in_codec=Codec.UYVY, subsampling="444")._mega is None
+    assert ref_jpeg.JpegEncoder(64, 16, in_codec=RefCodec.UYVY, subsampling="444")._mega is None
     with pytest.raises(NotImplementedError, match="non-mega"):
         port_jpeg.JpegEncoder(64, 16, in_codec=Codec.UYVY, subsampling="444")
 

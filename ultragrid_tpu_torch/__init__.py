@@ -1,17 +1,15 @@
 """ultragrid_tpu_torch — the PyTorch + CUDA port of ultragrid_tpu.
 
 The sender's flagship device step (UYVY frame -> JPEG encode -> LDGM parity
-over the slot container) runs here on tensors: plain PyTorch on the CPU, and
-two hand-written Hopper kernels on an NVIDIA card (``csrc/``).  The JAX
-package ``ultragrid_tpu`` stays the reference; only its jax-free modules
-(``types``, ``native``, ``utils.log``) are imported from it.
-
-Never import ``jax`` here, directly or through a reference module that does.
-Note that ``ultragrid_tpu/__init__.py`` imports jax when ``JAX_PLATFORMS=cpu``
-is set, so a process that must stay jax-free leaves that variable unset.
+over the slot container) runs here on tensors: two hand-written Hopper
+kernels on an NVIDIA card (``csrc/``), and their plain PyTorch versions on
+the CPU.  The JAX package ``ultragrid_tpu`` stays the reference; the port
+imports nothing of it.  It keeps its own copies of the video types
+(:mod:`ultragrid_tpu_torch.types`) and its own loader for the shared host C
+stages in ``native/`` (:mod:`ultragrid_tpu_torch.native`).
 """
 
-from ultragrid_tpu.types import Codec, VideoDesc, VideoFrame, vc_get_linesize  # noqa: F401
 from ultragrid_tpu_torch.device import get_device  # noqa: F401
+from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame, vc_get_linesize  # noqa: F401
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

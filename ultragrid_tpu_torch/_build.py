@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels in ``csrc/``.
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` into ONE shared library with
-a plain C interface, loaded with ``ctypes``.  No PyTorch headers are included,
-so a build takes seconds.  The library is cached in ``build/`` (gitignored)
-under a content hash of the sources and the flags, as ``ultragrid_tpu/native.py``
-caches its C helpers: mtimes are not preserved by git, so they cannot key it.
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all started
+together, and linked into ONE shared library with a plain C interface,
+loaded with ``ctypes``.  No PyTorch headers are included, so a build takes
+seconds.  The library is cached in ``build/`` (gitignored) under a content
+hash of the sources and the flags: mtimes are not preserved by git, so they
+cannot key it.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
@@ -27,7 +28,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -36,17 +37,20 @@ _L = ctypes.c_int64
 
 # entry point -> argtypes (every pointer and the stream as c_void_p)
 _SIGNATURES = {
-    # frame, linesize, W, const, huff, ys, ybits, us, ubits, vs, vbits, ovf,
-    # layout, nmcux, nmcu, restart_interval, wwords, stream
-    "ug_jpeg_encode": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _P],
-    # data, psw, row_ptr, cols, m, out, stream
-    "ug_gf2_parity": [_P, _L, _P, _P, _I, _P, _P],
+    # frame, linesize, wc, n_wc_rows, rows, n_rows, groups, const, huff,
+    # ys, ybits, us, ubits, vs, vbits, ovf, layout, nmcux, nmcu,
+    # restart_interval, wwords, stream
+    "ug_jpeg_encode": [_P, _L, _P, _I, _P, _I, _P, _P, _P,
+                       _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                       _I, _I, _P],
+    # part pointers, part words, part first rows (host arrays), nparts, psw,
+    # row_ptr, cols, m, nnz, out, stream
+    "ug_gf2_parity": [_P, _P, _P, _I, _L, _P, _P, _I, _I, _P, _P],
 }
 
 
 class LaunchCounter:
-    """How many times a wrapper launched its kernel (never its plain twin)."""
+    """How many times a wrapper launched its kernel (never its plain version)."""
 
     def __init__(self, name: str):
         self.name = name
@@ -76,18 +80,32 @@ def library_path() -> str:
     if os.path.exists(so_path):
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # build to a temporary name and rename: a concurrent loader never sees a
+    # one nvcc per source, all started together, then one link; build in a
+    # temporary directory and rename: a concurrent loader never sees a
     # half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stderr}")
-    with open(so_path[:-3] + ".log", "w") as f:
-        f.write(res.stderr)
-    os.replace(tmp, so_path)
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        nvcc = _nvcc()
+        objs = [os.path.join(tmpdir, os.path.basename(s) + ".o") for s in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(srcs, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        logs = []
+        for cmd, p in zip(cmds, procs):
+            _, err = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{err}")
+            logs.append(err)
+        tmp = os.path.join(tmpdir, "kernels.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({' '.join(cmd)}):\n{res.stderr}")
+        with open(so_path[:-3] + ".log", "w") as f:
+            f.write("".join(logs))
+        os.replace(tmp, so_path)
+    finally:
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return so_path
 
 

@@ -1,18 +1,23 @@
-// K2: LDGM parity over 32-bit words, without the staircase.
+// K2: LDGM parity of the sender's slot container, in one launch.
 //
 // Replaces ultragrid_tpu/ops/fec.py::make_gf2_parity_pallas (the Pallas TPU
-// kernel).  Parity row r = XOR of the data rows that row r of the LDGM mask
-// selects.  The mask is static per session and arrives as per-row member
-// lists (CSR: row_ptr[m + 1], cols[nnz]) built once on the host; the caller
-// applies the staircase and the byte view.
+// kernel) and the container assembly and staircase around it
+// (models/encode.py, ops/fec.py::apply_staircase).  Parity row i = XOR of the
+// container rows that row i of the LDGM mask selects, then the staircase:
+// the XOR of parity rows 0..i.  The container is never built: it is
+// up to six parts (the JPEG slot words and bit counts), part p filling rows
+// row0[p] .. row0[p+1]-1 of psw words each, zero past its own words.  The
+// mask is static per session and arrives as per-row member lists (CSR:
+// row_ptr[m + 1], cols[nnz]) built once on the host.
 //
-// What bounds it on an H100: memory.  Each data word is read once per parity
-// row that selects it (c times on average; the whole 8K container is about
-// 36 MB, which fits the 50 MB L2), each parity word written once; there is
-// one XOR per load.  Design: grid (column tiles, parity rows); a thread owns
-// one column word of one parity row, so loads of neighbouring threads are
-// neighbouring words, and no padding of the column count is needed (the
-// Pallas kernel padded to a multiple of 4096 words for its tiling).
+// What bounds it on an H100: memory.  The needed traffic is one read of the
+// parts plus one write of the parity (39 MB at 8K, 11.6 us at 3.35 TB/s);
+// each data word feeds about c parity rows, one XOR each.  Design: a CTA
+// owns a strip of SW column words.  It loads every container word of the
+// strip once into shared memory (16 bytes a thread where the parts are
+// aligned), computes the m raw parity rows from shared memory (a thread per
+// column and chunk of rows), then one thread per column runs the staircase
+// down the rows in a register and stores each row coalesced.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -20,31 +25,174 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int MAX_PARTS = 6;
+constexpr size_t MAX_SMEM = 200 * 1024;
 
+struct Parts {
+    const uint32_t* ptr[MAX_PARTS];
+    long long words[MAX_PARTS];
+    int row0[MAX_PARTS + 1];  // row0[nparts] = container rows
+    int nparts;
+};
+
+template <int SW>
 __global__ void __launch_bounds__(THREADS) gf2_parity_kernel(
-    const uint32_t* __restrict__ data, long long psw,
-    const int32_t* __restrict__ row_ptr, const int32_t* __restrict__ cols,
+    const Parts parts, int rows, long long psw, const int32_t* __restrict__ row_ptr,
+    const int32_t* __restrict__ cols, int m, int nnz, int vec,
     uint32_t* __restrict__ out)
 {
-    const int r = blockIdx.y;
-    const long long w = (long long)blockIdx.x * THREADS + threadIdx.x;
-    if (w >= psw) return;
-    const int e0 = row_ptr[r], e1 = row_ptr[r + 1];
-    uint32_t acc = 0;
-    for (int e = e0; e < e1; ++e) acc ^= __ldg(data + (long long)cols[e] * psw + w);
-    out[(long long)r * psw + w] = acc;
+    static_assert(THREADS % SW == 0 && SW % 4 == 0, "strip geometry");
+    extern __shared__ __align__(16) uint32_t sm[];
+    uint32_t* data = sm;                                                    // [rows][SW]
+    uint32_t* par = data + rows * SW;                                       // [m][SW]
+    const uint32_t** rsrc = reinterpret_cast<const uint32_t**>(par + m * SW);  // [rows]: row start
+    long long* rlim = reinterpret_cast<long long*>(rsrc + rows);           // [rows]: words from it
+    int* rp = reinterpret_cast<int*>(rlim + rows);                          // [m + 1]
+    int* cs = rp + m + 1;                                                   // [nnz]
+    const long long c0 = (long long)blockIdx.x * SW;
+    const int tid = threadIdx.x;
+
+    for (int e = tid; e <= m; e += THREADS) rp[e] = __ldg(row_ptr + e);
+    for (int e = tid; e < nnz; e += THREADS) cs[e] = __ldg(cols + e);
+    // where each container row starts, and how many of its words its part has
+    for (int r = tid; r < rows; r += THREADS) {
+        const uint32_t* src = parts.ptr[0];
+        long long pw = parts.words[0];
+        int r0 = 0;
+#pragma unroll
+        for (int q = 1; q < MAX_PARTS; ++q)
+            if (q < parts.nparts && r >= parts.row0[q]) {
+                src = parts.ptr[q];
+                pw = parts.words[q];
+                r0 = parts.row0[q];
+            }
+        const long long off = (long long)(r - r0) * psw;
+        rsrc[r] = src + off;
+        rlim[r] = pw - off;
+    }
+    __syncthreads();
+
+    // ---- the strip of every container row, each word read once; BATCH
+    // loads of a thread in flight before its first store ----
+    constexpr int Q = SW / 4, BATCH = 8;
+    for (int e0 = tid; e0 < rows * Q; e0 += THREADS * BATCH) {
+        uint4 v[BATCH];
+#pragma unroll
+        for (int b = 0; b < BATCH; ++b) {
+            const int e = e0 + b * THREADS;
+            v[b] = make_uint4(0u, 0u, 0u, 0u);
+            if (e >= rows * Q) continue;
+            const int r = e / Q, c = (e - r * Q) * 4;
+            const uint32_t* src = rsrc[r] + c0 + c;
+            const long long lim = rlim[r] - c0 - c;  // words of the part from src on
+            if (vec && c0 + c + 3 < psw && lim > 3) {
+                v[b] = __ldg(reinterpret_cast<const uint4*>(src));
+            } else {
+                uint32_t t[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j) t[j] = (c0 + c + j < psw && j < lim) ? __ldg(src + j) : 0u;
+                v[b] = make_uint4(t[0], t[1], t[2], t[3]);
+            }
+        }
+#pragma unroll
+        for (int b = 0; b < BATCH; ++b) {
+            const int e = e0 + b * THREADS;
+            if (e < rows * Q) {
+                const int r = e / Q, c = (e - r * Q) * 4;
+                *reinterpret_cast<uint4*>(data + r * SW + c) = v[b];
+            }
+        }
+    }
+    __syncthreads();
+
+    // ---- raw parity rows: thread (column, chunk of rows) ----
+    constexpr int CH = THREADS / SW;
+    const int col = tid % SW, ch = tid / SW;
+    const int rpc = (m + CH - 1) / CH;
+    const int i1 = min(m, (ch + 1) * rpc);
+    for (int i = ch * rpc; i < i1; ++i) {
+        uint32_t acc = 0;
+        for (int e = rp[i]; e < rp[i + 1]; ++e) acc ^= data[cs[e] * SW + col];
+        par[i * SW + col] = acc;
+    }
+    __syncthreads();
+
+    // ---- staircase down the rows, one thread per column ----
+    if (tid < SW && c0 + tid < psw) {
+        uint32_t run = 0;
+        for (int i = 0; i < m; ++i) {
+            run ^= par[i * SW + tid];
+            out[(long long)i * psw + c0 + tid] = run;
+        }
+    }
+}
+
+size_t smem_bytes(int sw, int rows, int m, int nnz)
+{
+    return (size_t)(rows + m) * sw * 4 + (size_t)rows * 16 + (size_t)(m + 1 + nnz) * 4;
+}
+
+template <int SW>
+int launch(const Parts& parts, long long psw, const int32_t* row_ptr, const int32_t* cols,
+           int m, int nnz, int vec, uint32_t* out, cudaStream_t st)
+{
+    const size_t smem = smem_bytes(SW, parts.row0[parts.nparts], m, nnz);
+    auto kern = gf2_parity_kernel<SW>;
+    const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned grid = (unsigned)((psw + SW - 1) / SW);
+    gf2_parity_kernel<SW><<<grid, THREADS, smem, st>>>(parts, parts.row0[parts.nparts], psw, row_ptr, cols, m, nnz, vec, out);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// data [rows, psw] u32, out [m, psw] u32.  Returns cudaGetLastError().
-extern "C" int ug_gf2_parity(const void* data, long long psw, const void* row_ptr,
-                             const void* cols, int m, void* out, void* stream)
+// ptrs, words: host arrays [nparts] of device addresses and word counts;
+// row0: host array [nparts + 1] of first container rows.  row_ptr [m + 1]
+// and cols [nnz] on the device; cols index container rows.  out [m, psw]
+// u32.  The strip width is the widest of 64, 32, 16 words whose shared
+// memory fits and that still gives every SM a strip.  Returns the first
+// CUDA error of the set-up or the launch, else 0.
+extern "C" int ug_gf2_parity(const void* ptrs, const void* words, const void* row0, int nparts,
+                             long long psw, const void* row_ptr, const void* cols, int m,
+                             int nnz, void* out, void* stream)
 {
-    if (m <= 0 || m > 65535 || psw <= 0) return (int)cudaErrorInvalidValue;
-    const dim3 grid((unsigned)((psw + THREADS - 1) / THREADS), (unsigned)m);
-    gf2_parity_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(data), psw, static_cast<const int32_t*>(row_ptr),
-        static_cast<const int32_t*>(cols), static_cast<uint32_t*>(out));
-    return (int)cudaGetLastError();
+    if (nparts < 1 || nparts > MAX_PARTS || m <= 0 || psw <= 0 || nnz < 0)
+        return (int)cudaErrorInvalidValue;
+    Parts parts;
+    const long long* p = static_cast<const long long*>(ptrs);
+    const long long* w = static_cast<const long long*>(words);
+    const int* r0 = static_cast<const int*>(row0);
+    int vec = psw % 4 == 0;
+    for (int i = 0; i < MAX_PARTS; ++i) {
+        parts.ptr[i] = i < nparts ? reinterpret_cast<const uint32_t*>(p[i]) : nullptr;
+        parts.words[i] = i < nparts ? w[i] : 0;
+        if (i < nparts && p[i] % 16) vec = 0;
+    }
+    for (int i = 0; i <= MAX_PARTS; ++i) parts.row0[i] = r0[i < nparts ? i : nparts];
+    parts.nparts = nparts;
+    const int rows = r0[nparts];
+    if (rows <= 0) return (int)cudaErrorInvalidValue;
+
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    int sw = 0;
+    for (int cand = 64; cand >= 16; cand /= 2) {
+        if (smem_bytes(cand, rows, m, nnz) > MAX_SMEM) continue;
+        sw = cand;
+        if ((psw + cand - 1) / cand >= sms) break;
+    }
+    if (sw == 0) return (int)cudaErrorInvalidValue;  // container too tall for one strip in shared memory
+
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int32_t* rp = static_cast<const int32_t*>(row_ptr);
+    const int32_t* cs = static_cast<const int32_t*>(cols);
+    uint32_t* o = static_cast<uint32_t*>(out);
+    switch (sw) {
+    case 64: return launch<64>(parts, psw, rp, cs, m, nnz, vec, o, st);
+    case 32: return launch<32>(parts, psw, rp, cs, m, nnz, vec, o, st);
+    default: return launch<16>(parts, psw, rp, cs, m, nnz, vec, o, st);
+    }
 }

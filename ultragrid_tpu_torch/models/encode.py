@@ -5,7 +5,10 @@ Port of ``ultragrid_tpu/models/encode.py`` for ``compress="jpeg"`` with
 the card) emits per-block slot words and bit counts; the LDGM parity (kernel
 K2 on the card) protects the slot-aligned container of those six arrays
 while it is still on the device, each array starting on a fresh symbol row
-(the reference's device container, models/encode.py:162-262).
+(the reference's device container, models/encode.py:162-262).  On the card
+the step is three launches: K1's overflow-flag fill, K1 and K2; K2 reads
+the six arrays in place and applies the staircase, so the container is
+never built.
 
 The "weights" of this system are per-session tables: the mega matrix and
 its constant, the Huffman and quantisation tables and the LDGM mask.
@@ -20,10 +23,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ultragrid_tpu.types import Codec, VideoDesc
-from ultragrid_tpu_torch.device import on_device
-from ultragrid_tpu_torch.ops.fec import apply_staircase, build_ldgm_matrix, make_gf2_parity
+from ultragrid_tpu_torch.device import get_device, on_device
+from ultragrid_tpu_torch.ops.fec import build_ldgm_matrix, make_gf2_parity
 from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
+from ultragrid_tpu_torch.types import Codec, VideoDesc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,7 +102,8 @@ def state_from_reference(arrays: dict) -> dict:
 
 
 class EncodePipeline:
-    """The sender step for a fixed video description, on ``device``.
+    """The sender step for a fixed video description, on ``device`` (the
+    card unless the caller names another; ``get_device`` raises without one).
 
     ``pipe(frame)`` takes a uint8 [H, linesize] frame, an array (copied to
     ``device``) or a tensor already on ``device`` (any other raises
@@ -109,10 +113,9 @@ class EncodePipeline:
     """
 
     def __init__(self, desc: VideoDesc, config: EncodeConfig = EncodeConfig(),
-                 device="cpu", state: Optional[dict] = None):
+                 device="cuda", state: Optional[dict] = None):
         self.desc = desc
         self.config = cfg = config
-        self.device = torch.device(device)
         if cfg.compress != "jpeg":
             raise NotImplementedError(
                 f"compress={cfg.compress!r} is not ported yet (ROADMAP.md: pixel "
@@ -123,6 +126,7 @@ class EncodePipeline:
         if fec is not None and fec[0] != "ldgm":
             raise NotImplementedError(
                 f"fec={cfg.fec!r} is not ported yet (ROADMAP.md: device RS and LDGM decode)")
+        self.device = get_device(device)
 
         enc = JpegEncoder(desc.width, desc.height, in_codec=cfg.in_codec,
                           quality=cfg.quality, subsampling=cfg.subsampling, state=state)
@@ -152,26 +156,21 @@ class EncodePipeline:
         self.state["ldgm_mask"] = np.array(mask, np.uint8)
         # the padding rows past the six parts are zero, so they add nothing:
         # one parity over the assembled rows equals the full mask's
-        self.parity = make_gf2_parity(mask[:, : sum(self.row_counts)], self.psw)
+        self.parity = make_gf2_parity(mask[:, : sum(self.row_counts)], self.psw,
+                                      part_words=self.part_words)
 
     def container(self, parts) -> torch.Tensor:
         """The six int32 arrays -> the [sum(row_counts), psw] int32
-        container, each part zero-padded to its own rows."""
-        rows = sum(self.row_counts)
-        out = torch.zeros(rows * self.psw, dtype=torch.int32, device=parts[0].device)
-        row = 0
-        for p, rc in zip(parts, self.row_counts):
-            flat = p.reshape(-1)
-            out[row * self.psw: row * self.psw + flat.numel()] = flat
-            row += rc
-        return out.reshape(rows, self.psw)
+        container, each part zero-padded to its own rows (the plain
+        version's input; K2 reads the parts in place)."""
+        return self.parity.container(parts)
 
     def __call__(self, frame):
         frame = on_device(frame, self.device)
         ys, ybits, us, ubits, vs, vbits, ovf = self.jpeg_encoder._encode(frame)
         if self.parity is None:
             return ys, ybits, us, ubits, vs, vbits, ovf
-        par = apply_staircase(self.parity(self.container([ys, ybits, us, ubits, vs, vbits])))
+        par = self.parity(ys, ybits, us, ubits, vs, vbits)
         # words -> the wire's little-endian byte layout
-        par_bytes = par.contiguous().view(torch.uint8).reshape(self.m, self.ps)
+        par_bytes = par.view(torch.uint8).reshape(self.m, self.ps)
         return ys, ybits, us, ubits, vs, vbits, par_bytes, ovf

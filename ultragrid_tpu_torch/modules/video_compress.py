@@ -10,25 +10,24 @@ from __future__ import annotations
 
 from typing import Optional
 
-import torch
-
-from ultragrid_tpu.types import Codec, VideoDesc, VideoFrame
-from ultragrid_tpu_torch.device import on_device
+from ultragrid_tpu_torch.device import get_device, on_device
 from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
+from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame
 
 
 class JpegCompress:
     """Config ``jpeg[:quality][:restart_interval][:subsampling]`` (quality
     default 80; subsampling 422 for YCbCr inputs, 444 for RGB, or 420).
-    Frames are encoded on ``device``: an array frame is copied there, a
-    tensor frame must already be there."""
+    Frames are encoded on ``device``, the card unless the caller names
+    another: an array frame is copied there, a tensor frame must already be
+    there."""
 
-    def __init__(self, cfg: str = "", device="cpu"):
+    def __init__(self, cfg: str = "", device="cuda"):
         parts = [p for p in cfg.split(":") if p]
         if any("=" in p for p in parts):
             raise NotImplementedError("jpeg key=value options (rate=) are not ported yet")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = get_device(device)
         self.quality = int(parts[0]) if parts else 80
         # 0 = auto (restarts are always used)
         self.restart_interval = (int(parts[1]) or None) if len(parts) > 1 else None

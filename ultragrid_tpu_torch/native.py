@@ -1,0 +1,67 @@
+"""The port's loader for the host C stages in the repository's ``native/``.
+
+``native/jpeg_assemble.c`` (slots -> byte-stuffed JPEG entropy stream) and
+``native/ldgm_xor.c`` (the host LDGM staircase encoder) are plain C shared
+with the JAX package.  ``cc`` builds each into ``build/`` (gitignored) under
+a content hash of the source and the flags; a failed build raises, since the
+port has no Python fallback for either.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+from functools import lru_cache
+
+from ultragrid_tpu_torch._build import BUILD_DIR
+
+_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
+_CFLAGS = ["-O3", "-fPIC", "-shared"]
+
+_P = ctypes.c_void_p
+_I32 = ctypes.c_int32
+_I64 = ctypes.c_int64
+
+
+def _build(name: str) -> str:
+    src = os.path.join(_NATIVE_DIR, name + ".c")
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_CFLAGS).encode())
+    so_path = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
+    if os.path.exists(so_path):
+        return so_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = ["cc", *_CFLAGS, "-o", tmp, src]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+    except FileNotFoundError as e:
+        os.unlink(tmp)
+        raise RuntimeError(f"building {src} needs a C compiler ('cc'): {e}") from e
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"cc failed ({' '.join(cmd)}):\n{res.stderr}")
+    os.replace(tmp, so_path)
+    return so_path
+
+
+@lru_cache(maxsize=None)
+def jpeg_assemble_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(_build("jpeg_assemble"))
+    lib.jpeg_assemble_3c.restype = _I64
+    lib.jpeg_assemble_3c.argtypes = [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _P, _I64]
+    return lib
+
+
+@lru_cache(maxsize=None)
+def ldgm_xor_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(_build("ldgm_xor"))
+    lib.ldgm_encode_xor.restype = None
+    lib.ldgm_encode_xor.argtypes = [_P, _I64, _I64, _P, _I32, _I32, _P]
+    return lib

@@ -2,9 +2,9 @@
 
 The sender's device half: the RFC 5170 LDPC-staircase parity-check matrix
 (same Park-Miller PRNG as the reference, so the same matrix bit for bit) and
-parity = mask @ data over GF(2), with the staircase accumulation applied by
-the caller.  On a CUDA tensor the parity is kernel K2
-(``csrc/gf2_parity.cu``); on a CPU tensor it is the plain twin.  Decoding and
+parity = mask @ data over GF(2) with the staircase accumulation, read from
+the parts of the sender's container.  On CUDA tensors the parity is kernel
+K2 (``csrc/gf2_parity.cu``); on CPU tensors it is the plain version.  Decoding and
 Reed-Solomon are not ported yet (ROADMAP.md).
 """
 
@@ -130,61 +130,90 @@ def gf2_matmul(mask, data_u8: torch.Tensor, staircase: bool = False) -> torch.Te
 
 
 class Gf2Parity:
-    """Parity of a static LDGM mask over u32 words, without the staircase
-    (reference ``make_gf2_parity_pallas``, ops/fec.py:141).
+    """LDGM parity of a static mask over u32 words (reference
+    ``make_gf2_parity_pallas``, ops/fec.py:141, with the container assembly
+    and the staircase of models/encode.py around it).
 
-    Called with data int32 [rows, psw] (u32 bits): on a CUDA tensor it
-    launches K2, on a CPU tensor it runs :meth:`plain`.  Returns int32
-    [m, psw].
+    The container is given as up to six parts: part p, flattened, fills
+    ``row_counts[p]`` rows of ``psw`` words, zero past its own
+    ``part_words[p]`` words (by default one part, the whole ``[rows, psw]``
+    container).  ``par(*parts)`` returns int32 [m, psw]: the XOR of the
+    container rows each mask row selects and of all parity rows before it
+    (the staircase).  On CUDA tensors it launches K2, which never
+    builds the container; on CPU tensors it runs :meth:`plain`.
     """
 
-    def __init__(self, mask_rows, psw: int):
+    def __init__(self, mask_rows, psw: int, part_words=None):
         mask_np = np.asarray(mask_rows) != 0
         self.m, self.rows = mask_np.shape
         self.psw = psw
+        self.part_words = [self.rows * psw] if part_words is None else [int(w) for w in part_words]
+        self.row_counts = [-(-w // psw) for w in self.part_words]
+        if not 1 <= len(self.part_words) <= 6 or sum(self.row_counts) != self.rows:
+            raise ValueError(f"{len(self.part_words)} parts of {self.row_counts} rows do not fill "
+                             f"the mask's {self.rows} columns")
+        self.row0 = np.concatenate([[0], np.cumsum(self.row_counts)]).astype(np.int32)
         self.members = [np.nonzero(r)[0].astype(np.int32) for r in mask_np]
         self.row_ptr = np.concatenate([[0], np.cumsum([len(r) for r in self.members])]).astype(np.int32)
         self.cols = (np.concatenate(self.members) if self.members else np.zeros(0)).astype(np.int32)
         self._csr = {}  # torch.device -> (row_ptr, cols) on the device
 
-    def _check(self, data: torch.Tensor) -> None:
-        if data.dtype != torch.int32 or tuple(data.shape) != (self.rows, self.psw):
-            raise ValueError(
-                f"parity input: expected int32 [{self.rows}, {self.psw}], got {data.dtype} {tuple(data.shape)}")
+    def _check(self, parts) -> None:
+        if len(parts) != len(self.part_words):
+            raise ValueError(f"parity input: expected {len(self.part_words)} parts, got {len(parts)}")
+        dev = parts[0].device
+        for p, w in zip(parts, self.part_words):
+            if p.dtype != torch.int32 or p.numel() != w or p.device != dev:
+                raise ValueError(f"parity input: expected int32 parts of {self.part_words} words on "
+                                 f"{dev}, got {p.dtype} {tuple(p.shape)} on {p.device}")
 
-    def plain(self, data: torch.Tensor) -> torch.Tensor:
-        """Plain PyTorch twin of K2, on any device."""
-        self._check(data)
-        return torch.stack([_xor_rows(data, r) for r in self.members])
+    def container(self, parts) -> torch.Tensor:
+        """The parts -> the [rows, psw] int32 container, each part
+        zero-padded to its own rows."""
+        out = torch.zeros(self.rows * self.psw, dtype=torch.int32, device=parts[0].device)
+        for p, r0 in zip(parts, self.row0):
+            flat = p.reshape(-1)
+            out[int(r0) * self.psw: int(r0) * self.psw + flat.numel()] = flat
+        return out.reshape(self.rows, self.psw)
 
-    def __call__(self, data: torch.Tensor) -> torch.Tensor:
-        if data.is_cuda:
-            return self.launch(data)
-        if data.device.type == "cpu":
-            return self.plain(data)
-        raise ValueError(f"gf2 parity: unsupported device {data.device}")
+    def plain(self, *parts) -> torch.Tensor:
+        """Plain PyTorch version of K2, on any device."""
+        self._check(parts)
+        data = self.container(parts)
+        return apply_staircase(torch.stack([_xor_rows(data, r) for r in self.members]))
 
-    def launch(self, data: torch.Tensor) -> torch.Tensor:
-        """Kernel K2 on a CUDA tensor."""
-        self._check(data)
-        if not data.is_cuda or not data.is_contiguous():
-            raise ValueError("K2 needs a contiguous CUDA tensor")
-        dev = data.device
+    def __call__(self, *parts) -> torch.Tensor:
+        if parts[0].is_cuda:
+            return self.launch(*parts)
+        if parts[0].device.type == "cpu":
+            return self.plain(*parts)
+        raise ValueError(f"gf2 parity: unsupported device {parts[0].device}")
+
+    def launch(self, *parts) -> torch.Tensor:
+        """Kernel K2 on CUDA tensors."""
+        self._check(parts)
+        if not all(p.is_cuda and p.is_contiguous() for p in parts):
+            raise ValueError("K2 needs contiguous CUDA tensors")
+        dev = parts[0].device
         csr = self._csr.get(dev)
         if csr is None:
             csr = self._csr[dev] = (torch.as_tensor(self.row_ptr, device=dev),
                                     torch.as_tensor(self.cols, device=dev))
         out = torch.empty(self.m, self.psw, dtype=torch.int32, device=dev)
+        ptrs = np.array([p.data_ptr() for p in parts], np.int64)
+        words = np.array(self.part_words, np.int64)
         lib = _build.kernels_lib()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.ug_gf2_parity(data.data_ptr(), self.psw, csr[0].data_ptr(),
-                                    csr[1].data_ptr(), self.m, out.data_ptr(), stream)
+            err = lib.ug_gf2_parity(ptrs.ctypes.data, words.ctypes.data, self.row0.ctypes.data,
+                                    len(parts), self.psw, csr[0].data_ptr(), csr[1].data_ptr(),
+                                    self.m, len(self.cols), out.data_ptr(), stream)
         _build.check(err, "gf2_parity launch")
         LAUNCHES.count += 1
         return out
 
 
-def make_gf2_parity(mask_rows, psw: int) -> Gf2Parity:
-    """K2 plus its plain twin for one session's mask (columns = data rows)."""
-    return Gf2Parity(mask_rows, psw)
+def make_gf2_parity(mask_rows, psw: int, part_words=None) -> Gf2Parity:
+    """K2 plus its plain version for one session's mask (columns = container
+    rows)."""
+    return Gf2Parity(mask_rows, psw, part_words)

@@ -10,8 +10,12 @@ segments and the file.
 On a CUDA tensor the device half is ONE hand-written kernel
 (:mod:`ultragrid_tpu_torch.ops.jpeg_cuda`); on a CPU tensor it is the plain
 PyTorch path :meth:`JpegEncoder.encode_plain`, which is also the kernel's
-twin in the card's checks.  32-bit slot words are ``int32`` tensors whose
-bits equal the reference's ``uint32``.
+plain version in the card's checks.  32-bit slot words are ``int32`` tensors
+whose bits equal the reference's ``uint32``.
+
+The front end reads only the rows of the mega matrix that are not zero
+(:func:`support_plan`); since ``fma(x, 0, acc) == acc`` this equals the
+dense product bit for bit.
 
 The Annex K tables below are transcribed once more because the reference
 module imports jax; ``tests/test_torch_tables.py`` asserts they equal the
@@ -26,8 +30,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ultragrid_tpu.types import Codec
+from ultragrid_tpu_torch import native
+from ultragrid_tpu_torch.device import get_device
 from ultragrid_tpu_torch.ops import jpeg_cuda
+from ultragrid_tpu_torch.types import Codec
 
 # ---------------------------------------------------------------------------
 # Tables (JPEG Annex K)
@@ -155,8 +161,40 @@ def dct_matrix_64() -> np.ndarray:
     return m.astype(np.float32)
 
 
+def support_plan(W: np.ndarray):
+    """The compact front end's plan for a mega matrix W [K, 64 * blocks].
+
+    For block group g (columns 64g .. 64g+63), S_g is the ascending list of
+    rows of ``W[:, 64g:64g+64]`` with any non-zero entry and Wc_g is
+    ``W[S_g, 64g:64g+64]``.  Equal Wc_g are stored once.  Returns
+    (rows int32 [sum |S_g|], the S_g one after another; groups int32 [G, 3]
+    = (offset of S_g in rows, offset of Wc_g in wc, |S_g|); wc f32 [n, 64],
+    the distinct Wc_g one after another).
+    """
+    W = np.asarray(W, np.float32)
+    if W.ndim != 2 or W.shape[1] % 64:
+        raise ValueError(f"mega matrix of shape {W.shape} has no 64-column block groups")
+    rows, groups, mats = [], [], []
+    n_rows = n_wc = 0
+    for g in range(W.shape[1] // 64):
+        cols = W[:, 64 * g: 64 * g + 64]
+        s = np.flatnonzero((cols != 0).any(axis=1)).astype(np.int32)
+        wc_g = np.ascontiguousarray(cols[s])
+        wo = next((o for o, m in mats if m.shape == wc_g.shape and m.tobytes() == wc_g.tobytes()), None)
+        if wo is None:
+            wo = n_wc
+            mats.append((wo, wc_g))
+            n_wc += len(s)
+        groups.append((n_rows, wo, len(s)))
+        rows.append(s)
+        n_rows += len(s)
+    wc = np.concatenate([m for _, m in mats]) if n_wc else np.zeros((0, 64), np.float32)
+    return (np.concatenate(rows).astype(np.int32), np.asarray(groups, np.int32).reshape(-1, 3),
+            wc.astype(np.float32))
+
+
 # ---------------------------------------------------------------------------
-# Plain PyTorch symbol and pack stages (the kernel's twin)
+# Plain PyTorch symbol and pack stages (the kernel's plain version)
 # ---------------------------------------------------------------------------
 
 _U32 = 1 << 32
@@ -326,6 +364,10 @@ class JpegEncoder:
         if state is None:
             state = self._build_state()
         self.state = {k: state[k] for k in _STATE_KEYS}
+        if np.asarray(self.state["W"]).shape != jpeg_cuda.GEOMETRY[self.layout][:2]:
+            raise ValueError(f"mega matrix {np.asarray(self.state['W']).shape} does not fit "
+                             f"layout {self.layout}")
+        self.plan = support_plan(self.state["W"])
         self.qtab_luma = np.asarray(self.state["quant_luma"], np.int32)
         self.qtab_chroma = np.asarray(self.state["quant_chroma"], np.int32)
         self._header = self._build_header()
@@ -365,10 +407,23 @@ class JpegEncoder:
                 packed(*st["dc_luma"], 16), packed(*st["dc_chroma"], 16),
                 packed(*st["ac_luma"], 256), packed(*st["ac_chroma"], 256),
             ]).astype(np.int32)
+            rows, groups, wc = self.plan
+            # the plain chain, batched over groups: S_g padded at its end
+            # with row 0 at weight 0 (fma(x, 0, acc) == acc)
+            smax = int(groups[:, 2].max())
+            idx = np.zeros((len(groups), smax), np.int64)
+            wpad = np.zeros((smax, len(groups), 64), np.float32)
+            for g, (ro, wo, n) in enumerate(groups):
+                idx[g, :n] = rows[ro: ro + n]
+                wpad[:n, g] = wc[wo: wo + n]
             t = {
-                "W": torch.as_tensor(np.ascontiguousarray(st["W"], np.float32), device=device),
                 "const": torch.as_tensor(np.ascontiguousarray(st["const"], np.float32), device=device),
                 "huff": torch.as_tensor(huff, device=device),
+                "rows": torch.as_tensor(rows, device=device),
+                "groups": torch.as_tensor(groups, device=device),
+                "wc": torch.as_tensor(wc, device=device),
+                "plain_idx": torch.as_tensor(idx, device=device),
+                "plain_w": torch.as_tensor(wpad, device=device),
                 **{name: (i64(st[name][0]), i64(st[name][1]))
                    for name in ("dc_luma", "dc_chroma")},
                 # AC tables with their EOB and ZRL (code, length) as ints
@@ -503,18 +558,24 @@ class JpegEncoder:
 
         Content often puts a coefficient exactly on a .5 in exact arithmetic
         (the DCT rows are rational), so the f32 summation order decides its
-        rounding.  The product is therefore one fused multiply-add per k in
+        rounding.  The product is therefore one multiply-add chain per k in
         ascending k: the order of XLA's CPU dot (the reference) for 64 or
         more MCUs and of kernel K1.  ``torch.matmul`` agrees for K = 256 but
         not for the 4:2:0 matrix (K = 512), on the CPU or in cuBLAS.
+
+        The chain of block group g runs over S_g only (:func:`support_plan`):
+        the skipped rows of W are zero, and adding x * 0 leaves a sum as it
+        is, so this is the dense chain's result bit for bit at a quarter of
+        the work for 4:2:2.  Kernel K1 runs the same chain.
         """
         t = self.tables(frame.device)
         x = self.mcu_bytes(frame).to(torch.float32)
-        W = t["W"]
-        f = torch.zeros(x.shape[0], W.shape[1], dtype=torch.float32, device=x.device)
-        for k in range(W.shape[0]):
-            f = torch.addcmul(f, x[:, k: k + 1], W[k: k + 1])
-        return torch.round(f - t["const"]).to(torch.int64)
+        idx, wpad = t["plain_idx"], t["plain_w"]
+        xk = x[:, idx].permute(2, 0, 1).unsqueeze(-1).contiguous()  # [Smax, nmcu, G, 1]
+        f = torch.zeros(x.shape[0], idx.shape[0], 64, dtype=torch.float32, device=x.device)
+        for k in range(idx.shape[1]):
+            f = torch.addcmul(f, xk[k], wpad[k])
+        return torch.round(f.reshape(x.shape[0], -1) - t["const"]).to(torch.int64)
 
     def symbols_and_pack(self, q: torch.Tensor, wwords: int):
         """Coefficients -> (ys, ybits, us, ubits, vs, vbits, overflow)."""
@@ -550,7 +611,7 @@ class JpegEncoder:
             self._check_frame(frame)
             t = self.tables(frame.device)
             return jpeg_cuda.fused_encode(
-                frame, t["W"], t["const"], t["huff"], layout=self.layout,
+                frame, t["wc"], t["rows"], t["groups"], t["const"], t["huff"], layout=self.layout,
                 nmcux=self.nmcux, nmcuy=self.nmcuy,
                 restart_interval=self.restart_interval, wwords=self.wwords)
         if frame.device.type == "cpu":
@@ -565,11 +626,14 @@ class JpegEncoder:
 
     # -- public ---------------------------------------------------------
 
-    def encode(self, frame) -> np.ndarray:
-        """frame: uint8 [H, linesize] (tensor, encoded on its device, or
-        array, encoded on the CPU) -> np.uint8[1-D] complete JPEG file."""
+    def encode(self, frame, device="cuda") -> np.ndarray:
+        """frame: uint8 [H, linesize] -> np.uint8[1-D] complete JPEG file.
+
+        A tensor is encoded on its own device; an array is copied to
+        ``device`` (the card unless the caller names another) and encoded
+        there."""
         if not isinstance(frame, torch.Tensor):
-            frame = torch.as_tensor(np.asarray(frame))
+            frame = torch.as_tensor(np.asarray(frame), device=get_device(device))
         out = self._encode(frame)
         while bool(out[-1]) and self.wwords < 64:
             out = self.escalate_and_retry(frame)
@@ -583,11 +647,7 @@ class JpegEncoder:
     def assemble(self, ys, ybits, us, ubits, vs, vbits) -> np.ndarray:
         """Merge per-block slots into the stuffed entropy stream with the
         shared C assembler (``native/jpeg_assemble.c``)."""
-        from ultragrid_tpu.native import jpeg_assemble_lib
-
-        lib = jpeg_assemble_lib()
-        if lib is None:
-            raise RuntimeError("native jpeg_assemble library failed to build (needs cc)")
+        lib = native.jpeg_assemble_lib()
 
         def host(a, dt):
             a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)

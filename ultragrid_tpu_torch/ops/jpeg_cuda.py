@@ -1,7 +1,7 @@
 """Wrapper of kernel K1 (``csrc/jpeg_encode.cu``): the fused JPEG encode.
 
 Counterpart of ``ultragrid_tpu/ops/jpeg_pallas.py::make_fused_encode``.  The
-plain twin is :meth:`ultragrid_tpu_torch.ops.jpeg.JpegEncoder.encode_plain`;
+plain version is :meth:`ultragrid_tpu_torch.ops.jpeg.JpegEncoder.encode_plain`;
 :meth:`JpegEncoder._encode` calls this wrapper for CUDA tensors only.
 """
 
@@ -29,15 +29,17 @@ def _expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> No
             f"{t.dtype} {tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})")
 
 
-def fused_encode(frame: torch.Tensor, W: torch.Tensor, const: torch.Tensor,
-                 huff: torch.Tensor, *, layout: int, nmcux: int, nmcuy: int,
-                 restart_interval: int, wwords: int):
+def fused_encode(frame: torch.Tensor, wc: torch.Tensor, rows: torch.Tensor,
+                 groups: torch.Tensor, const: torch.Tensor, huff: torch.Tensor, *,
+                 layout: int, nmcux: int, nmcuy: int, restart_interval: int, wwords: int):
     """One launch of K1 over a whole frame.
 
-    frame: uint8 [H, linesize] on a CUDA device; W f32 [K, NC]; const f32
-    [NC]; huff int32 [544] = (code << 5) | length for DC luma[16], DC
-    chroma[16], AC luma[256], AC chroma[256].  Returns (ys, ybits, us,
-    ubits, vs, vbits, overflow) with the plain path's shapes and dtypes.
+    frame: uint8 [H, linesize] on a CUDA device; (rows int32 [n], groups
+    int32 [blocks per MCU, 3], wc f32 [n_wc, 64]) the plan of
+    :func:`ultragrid_tpu_torch.ops.jpeg.support_plan`; const f32 [NC]; huff
+    int32 [544] = (code << 5) | length for DC luma[16], DC chroma[16], AC
+    luma[256], AC chroma[256].  Returns (ys, ybits, us, ubits, vs, vbits,
+    overflow) with the plain path's shapes and dtypes.
     """
     if not frame.is_cuda:
         raise ValueError("fused_encode needs a CUDA tensor; the CPU uses JpegEncoder.encode_plain")
@@ -49,7 +51,10 @@ def fused_encode(frame: torch.Tensor, W: torch.Tensor, const: torch.Tensor,
         raise ValueError(f"frame: expected contiguous uint8 [H, linesize], got {frame.dtype} {tuple(frame.shape)}")
     if frame.shape[0] != nmcuy * mcu_h or frame.shape[1] < nmcux * bpr:
         raise ValueError(f"frame shape {tuple(frame.shape)} too small for {nmcux}x{nmcuy} MCUs")
-    _expect(W, "W", torch.float32, (K, NC), dev)
+    bpm = NC // 64
+    _expect(groups, "groups", torch.int32, (bpm, 3), dev)
+    _expect(rows, "rows", torch.int32, (rows.shape[0],), dev)
+    _expect(wc, "wc", torch.float32, (wc.shape[0], 64), dev)
     _expect(const, "const", torch.float32, (NC,), dev)
     _expect(huff, "huff", torch.int32, (544,), dev)
     if not 1 <= wwords <= 64 or restart_interval < 1:
@@ -62,15 +67,16 @@ def fused_encode(frame: torch.Tensor, W: torch.Tensor, const: torch.Tensor,
     ubits = torch.empty(nmcu, dtype=torch.int32, device=dev)
     vs = torch.empty(nmcu, wwords, dtype=torch.int32, device=dev)
     vbits = torch.empty(nmcu, dtype=torch.int32, device=dev)
-    ovf = torch.zeros(1, dtype=torch.int32, device=dev)
+    ovf = torch.zeros(1, dtype=torch.bool, device=dev)
     lib = _build.kernels_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ug_jpeg_encode(
-            frame.data_ptr(), frame.shape[1], W.data_ptr(), const.data_ptr(),
+            frame.data_ptr(), frame.shape[1], wc.data_ptr(), wc.shape[0],
+            rows.data_ptr(), rows.shape[0], groups.data_ptr(), const.data_ptr(),
             huff.data_ptr(), ys.data_ptr(), ybits.data_ptr(), us.data_ptr(),
             ubits.data_ptr(), vs.data_ptr(), vbits.data_ptr(), ovf.data_ptr(),
             layout, nmcux, nmcu, restart_interval, wwords, stream)
     _build.check(err, "jpeg_encode launch")
     LAUNCHES.count += 1
-    return ys, ybits, us, ubits, vs, vbits, ovf[0] != 0
+    return ys, ybits, us, ubits, vs, vbits, ovf[0]
