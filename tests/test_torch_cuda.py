@@ -1,4 +1,5 @@
-"""Kernels K1 and K2 on the card against their plain PyTorch twins.
+"""Kernels K1 and K2 on the card against their plain PyTorch twins, and the
+receive path on the card against the CPU.
 
 Needs a CUDA card and nvcc; skips without a card.  On the card's machine
 (which has no jax, so the JAX conftest must stay out):
@@ -7,8 +8,10 @@ Needs a CUDA card and nvcc; skips without a card.  On the card's machine
 
 K1 sums each coefficient as a fused multiply-add chain over the non-zero
 rows of its block group in ascending k, the order of the plain front end, so
-both are bit-equal even under the real mega matrix; K2 is integer work.
-Tolerance: exact equality.
+both are bit-equal even under the real mega matrix; K2 and the peel are
+integer work.  Tolerance: exact equality, except the JPEG decode, whose
+float32 product on the card is ``torch.matmul``: at most 0.1% of the output
+bytes may differ from the CPU's chain, each by at most 1.
 """
 
 import numpy as np
@@ -17,9 +20,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from ultragrid_tpu_torch.models.encode import EncodeConfig, EncodePipeline  # noqa: E402
+from ultragrid_tpu_torch.modules.video_decompress import JpegDecompress  # noqa: E402
 from ultragrid_tpu_torch.ops import fec, jpeg_cuda  # noqa: E402
 from ultragrid_tpu_torch.ops.jpeg import JpegEncoder  # noqa: E402
-from ultragrid_tpu_torch.types import Codec, VideoDesc, vc_get_linesize  # noqa: E402
+from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame, vc_get_linesize  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -127,3 +131,92 @@ def test_pipeline_never_moves_a_tensor_between_devices(cuda):
     assert (jpeg_cuda.LAUNCHES.count, fec.LAUNCHES.count) == (before[0] + 1, before[1] + 1)
     for a, b in zip(outs, on_card(torch.as_tensor(frame).to(cuda))):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k,m,c,ps", [
+    (256, 26, 5, 1880),  # the 1080p receive path
+    (512, 384, 5, 1000),  # the default spec
+    (1500, 750, 8, 120),  # the tallest suggested configurations
+    (1500, 1500, 8, 2768),
+    (6000, 3000, 8, 692),  # past the default layout: the TALL variant
+])
+def test_k2_both_staircases_match_plain(cuda, k, m, c, ps):
+    sess = fec.LdgmSession(k, m, c)
+    gen = torch.Generator().manual_seed(k + m)
+    block = torch.randint(0, 256, (k + m, ps), dtype=torch.uint8, generator=gen).to(cuda)
+    words = fec.symbol_words(block)
+    par, _ = sess.peel_parity(words.shape[1], cuda)
+    before = fec.LAUNCHES.count
+    got = par(words)
+    assert fec.LAUNCHES.count == before + 1
+    assert torch.equal(got, par.plain(words))
+    enc = sess.encode_device(block[:k])
+    assert fec.LAUNCHES.count == before + 2
+    want = fec.Gf2Parity(sess.matrix, words.shape[1]).plain(words[:k].contiguous())
+    assert torch.equal(enc, want.view(torch.uint8)[:, :ps])
+
+
+@pytest.mark.parametrize("trial,nloss", [(0, 5), (1, 12), (2, 16), (3, 30)])
+def test_peel_on_card_equals_cpu(cuda, trial, nloss):
+    sess = fec.LdgmSession(64, 16, 5)
+    frame = np.random.default_rng(3).integers(0, 256, 5001, dtype=np.uint8)
+    buf, desc = sess.encode(frame)
+    sym = buf.reshape(-1, desc.symbol_size).copy()
+    r = np.random.default_rng(trial)
+    present = np.ones(sym.shape[0], bool)
+    present[r.choice(sym.shape[0], nloss, replace=False)] = False
+    want = sess.decode_device(sym, present, device="cpu")
+    rounds = sess.rounds
+    before = fec.LAUNCHES.count
+    got = sess.decode_device(torch.as_tensor(sym).to(cuda), present)
+    assert sess.rounds == rounds and fec.LAUNCHES.count == before + rounds
+    assert (got is None) == (want is None)
+    if want is not None:
+        assert np.array_equal(got, want) and np.array_equal(got, frame)
+
+
+@pytest.mark.parametrize("w,h,q,sub,out_codec", [
+    (1920, 1088, 80, "422", Codec.UYVY), (1920, 1088, 80, "420", Codec.UYVY),
+    (1920, 1088, 80, "422", Codec.RGB),
+    (512, 128, 100, "422", Codec.UYVY),  # noise at q100: the int16 upload
+])
+def test_decode_on_card_within_tolerance_of_cpu(cuda, w, h, q, sub, out_codec):
+    if q == 100:
+        src = np.random.default_rng(0).integers(0, 256, (h, 2 * w), dtype=np.uint8)
+    else:
+        src = content(w, h, Codec.UYVY, 9)
+    data = JpegEncoder(w, h, quality=q, subsampling=sub).encode(src, device="cpu")
+    frame = VideoFrame(VideoDesc(w, h, Codec.JPEG, 60.0), [data])
+    got = JpegDecompress().decompress(frame, out_codec).data
+    want = JpegDecompress(device="cpu").decompress(frame, out_codec).data
+    assert got.is_cuda and got.shape == want.shape
+    d = (got.cpu().long() - want.long()).abs()
+    assert int(d.max()) <= 1 and int((d != 0).sum()) <= 0.001 * d.numel()
+
+
+def test_truncated_stream_on_card_as_on_cpu(cuda):
+    data = JpegEncoder(256, 64).encode(content(256, 64, Codec.UYVY, 2), device="cpu")
+    for cut, want in ((data[:-2], None), (data[: len(data) // 2], IndexError)):
+        frame = VideoFrame(VideoDesc(256, 64, Codec.JPEG, 60.0), [cut])
+        if want is not None:
+            for dev in ("cuda", "cpu"):
+                with pytest.raises(want):
+                    JpegDecompress(device=dev).decompress(frame, Codec.UYVY)
+            continue
+        got = JpegDecompress().decompress(frame, Codec.UYVY).data
+        assert got.is_cuda
+        d = (got.cpu().long() - JpegDecompress(device="cpu").decompress(frame, Codec.UYVY).data.long()).abs()
+        assert int(d.max()) <= 1 and int((d != 0).sum()) <= 0.001 * d.numel()
+
+
+def test_rs_encode_on_card_equals_cpu(cuda):
+    sess = fec.RsSession(200, 240)
+    payload = np.random.default_rng(6).integers(0, 256, 150000, dtype=np.uint8)
+    got, desc = sess.encode(payload)
+    want, _ = sess.encode(payload, device="cpu")
+    assert np.array_equal(got, want)
+    sym = got.reshape(240, desc.symbol_size).copy()
+    present = np.ones(240, bool)
+    present[np.random.default_rng(1).choice(240, 40, replace=False)] = False
+    sym[~present] = 0
+    assert np.array_equal(sess.decode(sym, present), payload)

@@ -3,7 +3,7 @@
 A subprocess blocks ``jax`` and ``ultragrid_tpu`` in ``sys.modules`` (so any
 import of either, direct or indirect, fails) and drives the port with its own
 types.  A source scan rejects any ``import`` of either in the port,
-``chip_smoke.py`` and ``chip_profile.py``.
+``chip_smoke.py``, ``chip_profile.py`` and ``chip_phases.py``.
 """
 
 import os
@@ -27,7 +27,10 @@ import ultragrid_tpu_torch
 from ultragrid_tpu_torch import Codec, VideoDesc, VideoFrame, get_device
 from ultragrid_tpu_torch.models.encode import EncodeConfig, EncodePipeline
 from ultragrid_tpu_torch.modules.video_compress import JpegCompress
+from ultragrid_tpu_torch.modules.video_decompress import JpegDecompress
 from ultragrid_tpu_torch.ops import fec, jpeg_cuda
+from ultragrid_tpu_torch.ops.fec import LdgmSession, RsSession, fec_from_spec
+from ultragrid_tpu_torch.ops.jpeg import JpegDecoder, decode_jpeg_device, decode_jpeg_to_frame
 
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 if not torch.cuda.is_available():
@@ -44,8 +47,13 @@ frame = np.random.default_rng(0).integers(0, 256, (32, 128), dtype=np.uint8)
 if not torch.cuda.is_available():
     # the entry points select the card by default
     from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
+    sess = LdgmSession(32, 16, 5)
+    sym = np.zeros((48, 8), np.uint8)
     for make in (lambda: EncodePipeline(desc, EncodeConfig(compress="jpeg")),
-                 lambda: JpegCompress("80"), lambda: JpegEncoder(64, 32).encode(frame)):
+                 lambda: JpegCompress("80"), lambda: JpegEncoder(64, 32).encode(frame),
+                 lambda: JpegDecompress(), lambda: JpegDecoder(),
+                 lambda: sess.decode_device(sym, np.ones(48, bool)),
+                 lambda: sess.encode_device(sym[:32]), lambda: RsSession(4, 6).encode(sym[0])):
         try:
             make()
         except RuntimeError:
@@ -56,6 +64,21 @@ out = EncodePipeline(desc, EncodeConfig(compress="jpeg", fec="ldgm:32:16:5"), de
 assert len(out) == 8 and tuple(out[6].shape)[0] == 16
 jpg = JpegCompress("80", device="cpu").compress(VideoFrame(desc, [frame])).data
 assert bytes(jpg[:2]) == b"\xff\xd8" and bytes(jpg[-2:]) == b"\xff\xd9"
+# the receive path on the CPU: LDGM over the file, two symbols lost, the
+# peel, the decode to UYVY and to RGB
+sess = fec_from_spec("ldgm:32:16:5")
+buf, fd = sess.encode(jpg)
+sym = buf.reshape(48, fd.symbol_size).copy()
+present = np.ones(48, bool)
+present[[1, 7]] = False
+sym[~present] = 0
+rec = sess.decode_device(sym, present, device="cpu")
+assert np.array_equal(rec, jpg)
+uyvy = JpegDecompress(device="cpu").decompress(VideoFrame(desc.with_(color_spec=Codec.JPEG), [rec]), Codec.UYVY)
+assert tuple(uyvy.data.shape) == (32, 128) and uyvy.data.dtype == torch.uint8
+rgb = decode_jpeg_to_frame(VideoFrame(desc.with_(color_spec=Codec.JPEG), [rec]), Codec.RGB, device="cpu")
+assert tuple(rgb.data.shape) == (32, 192)
+assert decode_jpeg_device(bytes(rec), device="cpu")[1:3] == (32, 64)
 assert jpeg_cuda.LAUNCHES.count == 0 and fec.LAUNCHES.count == 0
 loaded = [m for m, mod in sys.modules.items()
           if m.split(".")[0] in ("jax", "ultragrid_tpu") and mod is not None]
@@ -76,7 +99,7 @@ def test_port_sources_never_name_jax():
     pkg = ROOT / "ultragrid_tpu_torch"
     # build/ holds compiled kernels (and may hold an unpacked checkout)
     sources = [p for p in pkg.rglob("*.py") if "build" not in p.relative_to(pkg).parts]
-    sources += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
+    sources += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py", ROOT / "chip_phases.py"]
     assert sources
     for path in sources:
         for line in path.read_text().splitlines():

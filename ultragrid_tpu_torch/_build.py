@@ -44,8 +44,8 @@ _SIGNATURES = {
                        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _I, _P],
     # part pointers, part words, part first rows (host arrays), nparts, psw,
-    # row_ptr, cols, m, nnz, out, stream
-    "ug_gf2_parity": [_P, _P, _P, _I, _L, _P, _P, _I, _I, _P, _P],
+    # row_ptr, cols, m, nnz, staircase, out, stream
+    "ug_gf2_parity": [_P, _P, _P, _I, _L, _P, _P, _I, _I, _I, _P, _P],
 }
 
 

@@ -77,9 +77,13 @@ def state_from_reference(arrays: dict) -> dict:
     ``arrays`` holds a reference ``JpegEncoder``'s attributes under their
     names (``_mega`` = (W, const, bytes per MCU row), ``_dc_l``, ``_dc_c``,
     ``_ac_l``, ``_ac_c`` = (codes, lens), ``qtab_luma``, ``qtab_chroma``) and,
-    for an LDGM pipeline, ``ldgm_mask`` [m, k] (``build_ldgm_matrix``).
-    Returns the dict that ``EncodePipeline(..., state=)`` and
-    ``JpegEncoder(..., state=)`` take.
+    for an LDGM pipeline, ``ldgm_mask`` [m, k] (``build_ldgm_matrix``, the
+    reference ``LdgmSession.matrix``); optionally ``rs_bitmat``, a reference
+    ``RsSession._bitmat``.  Returns the dict that ``EncodePipeline(...,
+    state=)`` and ``JpegEncoder(..., state=)`` take.  The port's sessions
+    compute with the reference's matrices when given them:
+    ``LdgmSession(k, m, c, matrix=state["ldgm_mask"])``,
+    ``RsSession(k, n, bitmat=state["rs_bitmat"])``.
     """
     W, const = arrays["_mega"][0], arrays["_mega"][1]
 
@@ -98,6 +102,8 @@ def state_from_reference(arrays: dict) -> dict:
         raise ValueError(f"mega matrix {W.shape} and constant {const.shape} disagree")
     if "ldgm_mask" in arrays:
         state["ldgm_mask"] = np.array(arrays["ldgm_mask"], np.uint8)
+    if "rs_bitmat" in arrays:
+        state["rs_bitmat"] = np.array(arrays["rs_bitmat"], np.float32)
     return state
 
 

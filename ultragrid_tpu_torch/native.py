@@ -1,10 +1,12 @@
 """The port's loader for the host C stages in the repository's ``native/``.
 
-``native/jpeg_assemble.c`` (slots -> byte-stuffed JPEG entropy stream) and
-``native/ldgm_xor.c`` (the host LDGM staircase encoder) are plain C shared
-with the JAX package.  ``cc`` builds each into ``build/`` (gitignored) under
-a content hash of the source and the flags; a failed build raises, since the
-port has no Python fallback for either.
+``native/jpeg_assemble.c`` (slots -> byte-stuffed JPEG entropy stream),
+``native/jpeg_scan_decode.c`` (the receiver's entropy decode, restart
+segments across host threads) and ``native/ldgm_xor.c`` (the host LDGM
+staircase encoder) are plain C shared with the JAX package.  ``cc`` builds
+each into ``build/`` (gitignored) under a content hash of the source and the
+flags; a failed build raises, since the port has no Python fallback for any
+of them.
 """
 
 from __future__ import annotations
@@ -26,19 +28,19 @@ _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 
 
-def _build(name: str) -> str:
+def _build(name: str, link_flags=()) -> str:
     src = os.path.join(_NATIVE_DIR, name + ".c")
     h = hashlib.sha256()
     with open(src, "rb") as f:
         h.update(f.read())
-    h.update(" ".join(_CFLAGS).encode())
+    h.update(" ".join([*_CFLAGS, *link_flags]).encode())
     so_path = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
     if os.path.exists(so_path):
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = ["cc", *_CFLAGS, "-o", tmp, src]
+    cmd = ["cc", *_CFLAGS, "-o", tmp, src, *link_flags]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True)
     except FileNotFoundError as e:
@@ -56,6 +58,20 @@ def jpeg_assemble_lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(_build("jpeg_assemble"))
     lib.jpeg_assemble_3c.restype = _I64
     lib.jpeg_assemble_3c.argtypes = [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I64, _P, _I64]
+    return lib
+
+
+@lru_cache(maxsize=None)
+def jpeg_scan_decode_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(_build("jpeg_scan_decode", ["-lpthread"]))
+    lib.jpeg_scan_decode_mt.restype = _I64
+    # data, size, tables, ncomp, comp_ntab, comp_nblocks, nmcu,
+    # restart_interval, int16 outputs (array of pointers), threads
+    lib.jpeg_scan_decode_mt.argtypes = [_P, _I64, _P, _I32, _P, _P, _I64, _I32, _P, ctypes.c_int]
+    lib.jpeg_scan_decode_packed_mt.restype = _I64
+    # ... as above, then lo, dc, exc_idx, exc_delta, exc_cap, &exc_count, threads
+    lib.jpeg_scan_decode_packed_mt.argtypes = [_P, _I64, _P, _I32, _P, _P, _I64, _I32,
+                                               _P, _P, _P, _P, _I64, _P, ctypes.c_int]
     return lib
 
 

@@ -25,6 +25,7 @@ reference's bit for bit.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -33,7 +34,7 @@ import torch
 from ultragrid_tpu_torch import native
 from ultragrid_tpu_torch.device import get_device
 from ultragrid_tpu_torch.ops import jpeg_cuda
-from ultragrid_tpu_torch.types import Codec
+from ultragrid_tpu_torch.types import Codec, VideoFrame
 
 # ---------------------------------------------------------------------------
 # Tables (JPEG Annex K)
@@ -675,3 +676,677 @@ class JpegEncoder:
             out = np.empty(int(n), dtype=np.uint8)
             n = call(int(n))
         return out[:n]
+
+
+# ---------------------------------------------------------------------------
+# Host pure-Python decoder (the reference's path for a stream the C scan
+# decoder rejects; also an independent test oracle)
+# ---------------------------------------------------------------------------
+
+
+class _BitReader:
+    def __init__(self, data: bytes):
+        self.data = data
+        self.pos = 0
+        self.bitbuf = 0
+        self.bitcnt = 0
+
+    def align(self):
+        self.bitbuf = 0
+        self.bitcnt = 0
+
+    def read_bit(self) -> int:
+        if self.bitcnt == 0:
+            b = self.data[self.pos]
+            self.pos += 1
+            if b == 0xFF:
+                nxt = self.data[self.pos]
+                if nxt == 0x00:
+                    self.pos += 1
+                else:
+                    raise EOFError("marker in entropy stream")
+            self.bitbuf = b
+            self.bitcnt = 8
+        self.bitcnt -= 1
+        return (self.bitbuf >> self.bitcnt) & 1
+
+
+def _huff_decode_map(bits, vals):
+    table = {}
+    code = 0
+    k = 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            table[(length, code)] = vals[k]
+            code += 1
+            k += 1
+        code <<= 1
+    return table
+
+
+def idct_matrix_64() -> np.ndarray:
+    """Inverse of :func:`dct_matrix_64` in float64, as float32 (the
+    reference's ``np.linalg.inv(dct_matrix_64())`` of the device decoder)."""
+    return np.linalg.inv(dct_matrix_64().astype(np.float64)).astype(np.float32)
+
+
+def decode_jpeg(data: bytes, collect_coeffs: bool = False):
+    """Minimal baseline JPEG decoder in numpy (reference ``decode_jpeg``,
+    ops/jpeg.py:1034); returns (comps, H, W, sampling).
+
+    comps: list of per-component planes (float, after dequant+IDCT, range
+    0..255) at their sampled resolution.
+    """
+    pos = 2  # skip SOI
+    qtabs = {}
+    htabs = {}
+    ri = 0
+    comps_info = []
+    h_img = w_img = 0
+    while True:
+        if data[pos] != 0xFF:
+            raise ValueError(f"expected a marker at {pos}, found {data[pos]:#x}")
+        m = data[pos + 1]
+        pos += 2
+        if m == 0xD9:
+            break
+        ln = int.from_bytes(data[pos: pos + 2], "big")
+        payload = data[pos + 2: pos + ln]
+        if m == 0xDB:
+            p = 0
+            while p < len(payload):
+                tid = payload[p] & 0xF
+                if payload[p] >> 4:
+                    raise ValueError("16-bit quantisation tables are not baseline")
+                tab = np.zeros(64, np.int32)
+                tab[ZIGZAG] = np.frombuffer(payload[p + 1: p + 65], np.uint8)
+                qtabs[tid] = tab
+                p += 65
+        elif m == 0xC4:
+            p = 0
+            while p < len(payload):
+                tc = payload[p] >> 4
+                th = payload[p] & 0xF
+                bits = list(payload[p + 1: p + 17])
+                nv = sum(bits)
+                vals = list(payload[p + 17: p + 17 + nv])
+                htabs[(tc, th)] = _huff_decode_map(bits, vals)
+                p += 17 + nv
+        elif m == 0xC0:
+            h_img = int.from_bytes(payload[1:3], "big")
+            w_img = int.from_bytes(payload[3:5], "big")
+            nc = payload[5]
+            for c in range(nc):
+                cid = payload[6 + 3 * c]
+                hv = payload[7 + 3 * c]
+                tq = payload[8 + 3 * c]
+                comps_info.append({"id": cid, "h": hv >> 4, "v": hv & 0xF, "tq": tq})
+        elif m == 0xDD:
+            ri = int.from_bytes(payload[:2], "big")
+        elif m == 0xDA:
+            ns = payload[0]
+            scan = []
+            for c in range(ns):
+                cs = payload[1 + 2 * c]
+                tt = payload[2 + 2 * c]
+                info = next(ci for ci in comps_info if ci["id"] == cs)
+                scan.append({**info, "td": tt >> 4, "ta": tt & 0xF})
+            pos += ln
+            return _decode_scan(data, pos, scan, qtabs, htabs, ri, h_img, w_img,
+                                collect_coeffs=collect_coeffs)
+        pos += ln
+    raise ValueError("no scan found")
+
+
+def _decode_scan(data, pos, scan, qtabs, htabs, ri, h_img, w_img, collect_coeffs=False):
+    hmax = max(c["h"] for c in scan)
+    vmax = max(c["v"] for c in scan)
+    mcu_w, mcu_h = 8 * hmax, 8 * vmax
+    nmcux = (w_img + mcu_w - 1) // mcu_w
+    nmcuy = (h_img + mcu_h - 1) // mcu_h
+    nmcu = nmcux * nmcuy
+    idct_m = np.linalg.inv(dct_matrix_64().astype(np.float64))
+    planes = [
+        np.zeros((nmcuy * 8 * c["v"], nmcux * 8 * c["h"]), np.float64) for c in scan
+    ]
+    coeff_lists = [[] for _ in scan]  # per-component quantized zigzag coeffs
+    preds = [0] * len(scan)
+    reader = _BitReader(data)
+    reader.pos = pos
+
+    def read_huff(table):
+        code = 0
+        for length in range(1, 17):
+            code = (code << 1) | reader.read_bit()
+            if (length, code) in table:
+                return table[(length, code)]
+        raise ValueError("bad huffman code")
+
+    def receive_extend(s):
+        if s == 0:
+            return 0
+        v = 0
+        for _ in range(s):
+            v = (v << 1) | reader.read_bit()
+        if v < (1 << (s - 1)):
+            v -= (1 << s) - 1
+        return v
+
+    for m in range(nmcu):
+        if ri and m and m % ri == 0:
+            # expect RST marker
+            reader.align()
+            if not (data[reader.pos] == 0xFF and 0xD0 <= data[reader.pos + 1] <= 0xD7):
+                raise ValueError(f"expected a restart marker at {reader.pos}")
+            reader.pos += 2
+            preds = [0] * len(scan)
+        my, mx = divmod(m, nmcux)
+        for ci, comp in enumerate(scan):
+            for by in range(comp["v"]):
+                for bx in range(comp["h"]):
+                    dctab = htabs[(0, comp["td"])]
+                    actab = htabs[(1, comp["ta"])]
+                    s = read_huff(dctab)
+                    diff = receive_extend(s)
+                    preds[ci] += diff
+                    zzvals = np.zeros(64, np.int64)
+                    zzvals[0] = preds[ci]
+                    k = 1
+                    while k < 64:
+                        rs = read_huff(actab)
+                        r, s = rs >> 4, rs & 0xF
+                        if s == 0:
+                            if r == 15:
+                                k += 16
+                                continue
+                            break
+                        k += r
+                        zzvals[k] = receive_extend(s)
+                        k += 1
+                    if collect_coeffs:
+                        coeff_lists[ci].append(zzvals.copy())
+                    # dequant: zzvals are in zigzag order; map back to raster
+                    deq = np.zeros(64, np.float64)
+                    deq[ZIGZAG] = zzvals * qtabs[comp["tq"]][ZIGZAG]
+                    px = idct_m @ deq
+                    blk = px.reshape(8, 8) + 128.0
+                    yy = (my * comp["v"] + by) * 8
+                    xx = (mx * comp["h"] + bx) * 8
+                    planes[ci][yy: yy + 8, xx: xx + 8] = blk
+    if collect_coeffs:
+        coeffs = [np.array(cl, dtype=np.int64) for cl in coeff_lists]
+        return planes, h_img, w_img, [(c["h"], c["v"]) for c in scan], coeffs
+    return planes, h_img, w_img, [(c["h"], c["v"]) for c in scan]
+
+
+# ---------------------------------------------------------------------------
+# Split JPEG decoder: C entropy decode + dequant/IDCT/pack on tensors
+# ---------------------------------------------------------------------------
+
+
+def _parse_headers(data: bytes):
+    """Parse markers up to SOS; returns dict + scan data offset (reference
+    ops/jpeg.py:1256)."""
+    pos = 2
+    qtabs = {}
+    htabs_raw = {}
+    ri = 0
+    comps_info = []
+    h_img = w_img = 0
+    while pos < len(data):
+        if data[pos] != 0xFF:
+            raise ValueError(f"expected a marker at {pos}, found {data[pos]:#x}")
+        m = data[pos + 1]
+        pos += 2
+        if m == 0xD9:
+            break
+        ln = int.from_bytes(data[pos: pos + 2], "big")
+        payload = data[pos + 2: pos + ln]
+        if m == 0xDB:
+            p = 0
+            while p < len(payload):
+                tid = payload[p] & 0xF
+                tab = np.zeros(64, np.int32)
+                tab[ZIGZAG] = np.frombuffer(payload[p + 1: p + 65], np.uint8)
+                qtabs[tid] = tab
+                p += 65
+        elif m == 0xC4:
+            p = 0
+            while p < len(payload):
+                tc = payload[p] >> 4
+                th = payload[p] & 0xF
+                bits = bytes(payload[p + 1: p + 17])
+                nv = sum(bits)
+                vals = bytes(payload[p + 17: p + 17 + nv])
+                htabs_raw[(tc, th)] = (bits, vals)
+                p += 17 + nv
+        elif m == 0xC0:
+            h_img = int.from_bytes(payload[1:3], "big")
+            w_img = int.from_bytes(payload[3:5], "big")
+            nc = payload[5]
+            for c in range(nc):
+                comps_info.append(
+                    {
+                        "id": payload[6 + 3 * c],
+                        "h": payload[7 + 3 * c] >> 4,
+                        "v": payload[7 + 3 * c] & 0xF,
+                        "tq": payload[8 + 3 * c],
+                    }
+                )
+        elif m == 0xDD:
+            ri = int.from_bytes(payload[:2], "big")
+        elif m == 0xDA:
+            ns = payload[0]
+            scan = []
+            for c in range(ns):
+                cs = payload[1 + 2 * c]
+                tt = payload[2 + 2 * c]
+                info = next(ci for ci in comps_info if ci["id"] == cs)
+                scan.append({**info, "td": tt >> 4, "ta": tt & 0xF})
+            return {
+                "qtabs": qtabs, "htabs": htabs_raw, "ri": ri, "scan": scan,
+                "h": h_img, "w": w_img, "scan_start": pos + ln,
+            }
+        pos += ln
+    raise ValueError("no scan found")
+
+
+# range-packed coefficient upload: max exceptions (|coeff| > 127) per frame
+# before the int16 path takes over
+_EXC_CAP = 4096
+
+
+def _scan_threads() -> int:
+    return min(os.cpu_count() or 1, 16)
+
+
+def _scan_tables(hdr) -> np.ndarray:
+    """The Huffman tables in the C decoder's layout: 4 slots x (16 BITS +
+    256 HUFFVAL), slot = table id * 2 + class."""
+    tables = np.zeros((4, 272), np.uint8)
+    for (tc, th), (bits, vals) in hdr["htabs"].items():
+        slot = th * 2 + tc
+        tables[slot, :16] = np.frombuffer(bits, np.uint8)
+        tables[slot, 16: 16 + len(vals)] = np.frombuffer(vals, np.uint8)
+    return tables
+
+
+def _is_422(hdr) -> bool:
+    scan = hdr["scan"]
+    return len(scan) == 3 and [(c["h"], c["v"]) for c in scan] == [(2, 1), (1, 1), (1, 1)]
+
+
+def _scan_decode_int16(data: bytes, hdr, nmcu: int):
+    """C scan decode (restart segments across host threads) into int16
+    [nmcu * blocks, 64] zigzag coefficients per component, blocks ordered by
+    MCU.  Raises ValueError where the decoder stops early."""
+    scan = hdr["scan"]
+    tables = _scan_tables(hdr)
+    comp_ntab = np.array([c["td"] for c in scan], np.int32)
+    comp_nblocks = np.array([c["h"] * c["v"] for c in scan], np.int32)
+    outs = [np.zeros((nmcu * int(nb), 64), np.int16) for nb in comp_nblocks]
+    ptrs = np.array([o.ctypes.data for o in outs], np.uintp)
+    body = np.frombuffer(data, np.uint8, offset=hdr["scan_start"])
+    done = native.jpeg_scan_decode_lib().jpeg_scan_decode_mt(
+        body.ctypes.data, body.size, tables.ctypes.data,
+        len(scan), comp_ntab.ctypes.data, comp_nblocks.ctypes.data,
+        nmcu, hdr["ri"], ptrs.ctypes.data, _scan_threads(),
+    )
+    if done != nmcu:
+        raise ValueError(f"scan decode stopped at MCU {done}/{nmcu}")
+    return outs
+
+
+def entropy_decode_422(data: bytes):
+    """Host half of the split JPEG decoder for 4:2:2 3-component streams
+    (reference ops/jpeg.py:1326).
+
+    Returns (hdr, [cy, cu, cv] int16 [nblocks, 64], nmcux, nmcuy), or None
+    when the stream is not 4:2:2 with three components."""
+    hdr = _parse_headers(data)
+    if not _is_422(hdr):
+        return None
+    nmcux = (hdr["w"] + 15) // 16
+    nmcuy = (hdr["h"] + 7) // 8
+    return hdr, _scan_decode_int16(data, hdr, nmcux * nmcuy), nmcux, nmcuy
+
+
+def entropy_decode_422_packed(data: bytes):
+    """Packed host half for 4:2:2 3-component streams (reference
+    ops/jpeg.py:1374): the C decoder emits the upload layout directly, flat
+    int8 ACs (components concatenated, zigzag), an int16 DC column and the
+    (index, delta) exception list of the coefficients that do not fit int8.
+
+    Returns (hdr, lo int8 [n*64], dc int16 [n], exc_idx, exc_delta, count,
+    nmcux, nmcuy), or None when the stream is not 4:2:2 or has more than
+    ``_EXC_CAP`` exceptions (the int16 path, :func:`entropy_decode_422`,
+    takes those)."""
+    hdr = _parse_headers(data)
+    if not _is_422(hdr):
+        return None
+    scan = hdr["scan"]
+    nmcux = (hdr["w"] + 15) // 16
+    nmcuy = (hdr["h"] + 7) // 8
+    nmcu = nmcux * nmcuy
+    tables = _scan_tables(hdr)
+    comp_ntab = np.array([c["td"] for c in scan], np.int32)
+    comp_nblocks = np.array([c["h"] * c["v"] for c in scan], np.int32)
+    nblocks = nmcu * 4  # 2 luma + 1 Cb + 1 Cr per 16x8 MCU
+    lo = np.empty(nblocks * 64, np.int8)
+    dc = np.empty(nblocks, np.int16)
+    nthreads = _scan_threads()
+    exc_idx = np.empty(nthreads * _EXC_CAP, np.int32)
+    exc_dv = np.empty(nthreads * _EXC_CAP, np.int32)
+    exc_count = np.zeros(1, np.int64)
+    body = np.frombuffer(data, np.uint8, offset=hdr["scan_start"])
+    done = native.jpeg_scan_decode_lib().jpeg_scan_decode_packed_mt(
+        body.ctypes.data, body.size, tables.ctypes.data,
+        len(scan), comp_ntab.ctypes.data, comp_nblocks.ctypes.data,
+        nmcu, hdr["ri"], lo.ctypes.data, dc.ctypes.data,
+        exc_idx.ctypes.data, exc_dv.ctypes.data, _EXC_CAP,
+        exc_count.ctypes.data, nthreads,
+    )
+    if done != nmcu:
+        raise ValueError(f"scan decode stopped at MCU {done}/{nmcu}")
+    count = int(exc_count[0])
+    if count < 0 or count > _EXC_CAP:
+        return None  # fat frame: the int16 path handles it
+    return hdr, lo, dc, exc_idx, exc_dv, count, nmcux, nmcuy
+
+
+def reverse_mega_matrix(qtab_luma, qtab_chroma) -> np.ndarray:
+    """The decoder's [256, 256] float32 matrix (reference
+    ``_make_mega_uyvy_fn``, ops/jpeg.py:1541-1558): row = coefficient lane
+    [Y left | Y right | U | V] x 64 in zigzag order, column = byte of the
+    16x8 MCU's 8 rows x 32 UYVY bytes.  It folds dequantisation (the
+    tables in raster order, as the DQT segment gives them), de-zigzag, the
+    inverse DCT and the byte interleave; each entry is ``q[k] * idct`` in
+    float32."""
+    qy = np.asarray(qtab_luma)[ZIGZAG].astype(np.float32)
+    qc = np.asarray(qtab_chroma)[ZIGZAG].astype(np.float32)
+    v = idct_matrix_64()[:, ZIGZAG].T  # [k, r * 8 + c]
+    r, c = np.divmod(np.arange(64), 8)
+    W = np.zeros((256, 256), np.float32)
+    W[0:64, r * 32 + 2 * c + 1] = qy[:, None] * v  # Y left
+    W[64:128, r * 32 + 16 + 2 * c + 1] = qy[:, None] * v  # Y right
+    W[128:192, r * 32 + 4 * c] = qc[:, None] * v  # U
+    W[192:256, r * 32 + 4 * c + 2] = qc[:, None] * v  # V
+    return W
+
+
+class ChainProduct:
+    """``x @ W`` for a static float32 W [K, N]: ``torch.matmul`` on CUDA
+    tensors (TF32 off, ``device.py``), and on CPU tensors its plain
+    version :meth:`plain`, one multiply-add per k in ascending k, the
+    order of XLA's CPU dot (the reference) for 64 or more rows.
+
+    The chain of each output column runs over the rows of W that are not
+    zero in it (columns with the same rows share one chain, batched; a
+    shorter list is padded with row 0 at weight 0): adding x * 0 leaves a
+    sum as it is, so this is the dense chain bit for bit.  The decoder's
+    reverse mega matrix has 64 such rows per column, a quarter of K.
+    """
+
+    def __init__(self, W: np.ndarray):
+        W = np.asarray(W, np.float32)
+        self.W = W
+        supports = {}
+        for j in range(W.shape[1]):
+            supports.setdefault(np.flatnonzero(W[:, j]).tobytes(), []).append(j)
+        groups = list(supports.items())
+        smax = max(1, max(len(np.frombuffer(s, np.int64)) for s, _ in groups))
+        cmax = max(len(cols) for _, cols in groups)
+        self.idx = np.zeros((len(groups), smax), np.int64)
+        self.wpad = np.zeros((smax, len(groups), cmax), np.float32)
+        slot = np.zeros(W.shape[1], np.int64)  # column -> its place in [G * cmax]
+        for g, (s, cols) in enumerate(groups):
+            rows = np.frombuffer(s, np.int64)
+            self.idx[g, : rows.size] = rows
+            self.wpad[: rows.size, g, : len(cols)] = W[np.ix_(rows, cols)]
+            slot[cols] = g * cmax + np.arange(len(cols))
+        self.slot = slot
+        self._dev = {}  # torch.device -> (W, idx, wpad, slot) there
+
+    def tensors(self, device):
+        device = torch.device(device)
+        t = self._dev.get(device)
+        if t is None:
+            t = self._dev[device] = tuple(torch.as_tensor(a, device=device)
+                                          for a in (self.W, self.idx, self.wpad, self.slot))
+        return t
+
+    def plain(self, x: torch.Tensor) -> torch.Tensor:
+        _, idx, wpad, slot = self.tensors(x.device)
+        xk = x[:, idx].permute(2, 0, 1).unsqueeze(-1).contiguous()  # [Smax, n, G, 1]
+        f = torch.zeros(x.shape[0], idx.shape[0], wpad.shape[2], dtype=torch.float32, device=x.device)
+        for k in range(idx.shape[1]):
+            f = torch.addcmul(f, xk[k], wpad[k])
+        return f.reshape(x.shape[0], -1)[:, slot]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_cuda:
+            return torch.matmul(x, self.tensors(x.device)[0])
+        if x.device.type == "cpu":
+            return self.plain(x)
+        raise ValueError(f"JPEG decode product: unsupported device {x.device}")
+
+
+def _to_pixels(px: torch.Tensor) -> torch.Tensor:
+    """f32 sample values -> uint8: +128, round half to even, clip."""
+    return torch.clamp(torch.round(px + 128.0), 0, 255).to(torch.uint8)
+
+
+def packed_coefficients(lo, dc, idx, delta, nmcu: int) -> torch.Tensor:
+    """The packed upload of a 4:2:2 stream, on the device -> q float32
+    [nmcu, 256], lanes [Y left | Y right | U | V] x 64 in zigzag order
+    (reference ops/jpeg.py:1564-1576): the int8 ACs widened, the exception
+    deltas added (an integer ``index_add_``, exact in any order; padding
+    entries add 0 at index 0), the DC column set."""
+    c = lo.to(torch.int32)
+    c.index_add_(0, idx, delta)
+    c = c.view(-1, 64)
+    c[:, 0] = dc.to(torch.int32)
+    c = c.view(-1)
+    ny = nmcu * 128
+    q = torch.cat([c[:ny].view(nmcu, 128), c[ny: ny + nmcu * 64].view(nmcu, 64),
+                   c[ny + nmcu * 64:].view(nmcu, 64)], dim=1)
+    return q.to(torch.float32)
+
+
+class JpegDecoder:
+    """JPEG -> pixels on ``device`` (the card unless the caller names
+    another): C scan decode on the host (``native/jpeg_scan_decode.c``),
+    then dequantisation, inverse DCT and pixel layout on tensors (reference
+    ``JpegDecoder``, ops/jpeg.py:1431).
+
+    The reverse mega matrix folds the stream's quantisation tables, so it
+    is cached under the table VALUES: two streams at different qualities
+    share table ids (reference ops/jpeg.py:1509-1513).  The planes path
+    dequantises before its IDCT, which depends on no table.
+    """
+
+    def __init__(self, device="cuda"):
+        self.device = get_device(device)
+        self._fns = {}
+
+    # -- UYVY fast path ---------------------------------------------------
+
+    def reverse_product(self, hdr) -> ChainProduct:
+        """The product with the stream's reverse mega matrix."""
+        scan = hdr["scan"]
+        qtabs = [hdr["qtabs"][c["tq"]] for c in scan]
+        key = ("uyvy", qtabs[0].tobytes(), qtabs[1].tobytes())
+        fn = self._fns.get(key)
+        if fn is None:
+            fn = self._fns[key] = ChainProduct(reverse_mega_matrix(qtabs[0], qtabs[1]))
+        return fn
+
+    @staticmethod
+    def uyvy_rows(px: torch.Tensor, nmcux: int, nmcuy: int) -> torch.Tensor:
+        """The reverse product ``px`` [nmcu, 256] -> uint8 UYVY rows in
+        wire layout."""
+        out = _to_pixels(px).view(nmcuy, nmcux, 8, 32)
+        return out.permute(0, 2, 1, 3).reshape(nmcuy * 8, nmcux * 32)
+
+    def _make_mega_uyvy_fn(self, hdr, nmcux: int, nmcuy: int, packed: bool = False):
+        """The device half of :meth:`decode_to_uyvy` (reference
+        ops/jpeg.py:1541): ``fn(lo, dc, idx, delta)`` for the packed upload,
+        ``fn(cy, cu, cv)`` for int16 blocks -> uint8 UYVY rows [nmcuy * 8,
+        nmcux * 32] through ONE product with the reverse mega matrix."""
+        prod = self.reverse_product(hdr)
+        nmcu = nmcux * nmcuy
+        if packed:
+            def fn8(lo, dc, idx, delta):
+                return self.uyvy_rows(prod(packed_coefficients(lo, dc, idx, delta, nmcu)), nmcux, nmcuy)
+
+            return fn8
+
+        def fn(cy, cu, cv):
+            q = torch.cat([cy.view(nmcu, 128), cu, cv], dim=1).to(torch.float32)
+            return self.uyvy_rows(prod(q), nmcux, nmcuy)
+
+        return fn
+
+    def decode_to_uyvy(self, data: bytes):
+        """4:2:2 3-component JPEG -> UYVY rows in wire layout through ONE
+        product with the reverse mega matrix (reference ops/jpeg.py:1493).
+
+        The packed layout goes up as int8 ACs, an int16 DC column and the
+        exception list padded to ``_EXC_CAP`` entries; a frame with more
+        exceptions goes up as int16 blocks.  Returns (uyvy uint8 [nmcuy * 8,
+        nmcux * 32] on the device, h, w), or None if the stream is not 4:2:2
+        with three components."""
+        dev = self.device
+        packed = entropy_decode_422_packed(data)
+        if packed is not None:
+            hdr, lo, dc, exc_idx, exc_dv, count, nmcux, nmcuy = packed
+            idx = np.zeros(_EXC_CAP, np.int64)
+            dv = np.zeros(_EXC_CAP, np.int32)
+            idx[:count] = exc_idx[:count]
+            dv[:count] = exc_dv[:count]
+            fn = self._make_mega_uyvy_fn(hdr, nmcux, nmcuy, packed=True)
+            return fn(*(torch.as_tensor(a, device=dev) for a in (lo, dc, idx, dv))), hdr["h"], hdr["w"]
+        decoded = entropy_decode_422(data)
+        if decoded is None:
+            return None
+        hdr, outs, nmcux, nmcuy = decoded
+        fn = self._make_mega_uyvy_fn(hdr, nmcux, nmcuy)
+        return fn(*(torch.as_tensor(o, device=dev) for o in outs)), hdr["h"], hdr["w"]
+
+    # -- planes path (any sampling) ---------------------------------------
+
+    def idct_product(self) -> ChainProduct:
+        fn = self._fns.get("idct")
+        if fn is None:
+            fn = self._fns["idct"] = ChainProduct(idct_matrix_64().T)
+        return fn
+
+    def _make_device_fn(self, hdr, nmcux: int, nmcuy: int):
+        """The device half of :meth:`decode` (reference ops/jpeg.py:1602):
+        ``fn(*coeffs)``, int16 [blocks, 64] zigzag coefficients per
+        component -> uint8 planes: dequantise, un-zigzag, IDCT, blocks ->
+        plane."""
+        scan = hdr["scan"]
+        dev = self.device
+        idct = self.idct_product()
+        zz_inv = torch.as_tensor(_ZIGZAG_INV, device=dev)
+        qs = [torch.as_tensor(hdr["qtabs"][c["tq"]][ZIGZAG].astype(np.float32), device=dev) for c in scan]
+
+        def fn(*coeffs):
+            planes = []
+            for comp, q, co in zip(scan, qs, coeffs):
+                raster = (co.to(torch.float32) * q[None, :])[:, zz_inv]
+                px = _to_pixels(idct(raster))
+                hq, vq = comp["h"], comp["v"]
+                blocks = px.view(nmcuy, nmcux, vq, hq, 8, 8)
+                planes.append(blocks.permute(0, 2, 4, 1, 3, 5).reshape(nmcuy * vq * 8, nmcux * hq * 8))
+            return tuple(planes)
+
+        return fn
+
+    def decode(self, data: bytes):
+        """Returns (planes, h, w, sampling): Y/Cb/Cr uint8 tensors on the
+        device, each at its sampled resolution (reference ops/jpeg.py:1438)."""
+        hdr = _parse_headers(data)
+        scan = hdr["scan"]
+        hmax = max(c["h"] for c in scan)
+        vmax = max(c["v"] for c in scan)
+        nmcux = (hdr["w"] + 8 * hmax - 1) // (8 * hmax)
+        nmcuy = (hdr["h"] + 8 * vmax - 1) // (8 * vmax)
+        outs = _scan_decode_int16(data, hdr, nmcux * nmcuy)
+        planes = self._make_device_fn(hdr, nmcux, nmcuy)(*(torch.as_tensor(o, device=self.device) for o in outs))
+        return planes, hdr["h"], hdr["w"], [(c["h"], c["v"]) for c in scan]
+
+
+# raster position j -> its index in zigzag order
+_ZIGZAG_INV = np.argsort(ZIGZAG)
+
+
+def decode_jpeg_device(data: bytes, device="cuda"):
+    """Planes of a JPEG stream on ``device`` (reference ops/jpeg.py:1634)."""
+    return JpegDecoder(device).decode(data)
+
+
+def decode_jpeg_to_frame(frame: VideoFrame, out_codec: Codec,
+                         decoder: Optional[JpegDecoder] = None, device="cuda") -> Optional[VideoFrame]:
+    """Receiver-side JPEG decode to UYVY or RGB (reference
+    ops/jpeg.py:1181), on ``decoder``'s device, or a new decoder's on
+    ``device`` (the card unless the caller names another).  The frame's
+    data is a uint8 tensor there.
+
+    UYVY from 4:2:2: the C scan decode and one reverse mega product.  Other
+    samplings, and RGB, take the planes path, then chroma upsampling and
+    colour conversion in float64 (as the reference's numpy).  Where the C
+    scan decoder rejects the stream (``ValueError``), the reference's own
+    answer is its pure-Python decoder on the host, and so it is here;
+    nothing else falls back."""
+    dec = decoder if decoder is not None else JpegDecoder(device)
+    data = np.asarray(frame.data.cpu() if isinstance(frame.data, torch.Tensor) else frame.data)
+    data = bytes(data.reshape(-1))
+    if out_codec == Codec.UYVY:
+        try:
+            res = dec.decode_to_uyvy(data)
+        except ValueError:
+            res = None
+        if res is not None:
+            uyvy, h, w = res
+            vf = VideoFrame(frame.desc.with_(color_spec=Codec.UYVY), [uyvy[:h, : 2 * w]])
+            vf.timestamp = frame.timestamp
+            return vf
+    try:
+        planes, h, w, sampling = dec.decode(data)
+        y, cb, cr = (p.to(torch.float64) for p in planes)
+    except ValueError:
+        planes, h, w, sampling = decode_jpeg(data)
+        y, cb, cr = (torch.as_tensor(np.clip(np.round(p), 0, 255), device=dec.device) for p in planes)
+    hs, vs = sampling[0]
+    if vs == 2:  # 4:2:0 (RFC 2435 type 1): chroma is half height; repeat rows
+        cb = torch.repeat_interleave(cb, 2, dim=0)
+        cr = torch.repeat_interleave(cr, 2, dim=0)
+    if hs == 1 and out_codec == Codec.UYVY:  # 4:4:4 -> subsample horizontally
+        cb = cb[:, 0::2]
+        cr = cr[:, 0::2]
+    if out_codec == Codec.UYVY:
+        out = torch.zeros(h, 2 * w, dtype=torch.uint8, device=dec.device)
+        out[:, 1::2] = y[:h, :w]
+        out[:, 0::4] = cb[:h, : w // 2]
+        out[:, 2::4] = cr[:h, : w // 2]
+        vf = VideoFrame(frame.desc.with_(color_spec=Codec.UYVY), [out])
+        vf.timestamp = frame.timestamp
+        return vf
+    if out_codec == Codec.RGB:
+        if hs == 2:
+            cb = torch.repeat_interleave(cb, 2, dim=1)[:, :w]
+            cr = torch.repeat_interleave(cr, 2, dim=1)[:, :w]
+        y = y[:h, :w]
+        cb = cb[:h, :w] - 128.0
+        cr = cr[:h, :w] - 128.0
+        r = y + 1.402 * cr
+        g = y - 0.344136 * cb - 0.714136 * cr
+        b = y + 1.772 * cb
+        rgb = torch.stack([r, g, b], dim=-1)
+        rgb = torch.clamp(torch.round(rgb), 0, 255).to(torch.uint8).reshape(h, 3 * w)
+        vf = VideoFrame(frame.desc.with_(color_spec=Codec.RGB), [rgb])
+        vf.timestamp = frame.timestamp
+        return vf
+    return None
