@@ -9,11 +9,16 @@ against its plain PyTorch version on the card, runs the sender step
 ``EncodePipeline`` and checks that it went through both kernels, checks K2
 without the staircase (the erasure peel's row XORs) on every suggested LDGM
 configuration, runs the receive path (JPEG file -> LDGM -> loss -> peel on
-the card -> ``JpegDecompress``) against the CPU plain path, and times
-kernels, steps and the receive step.  Every phase prints one JSON line; any
-failed check raises, so the exit code is non-zero.  The last lines are the
-kernel table, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+the card -> ``JpegDecompress``) against the CPU plain path, runs the
+batched sender (B frames, one K1 and one K2 launch: 4K at B = 16, 8K at
+B = 4, 1920x1088 4:2:0 at B = 3) against single-frame steps, every pixel
+format conversion, DXT, and ``EncodePipeline`` for compress none / dxt1 /
+dxt5 with LDGM and RS and with ``scale_to`` against the CPU plain path, and
+times kernels, steps, the receive step, the 4K batch in frames/s, 4K
+latency, conversions and DXT.  Every phase prints one JSON line; any failed
+check raises, so the exit code is non-zero.  The last lines are the kernel
+table, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -42,6 +47,10 @@ MAX_DIFF_BLOCK_SHARE = 0.001  # real W vs the plain version on the card: <= 0.1%
 # the decoder's float32 product on the card (torch.matmul) against the plain
 # chain: <= 0.1% of output bytes differing, each by at most 1
 MAX_DIFF_BYTE_SHARE = 0.001
+# the batched sender: (label, width, height, frames, subsampling); 4K at 16
+# as bench.py's throughput metric, 8K at 4, 4:2:0 needs 16-row MCUs
+BATCHES = [("4K", 3840, 2160, 16, None), ("8K", 7680, 2160, 4, None), ("1088p 4:2:0", 1920, 1088, 3, "420")]
+LATENCY_RUNS = 60  # bench.py's single-frame 4K latency sample
 # receive path: LDGM 256:26:5 over the 1080p file, seeded losses; 8 lost
 # symbols are recovered (in 2 peel rounds), 40 are not
 LOSS_RECOVERED, LOSS_UNRECOVERABLE = 8, 40
@@ -170,10 +179,11 @@ def k1_work(enc):
 
 
 def k2_work(par):
-    """(bytes, XORs) of one K2 call: the parts read once, the parity written
-    once; one XOR per member word of every parity row."""
-    nbytes = 4 * (sum(par.part_words) + par.m * par.psw) + par.row_ptr.nbytes + par.cols.nbytes
-    return nbytes, len(par.cols) * par.psw
+    """(bytes, XORs) of one K2 call over all its frames: the parts read
+    once, the parities written once; one XOR per member word of every parity
+    row of every frame."""
+    nbytes = 4 * par.frames * (sum(par.part_words) + par.m * par.psw) + par.row_ptr.nbytes + par.cols.nbytes
+    return nbytes, len(par.cols) * par.psw * par.frames
 
 
 def k2_peel_work(par):
@@ -212,6 +222,23 @@ def host_ms(fn, runs: int) -> float:
     for _ in range(runs):
         fn()
     return (time.perf_counter() - t0) * 1e3 / runs
+
+
+def blocks_differing(a, b, bpb: int) -> int:
+    """Blocks of ``bpb`` bytes that differ between two uint8 tensors."""
+    return int((a.cpu().reshape(-1, bpb) != b.cpu().reshape(-1, bpb)).any(dim=1).sum())
+
+
+def profile_row(what, fn, anchor=None):
+    """Device time and launches per call of fn() by the profiler, the host
+    clock back to back, and CUDA events."""
+    ks = device_kernels(fn, runs=10)
+    launches = sum(c for c, _ in ks.values())
+    dev_ms = sum(ms for _, ms in ks.values())
+    if anchor is not None:
+        launches, dev_ms = per_step(ks, anchor)
+    return {"what": what, "device_ms": dev_ms, "launches_per_step": launches,
+            "ms": cuda_ms(fn, runs=20), "host_ms": host_ms(lambda: (fn(), torch.cuda.synchronize()), runs=20)}
 
 
 def plain_step(pipe, frame):
@@ -533,6 +560,148 @@ def main() -> int:
         rx["outputs"].append(row)
     emit({"phase": "receive_path", **rx})
 
+    # ---- batch: B frames stacked row-wise through BatchedJpegLdgmPipeline,
+    # one K1 and one K2 launch per batch (counts set to 0 just before, read
+    # just after); each frame's slots, bits and parity equal the
+    # single-frame EncodePipeline's on the card, its file the single-frame
+    # file; the batched K2 equals its plain version ----
+    from ultragrid_tpu_torch.models.encode import BatchedJpegLdgmPipeline
+
+    batch_cases, batches = [], {}
+    k2_batch_err = 0
+    for label, w, h, nb, sub in BATCHES:
+        desc_b = VideoDesc(w, h, Codec.UYVY, 60.0)
+        bp = BatchedJpegLdgmPipeline(desc_b, nb, fec=FEC, subsampling=sub, device=dev)
+        sp = EncodePipeline(desc_b, EncodeConfig(compress="jpeg", subsampling=sub, fec=FEC), device=dev)
+        ls = vc_get_linesize(w, Codec.UYVY)
+        frames = torch.as_tensor(np.concatenate([content(h, ls, 30 + i) for i in range(nb)])).to(dev)
+        torch.cuda.synchronize()
+        jpeg_cuda.LAUNCHES.reset()
+        fec_ops.LAUNCHES.reset()
+        outs_b = bp(frames)
+        torch.cuda.synchronize()
+        bl = {"jpeg_encode": jpeg_cuda.LAUNCHES.count, "gf2_parity": fec_ops.LAUNCHES.count}
+        if bl != {"jpeg_encode": 1, "gf2_parity": 1}:
+            raise RuntimeError(f"batch {label}: launches per batch {bl}, expected one K1 and one K2")
+        if bool(outs_b[-1]):
+            raise RuntimeError(f"batch {label}: overflow")
+        e1 = sp.jpeg_encoder
+        ny, nc = e1.nmcu * e1.ky, e1.nmcu
+        for i in range(nb):
+            ref = sp(frames[i * h: (i + 1) * h])
+            got = (outs_b[0][i * ny: (i + 1) * ny], outs_b[1][i * ny: (i + 1) * ny],
+                   outs_b[2][i * nc: (i + 1) * nc], outs_b[3][i * nc: (i + 1) * nc],
+                   outs_b[4][i * nc: (i + 1) * nc], outs_b[5][i * nc: (i + 1) * nc], outs_b[6][i])
+            if not all(torch.equal(g, r) for g, r in zip(got, ref[:7])):
+                raise RuntimeError(f"batch {label}: frame {i} differs from the single-frame step")
+        par_k = bp.parity(*outs_b[:6])
+        par_p = bp.parity.plain(*outs_b[:6])
+        k2_batch_err = max(k2_batch_err, max_abs_err([par_k], [par_p]))
+        if not torch.equal(par_k, par_p):
+            raise RuntimeError(f"batch {label}: batched K2 differs from its plain version")
+        files_b = bp.enc.encode(frames)
+        if any(not np.array_equal(fb, e1.encode(frames[i * h: (i + 1) * h])) for i, fb in enumerate(files_b)):
+            raise RuntimeError(f"batch {label}: a file differs from the single-frame encode")
+        batches[label] = (bp, frames, outs_b)
+        batch_cases.append({"batch": f"{label} {w}x{h} x{nb} UYVY q80 {e1.subsampling} {FEC}",
+                            "launches_per_batch": bl, "frames_equal_single_step": True,
+                            "files_equal_single_encode": True, "batched_k2_equals_plain": True,
+                            "jpeg_bytes": [int(f.size) for f in files_b[:2]]})
+    emit({"phase": "batch", "max_abs_err": k2_batch_err, "cases": batch_cases})
+
+    # ---- pixfmt: every registered conversion at 1920x1080 on the card
+    # against the CPU plain path (integer math: byte-equal) ----
+    from ultragrid_tpu_torch.ops import dxt, pixfmt
+
+    rng_c = np.random.default_rng(40)
+    pairs = pixfmt.conversion_pairs()
+    for a_c, b_c in pairs:
+        src_c = rng_c.integers(0, 256, (H1080, vc_get_linesize(W1080, a_c)), dtype=np.uint8)
+        got = pixfmt.convert_frame(torch.as_tensor(src_c).to(dev), W1080, a_c, b_c)
+        want = pixfmt.convert_frame(torch.as_tensor(src_c), W1080, a_c, b_c)
+        if not got.is_cuda or got.shape != want.shape or byte_diff(got, want)[0]:
+            raise RuntimeError(f"pixfmt {a_c.name}->{b_c.name}: the card differs from the CPU plain path")
+    emit({"phase": "pixfmt", "geometry": f"{W1080}x{H1080}", "pairs": len(pairs), "bytes_differing": 0})
+
+    # ---- dxt: each encoder and both decoders at 1080p on the card against
+    # the CPU plain path: differing blocks (<= 0.1%) and the decoded PSNR
+    # to the source on both (within 0.01 dB) ----
+    rgb_np = content(H1080, 3 * W1080, 41)
+    uy_np = content(H1080, 2 * W1080, 42)
+    uy_rgb = pixfmt.convert_frame(torch.as_tensor(uy_np), W1080, Codec.UYVY, Codec.RGB)
+    # DXT1_YUV's source: per pixel (Y, Cb, Cr), chroma repeated
+    uy_yuv = torch.as_tensor(np.stack([uy_np[:, 1::2], np.repeat(uy_np[:, 0::4], 2, axis=1),
+                                       np.repeat(uy_np[:, 2::4], 2, axis=1)], axis=-1).reshape(H1080, 3 * W1080))
+    dxt_cases = []
+    nblk = W1080 * H1080 // 16
+    for enc_name, src_np, ref_src, bpb in (("dxt1_encode_rgb", rgb_np, torch.as_tensor(rgb_np), 8),
+                                       ("dxt1_encode_uyvy", uy_np, uy_rgb, 8),
+                                       ("dxt1_yuv_encode_uyvy", uy_np, uy_yuv, 8),
+                                       ("dxt5_ycocg_encode_rgb", rgb_np, torch.as_tensor(rgb_np), 16),
+                                       ("dxt5_ycocg_encode_uyvy", uy_np, uy_rgb, 16)):
+        enc_fn = getattr(dxt, enc_name)
+        dec_fn = dxt.dxt1_decode_rgb if bpb == 8 else dxt.dxt5_ycocg_decode_rgb
+        got = enc_fn(torch.as_tensor(src_np).to(dev), W1080)
+        want = enc_fn(torch.as_tensor(src_np), W1080)
+        nd = blocks_differing(got, want, bpb)
+        dec_g, dec_c = dec_fn(got, W1080, H1080), dec_fn(want, W1080, H1080)
+        if not torch.equal(dec_fn(want.to(dev), W1080, H1080).cpu(), dec_c):
+            raise RuntimeError(f"dxt {enc_name}: the decoder on the card differs from the CPU plain path")
+        p_g, p_c = psnr(dec_g.cpu(), ref_src), psnr(dec_c, ref_src)
+        if nd > MAX_DIFF_BLOCK_SHARE * nblk or abs(p_g - p_c) > 0.01:
+            raise RuntimeError(f"dxt {enc_name}: {nd} blocks differ, PSNR {p_g} vs {p_c} dB")
+        dxt_cases.append({"encoder": enc_name, "blocks": nblk, "differing_blocks": nd,
+                          "psnr_db": p_g, "psnr_cpu_db": p_c, "decoder_bytes_differing": 0})
+    emit({"phase": "dxt", "geometry": f"{W1080}x{H1080}", "cases": dxt_cases})
+
+    # ---- encode_variants: EncodePipeline for compress none / dxt1 / dxt5
+    # with LDGM and RS at 1080p against the CPU plain path; the fixed-size
+    # LDGM parity against the host LdgmSession's; scale_to 1280x720 ----
+    var_cases = []
+    for comp, inc, work in (("none", Codec.UYVY, Codec.RGB), ("dxt1", Codec.UYVY, Codec.RGB),
+                            ("dxt5", Codec.RGB, Codec.RGB)):
+        frame_v = content(H1080, vc_get_linesize(W1080, inc), 43)
+        for spec in (FEC, "rs:200:240"):
+            desc_v = VideoDesc(W1080, H1080, inc, 60.0)
+            cfg_v = EncodeConfig(in_codec=inc, work_codec=work, compress=comp, fec=spec)
+            pg = EncodePipeline(desc_v, cfg_v, device=dev)
+            torch.cuda.synchronize()
+            fec_ops.LAUNCHES.reset()
+            data_g, par_g = pg(torch.as_tensor(frame_v).to(dev))
+            torch.cuda.synchronize()
+            k2_launches = fec_ops.LAUNCHES.count
+            data_c, par_c = EncodePipeline(desc_v, cfg_v, device="cpu")(frame_v)
+            nd_data, _ = byte_diff(data_g, data_c)
+            if nd_data > (MAX_DIFF_BLOCK_SHARE * data_c.numel() if comp != "none" else 0):
+                raise RuntimeError(f"{comp} {spec}: payload on the card differs from the CPU plain path")
+            row = {"case": f"{W1080}x{H1080} {inc.name} {comp} {spec}", "payload_bytes": int(data_c.numel()),
+                   "payload_bytes_differing": nd_data, "k2_launches": k2_launches}
+            if nd_data == 0 and not torch.equal(par_g.cpu(), par_c):
+                raise RuntimeError(f"{comp} {spec}: parity on the card differs from the CPU plain path")
+            if spec == FEC:
+                if k2_launches != 1:
+                    raise RuntimeError(f"{comp} {spec}: {k2_launches} K2 launches, expected 1")
+                buf_h, d_h = LdgmSession(256, 26, 5).encode(data_g.cpu().numpy())
+                if not np.array_equal(buf_h[256 * d_h.symbol_size:].reshape(26, -1), par_g.cpu().numpy()):
+                    raise RuntimeError(f"{comp} {spec}: parity differs from the host LdgmSession's")
+                row["parity_equals_host_ldgm_session"] = True
+            var_cases.append(row)
+    cfg_s = EncodeConfig(compress="jpeg", fec=FEC, scale_to=(1280, 720))
+    ps_g = EncodePipeline(desc1080, cfg_s, device=dev)
+    torch.cuda.synchronize()
+    jpeg_cuda.LAUNCHES.reset()
+    fec_ops.LAUNCHES.reset()
+    outs_s = ps_g(frame)
+    torch.cuda.synchronize()
+    sl_launches = {"jpeg_encode": jpeg_cuda.LAUNCHES.count, "gf2_parity": fec_ops.LAUNCHES.count}
+    outs_sc = EncodePipeline(desc1080, cfg_s, device="cpu")(frame_np)
+    nd_s = differing_blocks([o.cpu() for o in outs_s[:6]], outs_sc[:6])
+    if min(sl_launches.values()) < 1 or nd_s or not torch.equal(outs_s[6].cpu(), outs_sc[6]):
+        raise RuntimeError(f"scale_to: {sl_launches}, {nd_s} blocks differ from the CPU plain path")
+    var_cases.append({"case": "1920x1080 UYVY -> scale_to 1280x720 -> jpeg q80 " + FEC, "launches": sl_launches,
+                      "differing_blocks": nd_s, "parity_equal": True})
+    emit({"phase": "encode_variants", "cases": var_cases})
+
     # ---- timing: mean of back-to-back launches between two CUDA events;
     # profiler device time beside it ----
     rows_t = []
@@ -624,6 +793,66 @@ def main() -> int:
         rows_t.append({"what": f"K2 gf2_parity without staircase, {label} peel block "
                                f"[{par.rows}, {par.psw}] words", **peel_t[label],
                        "share_of_bound": bms / dms, "mbytes": b / 1e6})
+    # the batched sender: frames/s of the device half as bench.py measures
+    # it (B over the event-timed batch step, back-to-back batches, bench.py's
+    # content: one frame repeated), with and without the per-frame LDGM
+    # parity; the batched K2 against its byte bound
+    batch_t = {}
+    for label, w, h, nb, sub in BATCHES[:2]:
+        bp, _, _ = batches[label]
+        base = torch.as_tensor(np.concatenate([content(h, vc_get_linesize(w, Codec.UYVY), 0)] * nb)).to(dev)
+        outs_t = bp(base)
+        k1_ms = cuda_ms(lambda: bp.enc.tall._encode(base), runs=20)
+        step_ms = cuda_ms(lambda: bp(base), runs=20)
+        ks = device_kernels(lambda: bp(base), runs=10)
+        launches_b, device_b = per_step(ks, "jpeg_encode_kernel")
+        b_k2, ops_k2 = k2_work(bp.parity)
+        bms, by = bound_ms(b_k2, ops_k2)
+        k2_dms = kernel_device_ms(lambda: bp.parity(*outs_t[:6]), "gf2_parity_kernel", runs=10)
+        batch_t[label] = {
+            "frames": nb, "frames_per_s_jpeg": nb / (k1_ms / 1e3), "frames_per_s_jpeg_ldgm": nb / (step_ms / 1e3),
+            "batch_ms_jpeg": k1_ms, "batch_ms_jpeg_ldgm": step_ms, "device_ms": device_b,
+            "device_launches_per_batch": launches_b,
+            "k1_only_bound_frames_per_s": 1e3 / k1_t["4K"]["device_ms"] if label == "4K" else None,
+            "k2": {"launches_per_batch": 1, "ms": cuda_ms(lambda: bp.parity(*outs_t[:6]), runs=20),
+                   "device_ms": k2_dms, "bound_ms": bms, "bound_by": by, "share_of_bound": bms / k2_dms,
+                   "plain_ms": cuda_ms(lambda: bp.parity.plain(*outs_t[:6]), runs=2, warmup=1),
+                   "mbytes": b_k2 / 1e6}}
+        rows_t.append({"what": f"batch {label} {w}x{h} x{nb} UYVY jpeg q80 (+ {FEC})", **batch_t[label]})
+    # single-frame 4K latency (bench.py:111-141): host clock around one
+    # K1 launch and a synchronisation
+    e4 = JpegEncoder(W4K, H4K)
+    f4 = torch.as_tensor(content(H4K, vc_get_linesize(W4K, Codec.UYVY), 0)).to(dev)
+    e4._encode(f4)
+    torch.cuda.synchronize()
+    lats = []
+    for _ in range(LATENCY_RUNS):
+        t0 = time.perf_counter()
+        e4._encode(f4)
+        torch.cuda.synchronize()
+        lats.append((time.perf_counter() - t0) * 1e3)
+    lats.sort()
+    latency = {"p50_ms": lats[len(lats) // 2], "p99_ms": lats[min(len(lats) - 1, int(len(lats) * 0.99))]}
+    rows_t.append({"what": "latency 4K UYVY jpeg q80, one frame", **latency})
+    # conversions (BASELINE configs 1-2), DXT (config 3) and the 1080p
+    # compress="none" + LDGM step: profiler device time and launches
+    conv_t = []
+    for label, (w, h), a_c, b_c in (("1080p", (W1080, H1080), Codec.UYVY, Codec.RGB),
+                                    ("4K", (W4K, H4K), Codec.v210, Codec.RG48),
+                                    ("4K", (W4K, H4K), Codec.R10k, Codec.Y416)):
+        src_t = torch.as_tensor(np.random.default_rng(44).integers(
+            0, 256, (h, vc_get_linesize(w, a_c)), dtype=np.uint8)).to(dev)
+        conv_t.append(profile_row(f"convert {label} {a_c.name}->{b_c.name}",
+                                  lambda: pixfmt.convert_frame(src_t, w, a_c, b_c)))
+    uy_d = torch.as_tensor(uy_np).to(dev)
+    rgb_d = torch.as_tensor(rgb_np).to(dev)
+    conv_t.append(profile_row("dxt1 1080p from UYVY", lambda: dxt.dxt1_encode_uyvy(uy_d, W1080)))
+    conv_t.append(profile_row("dxt5 1080p from RGB", lambda: dxt.dxt5_ycocg_encode_rgb(rgb_d, W1080)))
+    pn = EncodePipeline(desc1080, EncodeConfig(compress="none", fec=FEC), device=dev)
+    conv_t.append(profile_row(f"EncodePipeline 1080p UYVY->RGB none {FEC}", lambda: pn(frame)))
+    for r in conv_t:
+        r["idle_share"] = max(0.0, 1 - r["device_ms"] / r["host_ms"])
+    rows_t += conv_t
     emit({"phase": "timing", "card": smi, "rows": rows_t})
 
     one_call = "none: no single PyTorch call computes this function"
@@ -642,6 +871,8 @@ def main() -> int:
          "at": "1080p step's parts, LDGM 256:26:5", "8k": k2_t["8K"],
          "receive_launches": rx_launches["gf2_parity"], "peel_max_abs_err": k2_peel_err,
          "peel_1080p": peel_t["1080p"], "peel_8k": peel_t["8K"],
+         "batch_max_abs_err": k2_batch_err, "batch_4k_b16": batch_t["4K"]["k2"],
+         "batch_8k_b4": batch_t["8K"]["k2"],
          "tolerance": "bit-equal, staircase on and off"},
     ]})
     print(smi, flush=True)

@@ -1,5 +1,6 @@
-"""Kernels K1 and K2 on the card against their plain PyTorch twins, and the
-receive path on the card against the CPU.
+"""Kernels K1 and K2 on the card against their plain PyTorch twins, the
+receive path, the batched sender, the pixel formats and DXT on the card
+against the CPU.
 
 Needs a CUDA card and nvcc; skips without a card.  On the card's machine
 (which has no jax, so the JAX conftest must stay out):
@@ -11,7 +12,9 @@ rows of its block group in ascending k, the order of the plain front end, so
 both are bit-equal even under the real mega matrix; K2 and the peel are
 integer work.  Tolerance: exact equality, except the JPEG decode, whose
 float32 product on the card is ``torch.matmul``: at most 0.1% of the output
-bytes may differ from the CPU's chain, each by at most 1.
+bytes may differ from the CPU's chain, each by at most 1; and DXT, at most
+0.1% of the blocks (the port fixes one order and one rounding per fused
+multiply-add on both devices, so 0 is expected).
 """
 
 import numpy as np
@@ -19,9 +22,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from ultragrid_tpu_torch.models.encode import EncodeConfig, EncodePipeline  # noqa: E402
+from ultragrid_tpu_torch.models.encode import (  # noqa: E402
+    BatchedJpegLdgmPipeline, EncodeConfig, EncodePipeline)
 from ultragrid_tpu_torch.modules.video_decompress import JpegDecompress  # noqa: E402
-from ultragrid_tpu_torch.ops import fec, jpeg_cuda  # noqa: E402
+from ultragrid_tpu_torch.ops import dxt, fec, jpeg_cuda, pixfmt  # noqa: E402
 from ultragrid_tpu_torch.ops.jpeg import JpegEncoder  # noqa: E402
 from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame, vc_get_linesize  # noqa: E402
 
@@ -220,3 +224,85 @@ def test_rs_encode_on_card_equals_cpu(cuda):
     present[np.random.default_rng(1).choice(240, 40, replace=False)] = False
     sym[~present] = 0
     assert np.array_equal(sess.decode(sym, present), payload)
+
+
+@pytest.mark.parametrize("nframes", [1, 2, 5])
+def test_k2_frame_axis_matches_plain_and_single_launches(cuda, nframes):
+    """K2 with a frame axis: one launch for all frames, equal to its plain
+    version and to one single-frame launch per frame."""
+    pipe = EncodePipeline(VideoDesc(1920, 1088, Codec.UYVY, 60.0), EncodeConfig(compress="jpeg", fec="ldgm:256:26:5"))
+    mask = pipe.state["ldgm_mask"][:, : sum(pipe.row_counts)]
+    batch = fec.make_gf2_parity(mask, pipe.psw, part_words=pipe.part_words, frames=nframes)
+    gen = torch.Generator().manual_seed(nframes)
+    parts = [torch.randint(-2**31, 2**31 - 1, (nframes * n,), dtype=torch.int32, generator=gen).to(cuda)
+             for n in pipe.part_words]
+    before = fec.LAUNCHES.count
+    got = batch(*parts)
+    assert fec.LAUNCHES.count == before + 1
+    assert torch.equal(got, batch.plain(*parts))
+    got = got.reshape(nframes, pipe.m, pipe.psw)
+    for f in range(nframes):
+        one = pipe.parity(*[p[f * n: (f + 1) * n] for p, n in zip(parts, pipe.part_words)])
+        assert torch.equal(got[f], one)
+
+
+@pytest.mark.parametrize("w,h,sub,b", [(1920, 1088, "420", 3), (1920, 1080, None, 2)])
+def test_batched_pipeline_on_card_equals_single_steps(cuda, w, h, sub, b):
+    desc = VideoDesc(w, h, Codec.UYVY, 60.0)
+    frames = np.stack([content(w, h, Codec.UYVY, 20 + i) for i in range(b)])
+    batch = BatchedJpegLdgmPipeline(desc, b, fec="ldgm:256:26:5", subsampling=sub)
+    single = EncodePipeline(desc, EncodeConfig(compress="jpeg", subsampling=sub, fec="ldgm:256:26:5"))
+    before = (jpeg_cuda.LAUNCHES.count, fec.LAUNCHES.count)
+    outs = batch(frames)
+    assert (jpeg_cuda.LAUNCHES.count, fec.LAUNCHES.count) == (before[0] + 1, before[1] + 1)
+    enc = single.jpeg_encoder
+    for i in range(b):
+        ref = single(frames[i])
+        sl, sc = slice(i * enc.nmcu * enc.ky, (i + 1) * enc.nmcu * enc.ky), slice(i * enc.nmcu, (i + 1) * enc.nmcu)
+        for got, want in zip((outs[0][sl], outs[1][sl], outs[2][sc], outs[3][sc], outs[4][sc], outs[5][sc],
+                              outs[6][i]), ref[:7]):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("compress,in_codec,fec_spec", [
+    ("none", Codec.UYVY, "ldgm:256:26:5"), ("dxt1", Codec.UYVY, "ldgm:256:26:5"), ("dxt5", Codec.RGB, "rs:200:240"),
+])
+def test_fixed_size_pipeline_on_card_equals_cpu(cuda, compress, in_codec, fec_spec):
+    desc = VideoDesc(1920, 1080, in_codec, 60.0)
+    cfg = EncodeConfig(in_codec=in_codec, compress=compress, fec=fec_spec)
+    frame = content(1920, 1080, in_codec, 7)
+    gpu, cpu = EncodePipeline(desc, cfg), EncodePipeline(desc, cfg, device="cpu")
+    before = fec.LAUNCHES.count
+    (data_g, par_g), (data_c, par_c) = gpu(frame), cpu(frame)
+    assert fec.LAUNCHES.count == before + (1 if fec_spec.startswith("ldgm") else 0)
+    assert torch.equal(data_g.cpu(), data_c) and torch.equal(par_g.cpu(), par_c)
+    if fec_spec.startswith("ldgm"):
+        buf, d = fec.LdgmSession(256, 26, 5).encode(data_c.numpy())
+        assert np.array_equal(buf[256 * d.symbol_size:].reshape(26, -1), par_c.numpy())
+
+
+@pytest.mark.parametrize("pair", [(Codec.UYVY, Codec.RGB), (Codec.v210, Codec.RG48), (Codec.R10k, Codec.Y416),
+                                  (Codec.RG48, Codec.v210), (Codec.R12L, Codec.UYVY), (Codec.Y416, Codec.R12L),
+                                  (Codec.DVS10, Codec.v210), (Codec.VUYA, Codec.RGB)],
+                         ids=lambda p: f"{p[0].name}->{p[1].name}")
+def test_conversion_on_card_equals_cpu(cuda, pair):
+    from ultragrid_tpu_torch.types import vc_get_linesize
+
+    src = np.random.default_rng(int(pair[0])).integers(0, 256, (1080, vc_get_linesize(1920, pair[0])),
+                                                      dtype=np.uint8)
+    got = pixfmt.convert_frame(src, 1920, *pair)
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), pixfmt.convert_frame(src, 1920, *pair, device="cpu"))
+
+
+@pytest.mark.parametrize("name,bpp,bpb", [("dxt1_encode_rgb", 3, 8), ("dxt1_encode_uyvy", 2, 8),
+                                          ("dxt1_yuv_encode_uyvy", 2, 8), ("dxt5_ycocg_encode_rgb", 3, 16)])
+def test_dxt_on_card_equals_cpu(cuda, name, bpp, bpb):
+    w, h = 1920, 1080
+    src = np.ascontiguousarray(content(w, h, Codec.RGB, 8)[:, : bpp * w])
+    got = getattr(dxt, name)(torch.as_tensor(src).to(cuda), w)
+    want = getattr(dxt, name)(torch.as_tensor(src), w)
+    nd = int((got.cpu().reshape(-1, bpb) != want.reshape(-1, bpb)).any(dim=1).sum())
+    assert nd <= 0.001 * (w * h // 16)
+    dec = dxt.dxt1_decode_rgb if bpb == 8 else dxt.dxt5_ycocg_decode_rgb
+    assert torch.equal(dec(want.to(cuda), w, h).cpu(), dec(want, w, h))

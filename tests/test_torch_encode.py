@@ -117,14 +117,96 @@ def test_loaded_state_is_what_runs():
 
 
 @pytest.mark.parametrize("cfg,match", [
-    (dict(compress="dxt1"), "not ported"),
-    (dict(compress="none"), "not ported"),
-    (dict(compress="jpeg", fec="rs:200:240"), "not ported"),
-    (dict(compress="jpeg", scale_to=(64, 32)), "not ported"),
+    (dict(compress="jpeg", fec="rs:200:240"), "ldgm only"),
+    (dict(compress="h264"), "unknown compress"),
+    (dict(compress="none", fec="mult:2"), "unsupported device FEC"),
 ])
 def test_unported_options_raise(cfg, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """Every option the reference accepts is ported; what it rejects (RS
+    over the JPEG slot container, an unknown compress or device FEC)
+    raises ValueError here too."""
+    with pytest.raises(ValueError, match=match):
         port_encode.EncodePipeline(port_desc(128, 64), port_encode.EncodeConfig(**cfg), device="cpu")
+    if cfg["compress"] == "jpeg":
+        with pytest.raises(ValueError, match=match):
+            ref_encode.EncodePipeline(VideoDesc(128, 64, Codec.UYVY, 30.0), ref_encode.EncodeConfig(**cfg))
+
+
+FIXED = [  # (compress, in_codec, work_codec)
+    ("none", Codec.UYVY, Codec.RGB), ("none", Codec.v210, Codec.UYVY), ("none", Codec.RGB, Codec.RGB),
+    ("dxt1", Codec.UYVY, Codec.RGB), ("dxt1", Codec.RGB, Codec.RGB), ("dxt5", Codec.RGB, Codec.RGB),
+]
+
+
+def fixed_pipelines(w, h, compress, in_codec, work_codec, fec, state=None):
+    ref = ref_encode.EncodePipeline(VideoDesc(w, h, in_codec, 30.0), ref_encode.EncodeConfig(
+        in_codec=in_codec, work_codec=work_codec, compress=compress, fec=fec))
+    port = port_encode.EncodePipeline(port_desc(w, h, in_codec), port_encode.EncodeConfig(
+        in_codec=port_types.Codec(in_codec), work_codec=port_types.Codec(work_codec), compress=compress,
+        fec=fec), device="cpu", state=state)
+    return ref, port
+
+
+@pytest.mark.parametrize("compress,in_codec,work_codec", FIXED, ids=[f"{c}-{i.name}" for c, i, _ in FIXED])
+@pytest.mark.parametrize("fec", ["none", "ldgm:8:4:3", "rs:8:12"])
+def test_fixed_size_pipeline_matches_reference(compress, in_codec, work_codec, fec):
+    """compress none (conversion to work_codec), dxt1, dxt5, each with fec
+    none, LDGM and RS: the payload and the parity equal the reference's."""
+    ref, port = fixed_pipelines(64, 32, compress, in_codec, work_codec, fec)
+    assert port.fec_desc == ref.fec_desc
+    frame = content(64, 32, in_codec, 31)
+    want = jax.tree.map(np.asarray, ref._step(frame))
+    got = port(frame)
+    if fec == "none":
+        want, got = (want,), (got,)
+    assert len(want) == len(got)
+    for a, b in zip(want, got):
+        assert b.dtype == torch.uint8 and a.shape == tuple(b.shape)
+        np.testing.assert_array_equal(b.numpy(), a)
+
+
+def test_fixed_size_ldgm_parity_is_the_host_sessions():
+    """The fixed-size container's parity equals the host LdgmSession's
+    parity bytes over the same payload (the wire layout)."""
+    from ultragrid_tpu_torch.ops.fec import LdgmSession
+
+    _, port = fixed_pipelines(64, 32, "dxt1", Codec.RGB, Codec.RGB, "ldgm:8:4:3")
+    data, par = port(content(64, 32, Codec.RGB, 32))
+    buf, desc = LdgmSession(8, 4, 3).encode(data.numpy())
+    assert desc.symbol_size == port.ps
+    np.testing.assert_array_equal(buf[8 * port.ps:].reshape(4, port.ps), par.numpy())
+
+
+@pytest.mark.parametrize("fec", ["ldgm:8:4:3", "rs:8:12"])
+def test_fixed_size_state_from_reference(fec):
+    """A fixed-size pipeline computes with the reference's LDGM mask or RS
+    bit matrix when given them, and a changed matrix changes the parity."""
+    from ultragrid_tpu.ops.fec import _gf2_companion_expand as ref_bitmat
+
+    arrays = {"ldgm_mask": ref_ldgm_matrix(8, 4, 3, 1)} if fec.startswith("ldgm") else \
+        {"rs_bitmat": ref_bitmat(8, 12)}
+    state = port_encode.state_from_reference(arrays)
+    assert set(state) == set(arrays)
+    ref, port = fixed_pipelines(64, 32, "dxt1", Codec.RGB, Codec.RGB, fec, state=state)
+    frame = content(64, 32, Codec.RGB, 33)
+    np.testing.assert_array_equal(port(frame)[1].numpy(), np.asarray(ref._step(frame)[1]))
+    key = next(iter(arrays))
+    changed = {key: np.roll(np.asarray(arrays[key]), 1, axis=1)}
+    _, other = fixed_pipelines(64, 32, "dxt1", Codec.RGB, Codec.RGB, fec,
+                               state=port_encode.state_from_reference(changed))
+    assert not torch.equal(other(frame)[1], port(frame)[1])
+
+
+@pytest.mark.parametrize("scale_to,sub", [((256, 128), None), ((128, 64), None), ((256, 256), "420")])
+def test_scale_to_matches_reference(scale_to, sub):
+    """The scale_to pre-scale (nearest neighbour) feeding the JPEG step."""
+    w, h = 192, 96
+    cfg = dict(compress="jpeg", fec="ldgm:32:16:5", scale_to=scale_to, subsampling=sub)
+    ref = ref_encode.EncodePipeline(VideoDesc(w, h, Codec.UYVY, 30.0), ref_encode.EncodeConfig(**cfg))
+    port = port_encode.EncodePipeline(port_desc(w, h), port_encode.EncodeConfig(**cfg), device="cpu")
+    assert port.fec_desc == ref.fec_desc
+    frame = content(w, h, Codec.UYVY, 34)
+    assert_all_equal(jax.tree.map(np.asarray, ref._step(frame)), port(frame))
 
 
 @pytest.mark.parametrize("pipe_dev,frame_dev", [("cpu", "meta"), ("meta", "cpu")])

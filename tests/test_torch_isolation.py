@@ -25,10 +25,12 @@ import numpy as np
 import torch
 import ultragrid_tpu_torch
 from ultragrid_tpu_torch import Codec, VideoDesc, VideoFrame, get_device
-from ultragrid_tpu_torch.models.encode import EncodeConfig, EncodePipeline
-from ultragrid_tpu_torch.modules.video_compress import JpegCompress
-from ultragrid_tpu_torch.modules.video_decompress import JpegDecompress
-from ultragrid_tpu_torch.ops import fec, jpeg_cuda
+from ultragrid_tpu_torch.models.encode import BatchedJpegLdgmPipeline, EncodeConfig, EncodePipeline
+from ultragrid_tpu_torch.modules.video_compress import DxtCompress, JpegCompress, NoneCompress, UyvyCompress
+from ultragrid_tpu_torch.modules.video_decompress import (DxtDecompress, I420Decompress, JpegDecompress,
+                                                          JpegToDxtDecompress)
+from ultragrid_tpu_torch.ops import _kutils, color, dxt, fec, jpeg_cuda, pixfmt, planar, postprocess
+from ultragrid_tpu_torch.ops.jpeg import JpegBatchEncoder
 from ultragrid_tpu_torch.ops.fec import LdgmSession, RsSession, fec_from_spec
 from ultragrid_tpu_torch.ops.jpeg import JpegDecoder, decode_jpeg_device, decode_jpeg_to_frame
 
@@ -53,7 +55,11 @@ if not torch.cuda.is_available():
                  lambda: JpegCompress("80"), lambda: JpegEncoder(64, 32).encode(frame),
                  lambda: JpegDecompress(), lambda: JpegDecoder(),
                  lambda: sess.decode_device(sym, np.ones(48, bool)),
-                 lambda: sess.encode_device(sym[:32]), lambda: RsSession(4, 6).encode(sym[0])):
+                 lambda: sess.encode_device(sym[:32]), lambda: RsSession(4, 6).encode(sym[0]),
+                 lambda: pixfmt.convert_frame(frame, 64, Codec.UYVY, Codec.RGB),
+                 lambda: DxtCompress("DXT1"), lambda: DxtDecompress(), lambda: JpegToDxtDecompress(),
+                 lambda: BatchedJpegLdgmPipeline(desc, 2),
+                 lambda: JpegBatchEncoder(64, 32, 2).encode(np.stack([frame, frame]))):
         try:
             make()
         except RuntimeError:
@@ -79,6 +85,20 @@ assert tuple(uyvy.data.shape) == (32, 128) and uyvy.data.dtype == torch.uint8
 rgb = decode_jpeg_to_frame(VideoFrame(desc.with_(color_spec=Codec.JPEG), [rec]), Codec.RGB, device="cpu")
 assert tuple(rgb.data.shape) == (32, 192)
 assert decode_jpeg_device(bytes(rec), device="cpu")[1:3] == (32, 64)
+# the rest of the sender graph on the CPU: conversion, DXT with LDGM and
+# RS, the batched JPEG + LDGM step, DXT and JPEG -> DXT decompression
+rgb = pixfmt.convert_frame(frame, 64, Codec.UYVY, Codec.RGB, device="cpu")
+assert tuple(rgb.shape) == (32, 192)
+for spec in ("ldgm:8:4:3", "rs:8:12"):
+    data, par = EncodePipeline(desc, EncodeConfig(compress="dxt1", fec=spec), device="cpu")(frame)
+    assert data.numel() == 64 * 32 // 2 and par.shape[0] == 4
+outs = BatchedJpegLdgmPipeline(desc, 2, fec="ldgm:8:4:3", device="cpu")(np.concatenate([frame, frame]))
+assert tuple(outs[6].shape)[:2] == (2, 4)
+d1 = DxtCompress("DXT1", device="cpu").compress(VideoFrame(desc.with_(color_spec=Codec.RGB), [rgb]))
+back = DxtDecompress(device="cpu").decompress(d1, Codec.RGB)
+assert tuple(back.data.shape) == (32, 192)
+jd = JpegToDxtDecompress(device="cpu").decompress(VideoFrame(desc.with_(color_spec=Codec.JPEG), [rec]), Codec.DXT5)
+assert jd.data.numel() == 64 * 32
 assert jpeg_cuda.LAUNCHES.count == 0 and fec.LAUNCHES.count == 0
 loaded = [m for m, mod in sys.modules.items()
           if m.split(".")[0] in ("jax", "ultragrid_tpu") and mod is not None]

@@ -56,3 +56,31 @@ def test_video_frame():
     f = port_types.VideoFrame(desc, ["tile"], timestamp=2.0)
     assert f.data == "tile" and f.timestamp == 2.0 and f.desc is desc
     assert port_types.VideoFrame(desc).timestamp == ref_types.VideoFrame(desc).timestamp
+
+
+ALL_CODECS = [c.name for c in ref_types.Codec]
+
+
+def test_codec_set_is_the_reference_set():
+    assert [(c.name, int(c)) for c in port_types.Codec] == [(c.name, int(c)) for c in ref_types.Codec]
+    assert [(s.name, int(s)) for s in port_types.Subsampling] == \
+        [(s.name, int(s)) for s in ref_types.Subsampling]
+
+
+@pytest.mark.parametrize("name", ALL_CODECS)
+def test_codec_info(name):
+    p = port_types.get_codec_info(port_types.Codec[name])
+    r = ref_types.get_codec_info(ref_types.Codec[name])
+    assert dataclasses.astuple(p)[:-2] == dataclasses.astuple(r)[:-2]
+    assert int(p.subsampling) == int(r.subsampling) and p.file_extension == r.file_extension
+    assert p.rgb == r.rgb and p.opaque == r.opaque
+    codec_p, codec_r = port_types.Codec[name], ref_types.Codec[name]
+    assert port_types.get_bits_per_component(codec_p) == ref_types.get_bits_per_component(codec_r)
+    assert port_types.codec_is_a_rgb(codec_p) == ref_types.codec_is_a_rgb(codec_r)
+
+
+@pytest.mark.parametrize("name", [n for n in ALL_CODECS if not ref_types.is_codec_opaque(ref_types.Codec[n])])
+def test_linesize_of_every_pixel_format(name):
+    for width in (1, 2, 6, 8, 48, 64, 192, 1918, 1920, 3840, 7680):
+        assert port_types.vc_get_linesize(width, port_types.Codec[name]) == \
+            ref_types.vc_get_linesize(width, ref_types.Codec[name])

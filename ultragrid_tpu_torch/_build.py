@@ -43,9 +43,9 @@ _SIGNATURES = {
     "ug_jpeg_encode": [_P, _L, _P, _I, _P, _I, _P, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _I, _P],
-    # part pointers, part words, part first rows (host arrays), nparts, psw,
-    # row_ptr, cols, m, nnz, staircase, out, stream
-    "ug_gf2_parity": [_P, _P, _P, _I, _L, _P, _P, _I, _I, _I, _P, _P],
+    # part pointers, part words per frame, part first rows (host arrays),
+    # nparts, nframes, psw, row_ptr, cols, m, nnz, staircase, out, stream
+    "ug_gf2_parity": [_P, _P, _P, _I, _I, _L, _P, _P, _I, _I, _I, _P, _P],
 }
 
 

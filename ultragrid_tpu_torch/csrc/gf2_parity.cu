@@ -14,6 +14,14 @@
 // (ops/fec.py::LdgmSession.decode_device) passes one part, the [k + m, psw]
 // symbol block, and the full check matrix (m rows over k + m columns) with
 // the staircase off.
+// A frame axis (blockIdx.y, the template flag FRAMES) runs B independent
+// containers in one launch: each part holds its B frames back to back, so
+// part p of frame f starts words[p] * f words after part p of frame 0, and
+// frame f's parity is out[f] ([B, m, psw]) — the layout of the batched
+// sender (models/encode.py::BatchedJpegLdgmPipeline), whose one K1 launch
+// over B stacked frames writes each part frame after frame.  B = 1 runs
+// the instantiation without the flag, the single-frame sender's code as it
+// was.
 //
 // What bounds it on an H100: memory.  The needed traffic is one read of the
 // parts plus one write of the parity (39 MB at 8K, 11.6 us at 3.35 TB/s);
@@ -45,13 +53,15 @@ constexpr size_t MAX_SMEM = 200 * 1024;
 
 struct Parts {
     const uint32_t* ptr[MAX_PARTS];
-    long long words[MAX_PARTS];
+    long long words[MAX_PARTS];  // words of the part in one frame
     int row0[MAX_PARTS + 1];  // row0[nparts] = container rows
     int nparts;
 };
 
-// where container row r starts, and how many of its part's words remain
-// from there (compile-time part indices: no run-time indexing of `parts`)
+// where container row r (of frame blockIdx.y with FRAMES) starts, and how
+// many of its part's words remain from there (compile-time part indices: no
+// run-time indexing of `parts`)
+template <bool FRAMES>
 __device__ __forceinline__ void row_source(const Parts& parts, long long psw, int r,
                                            const uint32_t*& src, long long& lim)
 {
@@ -67,10 +77,11 @@ __device__ __forceinline__ void row_source(const Parts& parts, long long psw, in
         }
     const long long off = (long long)(r - r0) * psw;
     src = s + off;
+    if constexpr (FRAMES) src += pw * blockIdx.y;
     lim = pw - off;
 }
 
-template <int SW, bool TALL, bool STAIR>
+template <int SW, bool TALL, bool STAIR, bool FRAMES>
 __global__ void __launch_bounds__(THREADS) gf2_parity_kernel(
     const Parts parts, int rows, long long psw, const int32_t* __restrict__ row_ptr,
     const int32_t* __restrict__ cols, int m, int nnz, int vec, uint32_t* __restrict__ out)
@@ -86,11 +97,12 @@ __global__ void __launch_bounds__(THREADS) gf2_parity_kernel(
     int* cs = rp + m + 1;                                                   // [nnz]
     const long long c0 = (long long)blockIdx.x * SW;
     const int tid = threadIdx.x;
+    if constexpr (FRAMES) out += (long long)blockIdx.y * m * psw;  // this frame's parity
 
     if constexpr (!TALL) {
         for (int e = tid; e <= m; e += THREADS) rp[e] = __ldg(row_ptr + e);
         for (int e = tid; e < nnz; e += THREADS) cs[e] = __ldg(cols + e);
-        for (int r = tid; r < rows; r += THREADS) row_source(parts, psw, r, rsrc[r], rlim[r]);
+        for (int r = tid; r < rows; r += THREADS) row_source<FRAMES>(parts, psw, r, rsrc[r], rlim[r]);
         __syncthreads();
     }
 
@@ -108,7 +120,7 @@ __global__ void __launch_bounds__(THREADS) gf2_parity_kernel(
             const uint32_t* rs;
             long long rl;
             if constexpr (TALL) {
-                row_source(parts, psw, r, rs, rl);
+                row_source<FRAMES>(parts, psw, r, rs, rl);
             } else {
                 rs = rsrc[r];
                 rl = rlim[r];
@@ -182,49 +194,51 @@ size_t smem_bytes(int sw, int rows, int m, int nnz, bool tall)
     return (size_t)(rows + m) * sw * 4 + (size_t)rows * 16 + (size_t)(m + 1 + nnz) * 4;
 }
 
-template <int SW, bool TALL, bool STAIR>
-int launch(const Parts& parts, long long psw, const int32_t* row_ptr, const int32_t* cols,
+template <int SW, bool TALL, bool STAIR, bool FRAMES>
+int launch(const Parts& parts, int nframes, long long psw, const int32_t* row_ptr, const int32_t* cols,
            int m, int nnz, int vec, uint32_t* out, cudaStream_t st)
 {
     const int rows = parts.row0[parts.nparts];
     const size_t smem = smem_bytes(SW, rows, m, nnz, TALL);
-    const cudaError_t err = cudaFuncSetAttribute(gf2_parity_kernel<SW, TALL, STAIR>,
+    const cudaError_t err = cudaFuncSetAttribute(gf2_parity_kernel<SW, TALL, STAIR, FRAMES>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const unsigned grid = (unsigned)((psw + SW - 1) / SW);
-    gf2_parity_kernel<SW, TALL, STAIR><<<grid, THREADS, smem, st>>>(parts, rows, psw, row_ptr, cols, m,
-                                                                    nnz, vec, out);
+    const dim3 grid((unsigned)((psw + SW - 1) / SW), (unsigned)nframes);
+    gf2_parity_kernel<SW, TALL, STAIR, FRAMES><<<grid, THREADS, smem, st>>>(parts, rows, psw, row_ptr, cols,
+                                                                           m, nnz, vec, out);
     return (int)cudaGetLastError();
 }
 
-template <bool TALL, bool STAIR>
-int launch_sw(int sw, const Parts& parts, long long psw, const int32_t* row_ptr, const int32_t* cols,
-              int m, int nnz, int vec, uint32_t* out, cudaStream_t st)
+template <bool TALL, bool STAIR, bool FRAMES>
+int launch_sw(int sw, const Parts& parts, int nframes, long long psw, const int32_t* row_ptr,
+              const int32_t* cols, int m, int nnz, int vec, uint32_t* out, cudaStream_t st)
 {
     switch (sw) {
-    case 64: return launch<64, TALL, STAIR>(parts, psw, row_ptr, cols, m, nnz, vec, out, st);
-    case 32: return launch<32, TALL, STAIR>(parts, psw, row_ptr, cols, m, nnz, vec, out, st);
-    case 16: return launch<16, TALL, STAIR>(parts, psw, row_ptr, cols, m, nnz, vec, out, st);
-    case 8: return launch<8, TALL, STAIR>(parts, psw, row_ptr, cols, m, nnz, vec, out, st);
-    default: return launch<4, TALL, STAIR>(parts, psw, row_ptr, cols, m, nnz, vec, out, st);
+    case 64: return launch<64, TALL, STAIR, FRAMES>(parts, nframes, psw, row_ptr, cols, m, nnz, vec, out, st);
+    case 32: return launch<32, TALL, STAIR, FRAMES>(parts, nframes, psw, row_ptr, cols, m, nnz, vec, out, st);
+    case 16: return launch<16, TALL, STAIR, FRAMES>(parts, nframes, psw, row_ptr, cols, m, nnz, vec, out, st);
+    case 8: return launch<8, TALL, STAIR, FRAMES>(parts, nframes, psw, row_ptr, cols, m, nnz, vec, out, st);
+    default: return launch<4, TALL, STAIR, FRAMES>(parts, nframes, psw, row_ptr, cols, m, nnz, vec, out, st);
     }
 }
 
 }  // namespace
 
-// ptrs, words: host arrays [nparts] of device addresses and word counts;
-// row0: host array [nparts + 1] of first container rows.  row_ptr [m + 1]
-// and cols [nnz] on the device; cols index container rows.  stair: 1 to
-// apply the staircase, 0 for the raw rows.  out [m, psw] u32.  The strip
-// width is the widest of 64, 32, 16, 8, 4 words whose shared memory fits
-// and that still gives every SM a strip; the TALL variant only where no
-// width fits the default layout.  Returns the first CUDA error of the
-// set-up or the launch, else 0.
+// ptrs, words: host arrays [nparts] of device addresses and words per frame
+// (each part holds nframes >= 1 frames back to back); row0: host array
+// [nparts + 1] of first container rows.  row_ptr
+// [m + 1] and cols [nnz] on the device; cols index container rows.  stair:
+// 1 to apply the staircase, 0 for the raw rows.  out [nframes, m, psw] u32.
+// The strip width is the widest of 64, 32, 16, 8, 4 words whose shared
+// memory fits and that still gives every SM a strip (counting the frames);
+// the TALL variant only where no width fits the default layout.  Returns
+// the first CUDA error of the set-up or the launch, else 0.
 extern "C" int ug_gf2_parity(const void* ptrs, const void* words, const void* row0, int nparts,
-                             long long psw, const void* row_ptr, const void* cols, int m,
+                             int nframes, long long psw, const void* row_ptr, const void* cols, int m,
                              int nnz, int stair, void* out, void* stream)
 {
-    if (nparts < 1 || nparts > MAX_PARTS || m <= 0 || psw <= 0 || nnz < 0)
+    if (nparts < 1 || nparts > MAX_PARTS || nframes < 1 || nframes > 65535 || m <= 0 || psw <= 0 ||
+        nnz < 0)
         return (int)cudaErrorInvalidValue;
     Parts parts;
     const long long* p = static_cast<const long long*>(ptrs);
@@ -234,7 +248,7 @@ extern "C" int ug_gf2_parity(const void* ptrs, const void* words, const void* ro
     for (int i = 0; i < MAX_PARTS; ++i) {
         parts.ptr[i] = i < nparts ? reinterpret_cast<const uint32_t*>(p[i]) : nullptr;
         parts.words[i] = i < nparts ? w[i] : 0;
-        if (i < nparts && p[i] % 16) vec = 0;
+        if (i < nparts && (p[i] % 16 || (nframes > 1 && w[i] % 4))) vec = 0;
     }
     for (int i = 0; i <= MAX_PARTS; ++i) parts.row0[i] = r0[i < nparts ? i : nparts];
     parts.nparts = nparts;
@@ -252,7 +266,7 @@ extern "C" int ug_gf2_parity(const void* ptrs, const void* words, const void* ro
             if (smem_bytes(cand, rows, m, nnz, t == 1) > MAX_SMEM) continue;
             sw = cand;
             tall = t == 1;
-            if ((psw + cand - 1) / cand >= sms) break;
+            if ((psw + cand - 1) / cand * nframes >= sms) break;
         }
     }
     if (sw == 0) return (int)cudaErrorInvalidValue;  // even a 4-word strip of the rows is too tall
@@ -261,9 +275,16 @@ extern "C" int ug_gf2_parity(const void* ptrs, const void* words, const void* ro
     const int32_t* rp = static_cast<const int32_t*>(row_ptr);
     const int32_t* cs = static_cast<const int32_t*>(cols);
     uint32_t* o = static_cast<uint32_t*>(out);
+    if (nframes > 1) {
+        if (tall)
+            return stair ? launch_sw<true, true, true>(sw, parts, nframes, psw, rp, cs, m, nnz, vec, o, st)
+                         : launch_sw<true, false, true>(sw, parts, nframes, psw, rp, cs, m, nnz, vec, o, st);
+        return stair ? launch_sw<false, true, true>(sw, parts, nframes, psw, rp, cs, m, nnz, vec, o, st)
+                     : launch_sw<false, false, true>(sw, parts, nframes, psw, rp, cs, m, nnz, vec, o, st);
+    }
     if (tall)
-        return stair ? launch_sw<true, true>(sw, parts, psw, rp, cs, m, nnz, vec, o, st)
-                     : launch_sw<true, false>(sw, parts, psw, rp, cs, m, nnz, vec, o, st);
-    return stair ? launch_sw<false, true>(sw, parts, psw, rp, cs, m, nnz, vec, o, st)
-                 : launch_sw<false, false>(sw, parts, psw, rp, cs, m, nnz, vec, o, st);
+        return stair ? launch_sw<true, true, false>(sw, parts, 1, psw, rp, cs, m, nnz, vec, o, st)
+                     : launch_sw<true, false, false>(sw, parts, 1, psw, rp, cs, m, nnz, vec, o, st);
+    return stair ? launch_sw<false, true, false>(sw, parts, 1, psw, rp, cs, m, nnz, vec, o, st)
+                 : launch_sw<false, false, false>(sw, parts, 1, psw, rp, cs, m, nnz, vec, o, st);
 }

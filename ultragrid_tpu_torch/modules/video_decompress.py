@@ -1,17 +1,22 @@
-"""Video decompression module of the port: JPEG to UYVY or RGB on tensors.
+"""Video decompression modules of the port: DXT, I420, JPEG and JPEG -> DXT
+on tensors.
 
-Counterpart of ``VideoDecompress`` and ``JpegDecompress`` in
-``ultragrid_tpu/modules/video_decompress.py`` (reference lines 25-37 and
-79-87; ref: src/video_decompress.h:90-199, src/video_decompress/gpujpeg.c).
-Like the port's ``JpegCompress`` it is not registered with the CLI yet
-(ROADMAP.md: live sessions).
+Counterparts of ``VideoDecompress``, ``DxtDecompress``, ``I420Decompress``,
+``JpegDecompress`` and ``JpegToDxtDecompress`` in
+``ultragrid_tpu/modules/video_decompress.py`` (reference lines 25-113; ref:
+src/video_decompress.h:90-199).  Not registered with the CLI yet
+(ROADMAP.md: live sessions).  Each runs on ``device``, the card unless the
+caller names another; the output frame's data is a uint8 tensor there.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+from ultragrid_tpu_torch.device import get_device, on_device
+from ultragrid_tpu_torch.ops import dxt as dxt_ops
 from ultragrid_tpu_torch.ops.jpeg import JpegDecoder, decode_jpeg_to_frame
+from ultragrid_tpu_torch.ops.planar import i420_8_to_uyvy
 from ultragrid_tpu_torch.types import Codec, VideoFrame
 
 
@@ -19,22 +24,81 @@ class VideoDecompress:
     #: (in_codec, out_codec) pairs this module supports
     SUPPORTS: List[Tuple[Codec, Codec]] = []
 
+    def __init__(self, device="cuda"):
+        self.device = get_device(device)
+
     def decompress(self, frame: VideoFrame, out_codec: Codec) -> Optional[VideoFrame]:
         raise NotImplementedError
 
     def done(self) -> None:
         pass
 
+    @staticmethod
+    def _out(frame: VideoFrame, codec: Codec, data) -> VideoFrame:
+        out = VideoFrame(frame.desc.with_(color_spec=codec), [data])
+        out.timestamp = frame.timestamp
+        return out
+
+
+class DxtDecompress(VideoDecompress):
+    """DXT1 / DXT5-YCoCg -> RGB (ref: src/video_decompress/dxt_glsl.c and
+    the dxt_compress display shaders)."""
+
+    SUPPORTS = [(Codec.DXT1, Codec.RGB), (Codec.DXT5, Codec.RGB)]
+
+    def decompress(self, frame: VideoFrame, out_codec: Codec) -> Optional[VideoFrame]:
+        desc = frame.desc
+        if out_codec != Codec.RGB:
+            return None
+        if desc.color_spec == Codec.DXT1:
+            dec = dxt_ops.dxt1_decode_rgb
+        elif desc.color_spec == Codec.DXT5:
+            dec = dxt_ops.dxt5_ycocg_decode_rgb
+        else:
+            return None
+        data = on_device(frame.data, self.device).reshape(-1)
+        return self._out(frame, Codec.RGB, dec(data, desc.width, desc.height))
+
+
+class I420Decompress(VideoDecompress):
+    """I420 -> UYVY shim (ref: src/video_decompress/i420.c)."""
+
+    SUPPORTS = [(Codec.I420, Codec.UYVY)]
+
+    def decompress(self, frame: VideoFrame, out_codec: Codec) -> Optional[VideoFrame]:
+        if out_codec != Codec.UYVY:
+            return None
+        desc = frame.desc
+        data = on_device(frame.data, self.device).reshape(-1)
+        return self._out(frame, Codec.UYVY, i420_8_to_uyvy(data, desc.width, desc.height))
+
 
 class JpegDecompress(VideoDecompress):
-    """JPEG -> UYVY / RGB on ``device``, the card unless the caller names
-    another; the output frame's data is a uint8 tensor there.  One decoder
-    per module keeps the per-stream matrices of its session."""
+    """JPEG -> UYVY / RGB.  One decoder per module keeps the per-stream
+    matrices of its session."""
 
     SUPPORTS = [(Codec.JPEG, Codec.UYVY), (Codec.JPEG, Codec.RGB)]
 
     def __init__(self, device="cuda"):
-        self.decoder = JpegDecoder(device)
+        super().__init__(device)
+        self.decoder = JpegDecoder(self.device)
 
     def decompress(self, frame: VideoFrame, out_codec: Codec) -> Optional[VideoFrame]:
         return decode_jpeg_to_frame(frame, out_codec, self.decoder)
+
+
+class JpegToDxtDecompress(JpegDecompress):
+    """JPEG -> DXT1 / DXT5-YCoCg without leaving the device (ref:
+    src/video_decompress/gpujpeg_to_dxt.cpp, for tiled display walls): the
+    JPEG decode to RGB feeds the DXT block encoder."""
+
+    SUPPORTS = [(Codec.JPEG, Codec.DXT1), (Codec.JPEG, Codec.DXT5)]
+
+    def decompress(self, frame: VideoFrame, out_codec: Codec) -> Optional[VideoFrame]:
+        if out_codec not in (Codec.DXT1, Codec.DXT5):
+            return None
+        mid = decode_jpeg_to_frame(frame, Codec.RGB, self.decoder)
+        if mid is None:
+            return None
+        enc = dxt_ops.dxt1_encode_rgb if out_codec == Codec.DXT1 else dxt_ops.dxt5_ycocg_encode_rgb
+        return self._out(frame, out_codec, enc(mid.data, mid.desc.width))

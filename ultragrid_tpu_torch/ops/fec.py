@@ -149,20 +149,26 @@ class Gf2Parity:
     ``part_words[p]`` words (by default one part, the whole ``[rows, psw]``
     container).  ``par(*parts)`` returns int32 [m, psw]: the XOR of the
     container rows each mask row selects and, with ``staircase``, of all
-    parity rows before it.  On CUDA tensors it launches K2, which never
-    builds the container; on CPU tensors it runs :meth:`plain`.
+    parity rows before it.  With ``frames`` = B > 1 each part holds B
+    frames' parts back to back (``B * part_words[p]`` words, as the batched
+    sender's K1 output) and ``par`` returns [B, m, psw], one parity per
+    frame.  On CUDA tensors it launches K2 (one launch for all B frames),
+    which never builds the container; on CPU tensors it runs :meth:`plain`.
     """
 
-    def __init__(self, mask_rows, psw: int, part_words=None, staircase: bool = True):
+    def __init__(self, mask_rows, psw: int, part_words=None, staircase: bool = True, frames: int = 1):
         mask_np = np.asarray(mask_rows) != 0
         self.m, self.rows = mask_np.shape
         self.psw = psw
         self.staircase = staircase
+        self.frames = int(frames)
         self.part_words = [self.rows * psw] if part_words is None else [int(w) for w in part_words]
         self.row_counts = [-(-w // psw) for w in self.part_words]
         if not 1 <= len(self.part_words) <= 6 or sum(self.row_counts) != self.rows:
             raise ValueError(f"{len(self.part_words)} parts of {self.row_counts} rows do not fill "
                              f"the mask's {self.rows} columns")
+        if not 1 <= self.frames <= 65535:
+            raise ValueError(f"frame count {self.frames} out of range")
         self.row0 = np.concatenate([[0], np.cumsum(self.row_counts)]).astype(np.int32)
         self.members = [np.nonzero(r)[0].astype(np.int32) for r in mask_np]
         self.row_ptr = np.concatenate([[0], np.cumsum([len(r) for r in self.members])]).astype(np.int32)
@@ -174,12 +180,12 @@ class Gf2Parity:
             raise ValueError(f"parity input: expected {len(self.part_words)} parts, got {len(parts)}")
         dev = parts[0].device
         for p, w in zip(parts, self.part_words):
-            if p.dtype != torch.int32 or p.numel() != w or p.device != dev:
-                raise ValueError(f"parity input: expected int32 parts of {self.part_words} words on "
-                                 f"{dev}, got {p.dtype} {tuple(p.shape)} on {p.device}")
+            if p.dtype != torch.int32 or p.numel() != self.frames * w or p.device != dev:
+                raise ValueError(f"parity input: expected int32 parts of {self.frames} x {self.part_words} "
+                                 f"words on {dev}, got {p.dtype} {tuple(p.shape)} on {p.device}")
 
     def container(self, parts) -> torch.Tensor:
-        """The parts -> the [rows, psw] int32 container, each part
+        """One frame's parts -> the [rows, psw] int32 container, each part
         zero-padded to its own rows."""
         out = torch.zeros(self.rows * self.psw, dtype=torch.int32, device=parts[0].device)
         for p, r0 in zip(parts, self.row0):
@@ -187,12 +193,19 @@ class Gf2Parity:
             out[int(r0) * self.psw: int(r0) * self.psw + flat.numel()] = flat
         return out.reshape(self.rows, self.psw)
 
-    def plain(self, *parts) -> torch.Tensor:
-        """Plain PyTorch version of K2, on any device."""
-        self._check(parts)
+    def _plain_frame(self, parts) -> torch.Tensor:
         data = self.container(parts)
         par = torch.stack([_xor_rows(data, r) for r in self.members])
         return apply_staircase(par) if self.staircase else par
+
+    def plain(self, *parts) -> torch.Tensor:
+        """Plain PyTorch version of K2, on any device: one frame at a time."""
+        self._check(parts)
+        if self.frames == 1:
+            return self._plain_frame(parts)
+        flat = [p.reshape(-1) for p in parts]
+        return torch.stack([self._plain_frame([p[f * w: (f + 1) * w] for p, w in zip(flat, self.part_words)])
+                            for f in range(self.frames)])
 
     def __call__(self, *parts) -> torch.Tensor:
         if parts[0].is_cuda:
@@ -202,7 +215,7 @@ class Gf2Parity:
         raise ValueError(f"gf2 parity: unsupported device {parts[0].device}")
 
     def launch(self, *parts) -> torch.Tensor:
-        """Kernel K2 on CUDA tensors."""
+        """Kernel K2 on CUDA tensors: one launch for all frames."""
         self._check(parts)
         if not all(p.is_cuda and p.is_contiguous() for p in parts):
             raise ValueError("K2 needs contiguous CUDA tensors")
@@ -211,25 +224,26 @@ class Gf2Parity:
         if csr is None:
             csr = self._csr[dev] = (torch.as_tensor(self.row_ptr, device=dev),
                                     torch.as_tensor(self.cols, device=dev))
-        out = torch.empty(self.m, self.psw, dtype=torch.int32, device=dev)
+        shape = (self.m, self.psw) if self.frames == 1 else (self.frames, self.m, self.psw)
+        out = torch.empty(shape, dtype=torch.int32, device=dev)
         ptrs = np.array([p.data_ptr() for p in parts], np.int64)
         words = np.array(self.part_words, np.int64)
         lib = _build.kernels_lib()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.ug_gf2_parity(ptrs.ctypes.data, words.ctypes.data, self.row0.ctypes.data,
-                                    len(parts), self.psw, csr[0].data_ptr(), csr[1].data_ptr(),
-                                    self.m, len(self.cols), int(self.staircase), out.data_ptr(),
-                                    stream)
+                                    len(parts), self.frames, self.psw,
+                                    csr[0].data_ptr(), csr[1].data_ptr(), self.m, len(self.cols),
+                                    int(self.staircase), out.data_ptr(), stream)
         _build.check(err, "gf2_parity launch")
         LAUNCHES.count += 1
         return out
 
 
-def make_gf2_parity(mask_rows, psw: int, part_words=None) -> Gf2Parity:
+def make_gf2_parity(mask_rows, psw: int, part_words=None, frames: int = 1) -> Gf2Parity:
     """K2 plus its plain version for one session's mask (columns = container
     rows)."""
-    return Gf2Parity(mask_rows, psw, part_words)
+    return Gf2Parity(mask_rows, psw, part_words, frames=frames)
 
 
 def _tensor(x, device) -> torch.Tensor:

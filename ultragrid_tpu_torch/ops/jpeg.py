@@ -678,6 +678,77 @@ class JpegEncoder:
         return out[:n]
 
 
+class JpegBatchEncoder:
+    """Throughput mode: B frames per K1 launch (reference
+    ``JpegBatchEncoder``, ops/jpeg.py:862).
+
+    The frames are stacked row-wise into one taller frame and encoded by one
+    launch of K1.  The restart interval divides the MCU-row width, so every
+    frame boundary is a restart boundary and each frame's slots, bit counts
+    and file are bit-identical to a single-frame encode.  The single-frame
+    path stays the sender default: batching trades latency for throughput.
+    ``state`` is the tables of :class:`JpegEncoder`; both encoders share them
+    and the slot width, and an overflow escalation moves both.
+    """
+
+    def __init__(self, width: int, height: int, nframes: int, in_codec: Codec = Codec.UYVY,
+                 quality: int = 80, restart_interval: Optional[int] = None,
+                 subsampling: Optional[str] = None, state: Optional[dict] = None):
+        if nframes < 1:
+            raise ValueError(f"batch of {nframes} frames")
+        self.nframes = nframes
+        self.single = JpegEncoder(width, height, in_codec=in_codec, quality=quality,
+                                  restart_interval=restart_interval, subsampling=subsampling, state=state)
+        self.tall = JpegEncoder(width, height * nframes, in_codec=in_codec, quality=quality,
+                                restart_interval=self.single.restart_interval,
+                                subsampling=self.single.subsampling, state=self.single.state)
+        # identical entropy geometry, frames on restart boundaries =>
+        # per-frame bit-identity
+        if self.single.nmcu % self.single.restart_interval or self.tall.nmcux != self.single.nmcux:
+            raise ValueError(f"restart interval {self.single.restart_interval} does not divide a "
+                             f"frame of {self.single.nmcu} MCUs")
+        self.tall.wwords = self.single.wwords
+
+    @property
+    def wwords(self) -> int:
+        return self.tall.wwords
+
+    def stacked(self, frames, device="cuda") -> torch.Tensor:
+        """uint8 [B, H, linesize] or [B*H, linesize] -> the [B*H, linesize]
+        tensor: a tensor stays on its own device, an array is copied to
+        ``device`` (the card unless the caller names another)."""
+        if not isinstance(frames, torch.Tensor):
+            frames = torch.as_tensor(np.asarray(frames), device=get_device(device))
+        if frames.dim() == 3:
+            frames = frames.reshape(self.tall.height, frames.shape[-1])
+        return frames
+
+    def encode_device(self, frames, device="cuda"):
+        """The device half over the batch: (ys, ybits, us, ubits, vs, vbits,
+        overflow) of the tall frame, frame f's blocks at rows f * blocks per
+        frame.  One K1 launch on the card."""
+        return self.tall._encode(self.stacked(frames, device))
+
+    def encode(self, frames, device="cuda") -> list:
+        """-> list of B complete JPEG files (np.uint8 arrays)."""
+        f = self.stacked(frames, device)
+        out = self.tall._encode(f)
+        while bool(out[-1]) and self.tall.wwords < 64:
+            out = self.tall.escalate_and_retry(f)
+            self.single.wwords = self.tall.wwords
+        ys, ybits, us, ubits, vs, vbits = (p.cpu().numpy() for p in out[:-1])
+        ky, npm = self.single.ky, self.single.nmcu  # luma blocks per MCU, MCUs per frame
+        hdr = np.frombuffer(self.single._header, dtype=np.uint8)
+        eoi = np.frombuffer(b"\xff\xd9", dtype=np.uint8)
+        files = []
+        for i in range(self.nframes):
+            sl = slice(i * npm * ky, (i + 1) * npm * ky)
+            sc = slice(i * npm, (i + 1) * npm)
+            body = self.single.assemble(ys[sl], ybits[sl], us[sc], ubits[sc], vs[sc], vbits[sc])
+            files.append(np.concatenate([hdr, body, eoi]))
+        return files
+
+
 # ---------------------------------------------------------------------------
 # Host pure-Python decoder (the reference's path for a stream the C scan
 # decoder rejects; also an independent test oracle)

@@ -1,29 +1,81 @@
-"""The video types the port uses: codec ids, video description, frames.
+"""The video types the port uses: codec ids, codec table, video description, frames.
 
-The port's own copy of the part of ``ultragrid_tpu/types.py`` it calls, so
-that it imports nothing of the JAX package.  Codec ids keep the reference's
-``IntEnum`` values (ref: codec_t, src/types.h:62-111); the per-codec line
-geometry is the reference table's (src/video_codec.c:123-207) for the codecs
-the port takes.  ``tests/test_torch_types.py`` holds every value here equal
-to the reference's.
+The port's own copy of ``ultragrid_tpu/types.py``'s codec registry, so that
+it imports nothing of the JAX package.  Codec ids keep the reference's
+``IntEnum`` values (ref: codec_t, src/types.h:62-111) and the per-codec
+metadata is the reference table's (ref: codec_info[],
+src/video_codec.c:123-207).  ``tests/test_torch_types.py`` holds every value
+here equal to the reference's.
+
+One difference by design: :func:`vc_get_linesize` raises for a compressed
+(opaque) codec, whose frames are flat byte strings with no lines.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, Optional
+from typing import Any, Dict, Optional
+
+
+def to_fourcc(a: str, b: str, c: str, d: str) -> int:
+    return ord(a) | (ord(b) << 8) | (ord(c) << 16) | (ord(d) << 24)
 
 
 class Codec(enum.IntEnum):
-    """The codec ids the port reads or writes (values as the reference's)."""
+    """Video codec / pixel format ids (values as the reference's)."""
 
     NONE = 0
     RGBA = 1
     UYVY = 2
     YUYV = 3
+    VUYA = 4
+    R10k = 5
+    R12L = 6
+    v210 = 7
+    DVS10 = 8
+    DXT1 = 9
+    DXT1_YUV = 10
+    DXT5 = 11
     RGB = 12
     JPEG = 13
+    JPEG_XS = 14
+    RAW = 15
+    H264 = 16
+    H265 = 17
+    VP8 = 18
+    VP9 = 19
+    BGR = 20
+    J2K = 21
+    J2KR = 22
+    HW_VDPAU = 23
+    HFYU = 24
+    FFV1 = 25
+    CFHD = 26
+    RG48 = 27
+    AV1 = 28
+    I420 = 29
+    Y216 = 30
+    Y416 = 31
+    PRORES = 32
+    PRORES_4444 = 33
+    PRORES_4444_XQ = 34
+    PRORES_422_HQ = 35
+    PRORES_422 = 36
+    PRORES_422_PROXY = 37
+    PRORES_422_LT = 38
+    APV = 39
+    DRM_PRIME = 40
+
+
+class Subsampling(enum.IntEnum):
+    """Chroma subsampling of a pixel format; OPAQUE for compressed codecs."""
+
+    OPAQUE = 0
+    S420 = 420
+    S422 = 422
+    S444 = 444
+    S4444 = 4444
 
 
 class InterlacingType(enum.IntEnum):
@@ -36,23 +88,103 @@ class InterlacingType(enum.IntEnum):
     SEGMENTED_FRAME = 4
 
 
-# codec -> (bytes per pixel block, pixels per block, horizontal alignment)
-_LINE_GEOMETRY = {
-    Codec.RGBA: (4, 1, 1),
-    Codec.UYVY: (4, 2, 2),
-    Codec.YUYV: (4, 2, 2),
-    Codec.RGB: (3, 1, 1),
+VCF_NONE = 0
+VCF_RGB = 1 << 0
+VCF_INTERFRAME = 1 << 1
+VCF_CONST_SIZE = 1 << 2
+
+
+@dataclasses.dataclass(frozen=True)
+class CodecInfo:
+    """Per-codec metadata (ref: struct codec_info_t, src/video_codec.c:104-116)."""
+
+    name: str
+    name_long: str
+    fcc: int
+    block_size_bytes: int
+    block_size_pixels: int
+    h_align: int
+    bits_per_channel: int
+    flags: int
+    subsampling: Subsampling
+    file_extension: Optional[str]
+
+    @property
+    def rgb(self) -> bool:
+        return bool(self.flags & VCF_RGB)
+
+    @property
+    def opaque(self) -> bool:
+        return self.subsampling == Subsampling.OPAQUE
+
+
+_C, _S, _f = Codec, Subsampling, to_fourcc
+
+CODEC_INFO: Dict[Codec, CodecInfo] = {
+    _C.NONE: CodecInfo("(none)", "Undefined Codec", 0, 0, 0, 0, 0, VCF_NONE, _S.OPAQUE, None),
+    _C.RGBA: CodecInfo("RGBA", "Red Green Blue Alpha 32bit", _f("R", "G", "B", "A"), 4, 1, 1, 8, VCF_RGB, _S.S4444, "rgba"),
+    _C.UYVY: CodecInfo("UYVY", "YUV 4:2:2", _f("U", "Y", "V", "Y"), 4, 2, 2, 8, VCF_NONE, _S.S422, "yuv"),
+    _C.YUYV: CodecInfo("YUYV", "YUV 4:2:2", _f("Y", "U", "Y", "V"), 4, 2, 2, 8, VCF_NONE, _S.S422, "yuv"),
+    _C.VUYA: CodecInfo("VUYA", "VUYA 4:4:4:4", _f("V", "U", "Y", "A"), 4, 1, 1, 8, VCF_NONE, _S.S4444, "vuya"),
+    _C.R10k: CodecInfo("R10k", "10-bit RGB 4:4:4", _f("R", "1", "0", "k"), 4, 1, 64, 10, VCF_RGB, _S.S444, "r10k"),
+    _C.R12L: CodecInfo("R12L", "12-bit packed RGB 4:4:4 little-endian", _f("R", "1", "2", "l"), 36, 8, 8, 12, VCF_RGB, _S.S444, "r12l"),
+    _C.v210: CodecInfo("v210", "10-bit YUV 4:2:2", _f("v", "2", "1", "0"), 16, 6, 48, 10, VCF_NONE, _S.S422, "v210"),
+    _C.DVS10: CodecInfo("DVS10", "Centaurus 10bit YUV 4:2:2", _f("D", "S", "1", "0"), 16, 6, 48, 10, VCF_NONE, _S.S422, "dvs10"),
+    _C.DXT1: CodecInfo("DXT1", "S3 Compressed Texture DXT1", _f("D", "X", "T", "1"), 1, 2, 0, 2, VCF_RGB, _S.OPAQUE, "dxt1"),
+    _C.DXT1_YUV: CodecInfo("DXT1_YUV", "S3 Compressed Texture DXT1 YUV", _f("D", "X", "T", "Y"), 1, 2, 0, 2, VCF_NONE, _S.OPAQUE, "dxt1y"),
+    _C.DXT5: CodecInfo("DXT5", "S3 Compressed Texture DXT5 YCoCg", _f("D", "X", "T", "5"), 1, 1, 0, 4, VCF_NONE, _S.OPAQUE, "yog"),
+    _C.RGB: CodecInfo("RGB", "Red Green Blue 24bit", _f("R", "G", "B", "2"), 3, 1, 1, 8, VCF_RGB, _S.S444, "rgb"),
+    _C.JPEG: CodecInfo("JPEG", "JPEG", _f("J", "P", "E", "G"), 1, 1, 0, 8, VCF_NONE, _S.OPAQUE, "jpg"),
+    _C.JPEG_XS: CodecInfo("JPEG_XS", "JPEG XS", _f("J", "X", "S", "S"), 1, 1, 0, 8, VCF_NONE, _S.OPAQUE, "jxs"),
+    _C.RAW: CodecInfo("raw", "Raw SDI video", _f("r", "a", "w", "s"), 1, 1, 0, 0, VCF_NONE, _S.OPAQUE, "raw"),
+    _C.H264: CodecInfo("H.264", "H.264/AVC", _f("A", "V", "C", "1"), 1, 1, 0, 8, VCF_INTERFRAME, _S.OPAQUE, "h264"),
+    _C.H265: CodecInfo("H.265", "H.265/HEVC", _f("H", "E", "V", "C"), 1, 1, 0, 8, VCF_INTERFRAME, _S.OPAQUE, "h265"),
+    _C.VP8: CodecInfo("VP8", "Google VP8", _f("V", "P", "8", "0"), 1, 1, 0, 8, VCF_INTERFRAME, _S.OPAQUE, "vp8"),
+    _C.VP9: CodecInfo("VP9", "Google VP9", _f("V", "P", "9", "0"), 1, 1, 0, 8, VCF_INTERFRAME, _S.OPAQUE, "vp9"),
+    _C.BGR: CodecInfo("BGR", "Blue Green Red 24bit", _f("B", "G", "R", "2"), 3, 1, 1, 8, VCF_RGB, _S.S444, "bgr"),
+    _C.J2K: CodecInfo("J2K", "JPEG 2000", _f("M", "J", "2", "C"), 1, 1, 0, 8, VCF_NONE, _S.OPAQUE, "j2k"),
+    _C.J2KR: CodecInfo("J2KR", "JPEG 2000 RGB", _f("M", "J", "2", "R"), 1, 1, 0, 8, VCF_NONE, _S.OPAQUE, "j2k"),
+    _C.HW_VDPAU: CodecInfo("HW_VDPAU", "VDPAU hardware surface", _f("V", "D", "P", "S"), 0, 1, 0, 8, VCF_CONST_SIZE, _S.OPAQUE, "vdpau"),
+    _C.HFYU: CodecInfo("HFYU", "HuffYUV", _f("H", "F", "Y", "U"), 1, 1, 0, 8, VCF_NONE, _S.OPAQUE, "hfyu"),
+    _C.FFV1: CodecInfo("FFV1", "FFV1", _f("F", "F", "V", "1"), 1, 1, 0, 8, VCF_NONE, _S.OPAQUE, "ffv1"),
+    _C.CFHD: CodecInfo("CFHD", "Cineform", _f("C", "F", "H", "D"), 1, 1, 0, 8, VCF_NONE, _S.OPAQUE, "cfhd"),
+    _C.RG48: CodecInfo("RG48", "16-bit RGB little-endian", _f("R", "G", "4", "8"), 6, 1, 1, 16, VCF_RGB, _S.S444, "rg48"),
+    _C.AV1: CodecInfo("AV1", "AOMedia Video 1", _f("a", "v", "0", "1"), 1, 1, 0, 8, VCF_RGB, _S.OPAQUE, "av1"),
+    _C.I420: CodecInfo("I420", "planar YUV 4:2:0", _f("I", "4", "2", "0"), 3, 2, 2, 8, VCF_NONE, _S.S420, "yuv"),
+    _C.Y216: CodecInfo("Y216", "Packed 16-bit YUV 4:2:2 little-endian", _f("Y", "2", "1", "6"), 8, 2, 2, 16, VCF_NONE, _S.S422, "y216"),
+    _C.Y416: CodecInfo("Y416", "Packed 16-bit YUV 4:4:4:4 little-endian", _f("Y", "4", "1", "6"), 8, 1, 1, 16, VCF_NONE, _S.S4444, "y416"),
+    _C.PRORES: CodecInfo("PRORES", "Apple ProRes", 0, 1, 1, 0, 8, VCF_NONE, _S.OPAQUE, "pror"),
+    _C.PRORES_4444: CodecInfo("PRORES_4444", "Apple ProRes 4444", _f("a", "p", "4", "h"), 1, 1, 0, 8, VCF_NONE, _S.OPAQUE, "ap4h"),
+    _C.PRORES_4444_XQ: CodecInfo("PRORES_4444_XQ", "Apple ProRes 4444 (XQ)", _f("a", "p", "4", "x"), 1, 1, 0, 8, VCF_NONE, _S.OPAQUE, "ap4x"),
+    _C.PRORES_422_HQ: CodecInfo("PRORES_422_HQ", "Apple ProRes 422 (HQ)", _f("a", "p", "c", "h"), 1, 1, 0, 8, VCF_NONE, _S.OPAQUE, "apch"),
+    _C.PRORES_422: CodecInfo("PRORES_422", "Apple ProRes 422", _f("a", "p", "c", "n"), 1, 1, 0, 8, VCF_NONE, _S.OPAQUE, "apcn"),
+    _C.PRORES_422_PROXY: CodecInfo("PRORES_422_PROXY", "Apple ProRes 422 (Proxy)", _f("a", "p", "c", "o"), 1, 1, 0, 8, VCF_NONE, _S.OPAQUE, "apco"),
+    _C.PRORES_422_LT: CodecInfo("PRORES_422_LT", "Apple ProRes 422 (LT)", _f("a", "p", "c", "s"), 1, 1, 0, 8, VCF_NONE, _S.OPAQUE, "apcs"),
+    _C.APV: CodecInfo("APV", "Advanced Professional Video", _f("a", "p", "v", "1"), 1, 1, 0, 0, VCF_NONE, _S.OPAQUE, "apv"),
+    _C.DRM_PRIME: CodecInfo("DRM_PRIME", "DRM Prime buffer", _f("D", "R", "M", "P"), 0, 1, 0, 8, VCF_CONST_SIZE, _S.OPAQUE, "drm_prime"),
 }
+
+def get_codec_info(codec: Codec) -> CodecInfo:
+    return CODEC_INFO[Codec(codec)]
+
+
+def get_bits_per_component(codec: Codec) -> int:
+    return get_codec_info(codec).bits_per_channel
+
+
+def codec_is_a_rgb(codec: Codec) -> bool:
+    return get_codec_info(codec).rgb
 
 
 def vc_get_linesize(width: int, codec: Codec) -> int:
-    """Aligned byte length of one line (ref: src/video_codec.c:508-522)."""
-    codec = Codec(codec)
-    if codec not in _LINE_GEOMETRY:
-        raise ValueError(f"no line geometry for {codec.name} in the port")
-    block_bytes, block_pixels, h_align = _LINE_GEOMETRY[codec]
-    width = (width + h_align - 1) // h_align * h_align
-    return (width + block_pixels - 1) // block_pixels * block_bytes
+    """Aligned byte length of one line (ref: src/video_codec.c:508-522).
+    Raises for a compressed codec: its frames have no lines."""
+    info = get_codec_info(codec)
+    if info.opaque:
+        raise ValueError(f"{info.name} is compressed: its frames have no lines")
+    if info.h_align:
+        width = (width + info.h_align - 1) // info.h_align * info.h_align
+    return (width + info.block_size_pixels - 1) // info.block_size_pixels * info.block_size_bytes
 
 
 @dataclasses.dataclass(frozen=True)
