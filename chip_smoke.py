@@ -13,9 +13,14 @@ the card -> ``JpegDecompress``) against the CPU plain path, runs the
 batched sender (B frames, one K1 and one K2 launch: 4K at B = 16, 8K at
 B = 4, 1920x1088 4:2:0 at B = 3) against single-frame steps, every pixel
 format conversion, DXT, and ``EncodePipeline`` for compress none / dxt1 /
-dxt5 with LDGM and RS and with ``scale_to`` against the CPU plain path, and
-times kernels, steps, the receive step, the 4K batch in frames/s, 4K
-latency, conversions and DXT.  Every phase prints one JSON line; any failed
+dxt5 with LDGM and RS and with ``scale_to`` against the CPU plain path;
+then the local loop, which runs no hand kernel: every postprocess function
+at 1080p and 4K, every filter name at 1080p, and ``run_local_pipeline``
+(4K60 testcard -> deinterlace:blend,mirror,border -> scale:1920x1080 ->
+display, 120 frames) with stitch and conference, each against the CPU plain
+path; and times kernels, steps, the receive step, the 4K batch in frames/s,
+4K latency, conversions, DXT, the postprocess functions and the loop's
+chain.  Every phase prints one JSON line; any failed
 check raises, so the exit code is non-zero.  The last lines are the kernel
 table, the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
@@ -246,6 +251,312 @@ def plain_step(pipe, frame):
     outs = pipe.jpeg_encoder.encode_plain(frame)
     par = pipe.parity.plain(*outs[:6])
     return (*outs[:6], par.view(torch.uint8).reshape(pipe.m, pipe.ps), outs[6])
+
+
+# ---- slice 5: postprocess, filters and the local loop (no hand kernel) ----
+
+LOOP_CAPTURE = "testcard:s=3840x2160:f=60:c=UYVY"
+LOOP_FILTER = "deinterlace:blend,mirror,border"
+LOOP_POSTPROCESS = "scale:1920x1080"
+LOOP_FRAMES = 120
+BT601 = np.array([[0.299, 0.587, 0.114], [0.5, -0.4187, -0.0813], [-0.1687, -0.3313, 0.5]])
+Y601_TO_Y709 = np.array([1, -0.11555, -0.207938, 0, 1.01864, 0.114618, 0, 0.075049, 1.025327])
+
+
+def postprocess_cases(w: int, h: int):
+    """(name, codec, call(src) -> tensor or tuple) for every function of the
+    port's ops/postprocess.py on each codec it takes, at w x h."""
+    from ultragrid_tpu_torch.ops import postprocess as pp
+    from ultragrid_tpu_torch.types import Codec
+
+    logo = np.random.default_rng(50).integers(0, 256, (128, 256, 4), dtype=np.uint8)
+    packed = (Codec.UYVY, Codec.RGB, Codec.RGBA, Codec.v210)
+    cases = []
+    for c in packed:
+        cases += [("deinterlace_blend", c, lambda s, c=c: pp.deinterlace_blend(s, c)),
+                  ("deinterlace_linear", c, lambda s, c=c: pp.deinterlace_linear(s, c)),
+                  ("crop", c, lambda s, c=c: pp.crop(s, w, c, 96, 40, w // 2, h // 2)),
+                  ("mirror", c, lambda s, c=c: pp.mirror(s, w, c)),
+                  ("blank_region", c, lambda s, c=c: pp.blank_region(s, w, c, 96, 40, w // 3, h // 3, 200)),
+                  ("scale_nearest", c, lambda s, c=c: pp.scale_nearest(s, w, c, w // 2, h // 2))]
+    for name in ("deinterlace_bob_even", "deinterlace_bob_odd", "interlace", "flip"):
+        cases.append((name, Codec.UYVY, lambda s, f=getattr(pp, name): f(s)))
+    cases.append(("fields_to_frames", Codec.UYVY, lambda s: pp.fields_to_frames(s, Codec.UYVY)))
+    cases.append(("grayscale", Codec.UYVY, lambda s: pp.grayscale(s, w, Codec.UYVY)))
+    for c in (Codec.RGB, Codec.RGBA):
+        cases += [("gamma_correct", c, lambda s: pp.gamma_correct(s, 2.2)),
+                  ("grayscale", c, lambda s, c=c: pp.grayscale(s, w, c)),
+                  ("color_matrix", c, lambda s, c=c: pp.color_matrix(s, w, c, BT601)),
+                  ("logo_blit", c, lambda s, c=c: pp.logo_blit(s, w, c, logo, 64, 32)),
+                  ("scale_bilinear_rgb", c, lambda s, c=c: pp.scale_bilinear_rgb(s, w, c, w // 2, h // 2))]
+    cases.append(("matrix2_uyvy", Codec.UYVY, lambda s: pp.matrix2_uyvy(s, w, Y601_TO_Y709)))
+    return cases
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+# CUDA runtime calls that put work on the device, as the profiler's CPU side
+# names them; unlike the device-side events the profiler drops none of them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def eager_row(what, fn, runs: int = 20):
+    """Device time and launches per call of fn(), an eager chain of small
+    launches, with no one kernel to anchor :func:`per_step`: launches are
+    the CUDA runtime launch calls the profiler's CPU side counts; the device
+    events it saw are scaled up by launch calls over device events (the
+    profiler drops device events of some calls, of every call alike).  Host
+    clock back to back and CUDA events beside them; idle share = 1 - device
+    over host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    n_launch, n_dev, dev_us = 0, 0, 0.0
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            n_dev += evt.count
+            us = getattr(evt, "self_device_time_total", None)
+            dev_us += evt.self_cuda_time_total if us is None else us
+        elif evt.key.startswith(LAUNCH_CALLS):
+            n_launch += evt.count
+    scale = n_launch / n_dev if n_dev else 0.0
+    dev_ms = dev_us / 1000.0 / runs * scale
+    host = host_ms(lambda: (fn(), torch.cuda.synchronize()), runs=runs)
+    return {"what": what, "device_ms": dev_ms, "launches_per_step": n_launch / runs,
+            "device_events_seen": n_dev / runs, "ms": cuda_ms(fn, runs=runs), "host_ms": host,
+            "idle_share": max(0.0, 1 - dev_ms / host)}
+
+
+def phase_postprocess(dev):
+    """Every postprocess function at 1080p and 4K on the card against the
+    CPU plain path (byte-equal; add_noise: within its amount and in 0..255),
+    and a timing row per function at 4K on its first codec."""
+    from ultragrid_tpu_torch.ops import postprocess as pp
+    from ultragrid_tpu_torch.types import Codec, vc_get_linesize
+
+    t0 = time.perf_counter()
+    checked, rows, worst = 0, [], (0, 0)
+    for w, h in ((W1080, H1080), (W4K, H4K)):
+        timed, srcs = set(), {}
+        for name, codec, call in postprocess_cases(w, h):
+            if codec not in srcs:  # random bytes: every value of every component
+                src = torch.as_tensor(np.random.default_rng(51 + int(codec)).integers(
+                    0, 256, (h, vc_get_linesize(w, codec)), dtype=np.uint8))
+                srcs[codec] = (src, src.to(dev))
+            src, src_d = srcs[codec]
+            got, want = as_tuple(call(src_d)), as_tuple(call(src))
+            for g, c in zip(got, want):
+                if not g.is_cuda or g.shape != c.shape:
+                    raise RuntimeError(f"postprocess {name} {codec.name} {w}x{h}: {g.device} "
+                                       f"{tuple(g.shape)} vs {tuple(c.shape)}")
+                nd, err = byte_diff(g, c)
+                worst = max(worst, (nd, err))
+                if nd:
+                    raise RuntimeError(f"postprocess {name} {codec.name} {w}x{h}: {nd} bytes differ "
+                                       f"from the CPU plain path (max {err})")
+            checked += 1
+            if w == W4K and name not in timed:
+                timed.add(name)
+                rows.append(eager_row(f"{name} 4K {codec.name}", lambda: call(src_d)))
+        src_d = srcs[Codec.UYVY][1]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        noisy = pp.add_noise(src_d, gen, 16)
+        d = noisy.long() - src_d.long()
+        again = pp.add_noise(src_d, torch.Generator(device=dev).manual_seed(1), 16)
+        if not noisy.is_cuda or int(d.abs().max()) > 16 or not torch.equal(noisy, again):
+            raise RuntimeError(f"add_noise {w}x{h}: outside +-16 or not deterministic on the card")
+        checked += 1
+        if w == W4K:
+            rows.append(eager_row("add_noise 4K UYVY", lambda: pp.add_noise(src_d, gen, 16)))
+    return {"phase": "postprocess", "seconds": time.perf_counter() - t0, "cases": checked,
+            "bytes_differing": worst[0], "max_abs_err": worst[1],
+            "add_noise": "within +-16, deterministic per seed", "timing_4k": rows}
+
+
+FILTER_SPECS = [  # (spec, codec, frames): every name of _FILTERS once
+    ("scale:960x540", "UYVY", 1), ("resize:960:540", "UYVY", 1), ("deinterlace", "UYVY", 1),
+    ("deinterlace_blend", "UYVY", 1), ("deinterlace_linear", "UYVY", 1), ("deinterlace_bob", "UYVY", 1),
+    ("interlace", "UYVY", 1), ("crop:1280:720:16:8", "UYVY", 1), ("mirror", "UYVY", 1), ("flip", "UYVY", 1),
+    ("gamma:2.2", "RGB", 1), ("grayscale", "RGB", 1),
+    ("matrix:0.393:0.769:0.189:0.349:0.686:0.168:0.272:0.534:0.131", "RGB", 1),
+    ("blank:64:64:320:200", "UYVY", 1), ("noise:16", "UYVY", 1), ("every:2", "UYVY", 3),
+    ("disrupt:drop=50", "UYVY", 4), ("ratelimit:1000", "UYVY", 1), ("logo", "RGB", 1),
+    ("change_pixfmt:RGB", "UYVY", 1), ("border:color=ff0000:width=16:height=12", "UYVY", 1),
+    ("split:2x2", "UYVY", 1), ("delay:frames=2", "UYVY", 3), ("double_framerate:force", "UYVY", 1),
+    ("temporal_deint:force", "UYVY", 1), ("text:x=40:y=40:h=32:t=UltraGrid", "UYVY", 1),
+    ("interlaced_3d", "UYVY", 1), ("3d-interlaced", "UYVY", 1), ("add_frame:every=2", "UYVY", 2),
+    ("matrix2:y601_to_y709", "UYVY", 1), ("override_prop:fps=50i:size=1920x1080", "UYVY", 1),
+    ("color", "UYVY", 1), ("temporal_3d", "UYVY", 2), ("display:dummy", "UYVY", 1), ("preview", "UYVY", 1),
+]
+
+
+def phase_filters(dev):
+    """Every registered filter name on 1920x1080 testcard frames on the
+    card: each output tile on the card and equal to the CPU chain; split:2x2
+    -> vf_merge_tiles and temporal_3d -> interlaced_3d."""
+    from ultragrid_tpu_torch.modules import filters
+    from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame
+    from ultragrid_tpu_torch.utils.pattern import generate_pattern
+    from ultragrid_tpu_torch.utils.tiling import vf_merge_tiles
+
+    t0 = time.perf_counter()
+    patterns = ("smpte_bars", "bars", "gradient", "noise")
+    srcs = {}
+
+    def frames(codec, n, device):
+        out = []
+        for i in range(n):
+            key = (codec, i)
+            if key not in srcs:
+                srcs[key] = generate_pattern(W1080, H1080, Codec[codec], patterns[i % 4], seed=i, device=dev)
+            f = VideoFrame(VideoDesc(W1080, H1080, Codec[codec], 60.0), [srcs[key].to(device)])
+            f.timestamp = float(i)
+            out.append(f)
+        return out
+
+    def flat(r):
+        return [] if r is None else r if isinstance(r, list) else [r]
+
+    names = set()
+    outputs = 0
+    for spec, codec, n in FILTER_SPECS + [("split:2x2", "UYVY", 1), ("temporal_3d,interlaced_3d", "UYVY", 2)]:
+        names.update(part.partition(":")[0] for part in spec.split(","))
+        gpu, cpu = filters.FilterChain(spec), filters.FilterChain(spec)
+        for fg, fc in zip(frames(codec, n, dev), frames(codec, n, "cpu")):
+            got, want = flat(gpu.apply(fg)), flat(cpu.apply(fc))
+            if len(got) != len(want):
+                raise RuntimeError(f"filter {spec}: {len(got)} frames on the card, {len(want)} on the CPU")
+            for g, c in zip(got, want):
+                if spec == "split:2x2":
+                    g, c = vf_merge_tiles(g, 2, 2), vf_merge_tiles(c, 2, 2)
+                    if not torch.equal(g.data, fg.data):
+                        raise RuntimeError("split:2x2 -> vf_merge_tiles is not the input frame")
+                for tg, tc in zip(g.tiles, c.tiles):
+                    if not tg.is_cuda:
+                        raise RuntimeError(f"filter {spec}: output tile on {tg.device}, not on the card")
+                    if spec.startswith("noise"):
+                        ok = int((tg.long() - fg.data.long()).abs().max()) <= 16
+                    else:
+                        ok = tg.shape == tc.shape and byte_diff(tg, tc)[0] == 0
+                    if not ok:
+                        raise RuntimeError(f"filter {spec}: the card differs from the CPU chain")
+                outputs += 1
+    missing = set(filters._FILTERS) - names
+    if missing:
+        raise RuntimeError(f"filters not run: {sorted(missing)}")
+    return {"phase": "filters", "seconds": time.perf_counter() - t0, "geometry": f"{W1080}x{H1080}", "names": len(names & set(filters._FILTERS)),
+            "outputs_checked": outputs, "all_on_card": True, "bytes_differing": 0,
+            "noise": "within +-16", "split_merge_and_temporal_3d_interlaced_3d": True}
+
+
+def phase_local_loop(dev):
+    """The slice's main path: run_local_pipeline on the card, 120 frames of
+    the 4K60 testcard through deinterlace:blend,mirror,border and
+    scale:1920x1080, once to a pipe display (every frame on the card and
+    equal to the CPU plain path of the same chain on the same ring frame)
+    and once to dummy:codec=RGB (the UYVY -> RGB conversion; frames shown,
+    frames/s against the 60 fps pace); the chain's device time, launches
+    and host time per frame; stitch and conference against the CPU."""
+    from ultragrid_tpu_torch.modules.extra_displays import register_pipe_delegate
+    from ultragrid_tpu_torch.modules.filters import FilterChain
+    from ultragrid_tpu_torch.modules.video_capture import initialize_video_capture
+    from ultragrid_tpu_torch.modules.video_display import initialize_video_display
+    from ultragrid_tpu_torch.ops import fec as fec_ops
+    from ultragrid_tpu_torch.ops import jpeg_cuda
+    from ultragrid_tpu_torch.ops.pixfmt import convert_frame
+    from ultragrid_tpu_torch.pipeline.loop import CaptureToDisplayPipeline, run_local_pipeline
+    from ultragrid_tpu_torch.types import Codec, VideoFrame
+
+    t_phase = time.perf_counter()
+    kept = []
+    register_pipe_delegate("chip_smoke", kept.append)
+    torch.cuda.synchronize()
+    jpeg_cuda.LAUNCHES.reset()
+    fec_ops.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    n = run_local_pipeline(LOOP_CAPTURE, "pipe:chip_smoke", LOOP_FRAMES, LOOP_FILTER, LOOP_POSTPROCESS)
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    hand = {"jpeg_encode": jpeg_cuda.LAUNCHES.count, "gf2_parity": fec_ops.LAUNCHES.count}
+    frames = kept[:-1]
+    if n != LOOP_FRAMES or len(frames) != LOOP_FRAMES or kept[-1] is not None:
+        raise RuntimeError(f"local loop to pipe: {n} captured, {len(frames)} shown")
+    # the CPU plain path: the same testcard ring and chain on the host
+    cap_cpu = initialize_video_capture(LOOP_CAPTURE, device="cpu")
+    ring = len(cap_cpu.frames)
+    want = []
+    for i in range(ring):
+        f = VideoFrame(cap_cpu.desc, [cap_cpu.frames[i]])
+        want.append(FilterChain(LOOP_POSTPROCESS).apply(FilterChain(LOOP_FILTER).apply(f)).data)
+    for i, f in enumerate(frames):
+        if not f.data.is_cuda:
+            raise RuntimeError(f"local loop frame {i} on {f.data.device}, not on the card")
+        if f.data.shape != want[i % ring].shape or byte_diff(f.data, want[i % ring])[0]:
+            raise RuntimeError(f"local loop frame {i} differs from the CPU plain path")
+    kept.clear()
+    # to dummy:codec=RGB: the UYVY -> RGB conversion, frames/s against the pace
+    cap = initialize_video_capture(LOOP_CAPTURE)
+    disp = initialize_video_display("dummy:codec=RGB")
+    pipe = CaptureToDisplayPipeline(cap, disp, LOOP_FRAMES, LOOP_FILTER, LOOP_POSTPROCESS)
+    t0 = time.perf_counter()
+    n_rgb = pipe.run()
+    torch.cuda.synchronize()
+    rgb_s = time.perf_counter() - t0
+    if n_rgb != LOOP_FRAMES or disp.frames_shown != LOOP_FRAMES or disp.desc.color_spec != Codec.RGB:
+        raise RuntimeError(f"local loop to dummy:codec=RGB: {n_rgb} captured, {disp.frames_shown} shown")
+    # one frame of the chain: capture filters + scale + conversion
+    src = VideoFrame(cap.desc, [cap.frames[0]])
+
+    def chain():
+        return pipe.convert(pipe.postprocess_chain.apply(pipe.capture_chain.apply(src)))
+
+    row = eager_row("4K UYVY: deinterlace:blend,mirror,border + scale:1920x1080 + UYVY->RGB", chain)
+    parts = []
+    for what, fn in (("deinterlace:blend", FilterChain("deinterlace:blend")),
+                     ("mirror", FilterChain("mirror")), ("border", FilterChain("border"))):
+        parts.append(eager_row(f"{what} 4K UYVY", lambda fn=fn: fn.apply(src)))
+    scaled = pipe.postprocess_chain.apply(pipe.capture_chain.apply(src))
+    parts.append(eager_row("scale:1920x1080 from 4K UYVY", lambda: pipe.postprocess_chain.apply(src)))
+    parts.append(eager_row("UYVY->RGB 1080p", lambda: pipe.convert(scaled)))
+    # stitch of two 1920x1080 testcards and conference of four participants
+    spec = ("stitch:testcard:s=1920x1080:f=240:c=UYVY:p=smpte_bars#testcard:s=1920x1080:f=240:c=RGB:p=noise"
+            ";size=2048x1024;fov=170")
+    sg, sc = initialize_video_capture(spec), initialize_video_capture(spec, device="cpu")
+    (g, _), (c, _) = sg.grab(), sc.grab()
+    nd_stitch = byte_diff(g.data, c.data)
+    if not g.data.is_cuda or nd_stitch[0]:
+        raise RuntimeError(f"stitch: {nd_stitch} bytes differ from the CPU plain path")
+    cams = [convert_frame(sg.children[0].frames[0], W1080, Codec.UYVY, Codec.RGB).reshape(H1080, W1080, 3),
+            sg.children[1].frames[0].reshape(H1080, W1080, 3)]
+    stitch_row = eager_row("stitch blend 2 x 1080p -> 2048x1024", lambda: sg.blend(cams))
+    cg, cc = initialize_video_display("conference:1920x1080"), initialize_video_display("conference:1920x1080",
+                                                                                         device="cpu")
+    for i in range(4):
+        f = VideoFrame(cap_cpu.desc, [cap_cpu.frames[i]])
+        f.callbacks["ssrc"] = 10 + i
+        fg = VideoFrame(cap.desc, [cap.frames[i]])
+        fg.callbacks["ssrc"] = 10 + i
+        cc.put_frame(f)
+        cg.put_frame(fg)
+    nd_conf = byte_diff(cg.composite, cc.composite)
+    if not cg.composite.is_cuda or nd_conf[0]:
+        raise RuntimeError(f"conference: {nd_conf} bytes differ from the CPU plain path")
+    return {"phase": "local_loop", "seconds": time.perf_counter() - t_phase, "capture": LOOP_CAPTURE, "capture_filter": LOOP_FILTER,
+            "postprocess": LOOP_POSTPROCESS, "frames": LOOP_FRAMES,
+            "pipe": {"captured": n, "shown": len(frames), "all_on_card": True, "equal_to_cpu_plain_path": True,
+                     "seconds": pipe_s, "frames_per_s": len(frames) / pipe_s},
+            "dummy_rgb": {"captured": n_rgb, "shown": disp.frames_shown, "seconds": rgb_s,
+                          "frames_per_s": disp.frames_shown / rgb_s, "pace_fps": cap.desc.fps},
+            "hand_kernel_launches": hand, "chain_per_frame": row, "chain_parts": parts,
+            "stitch": {"cameras": 2, "bytes_differing": nd_stitch[0], "timing": stitch_row},
+            "conference": {"participants": 4, "bytes_differing": nd_conf[0]}}
 
 
 def main() -> int:
@@ -701,6 +1012,12 @@ def main() -> int:
     var_cases.append({"case": "1920x1080 UYVY -> scale_to 1280x720 -> jpeg q80 " + FEC, "launches": sl_launches,
                       "differing_blocks": nd_s, "parity_equal": True})
     emit({"phase": "encode_variants", "cases": var_cases})
+
+    # ---- slice 5: postprocess, filters, the local loop (no hand kernel on
+    # this path: the filters and postprocess are plain PyTorch) ----
+    emit(phase_postprocess(dev))
+    emit(phase_filters(dev))
+    emit(phase_local_loop(dev))
 
     # ---- timing: mean of back-to-back launches between two CUDA events;
     # profiler device time beside it ----

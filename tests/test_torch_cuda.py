@@ -1,6 +1,6 @@
 """Kernels K1 and K2 on the card against their plain PyTorch twins, the
-receive path, the batched sender, the pixel formats and DXT on the card
-against the CPU.
+receive path, the batched sender, the pixel formats, DXT, postprocess, the
+filters, the local loop and the stitcher on the card against the CPU.
 
 Needs a CUDA card and nvcc; skips without a card.  On the card's machine
 (which has no jax, so the JAX conftest must stay out):
@@ -14,7 +14,8 @@ integer work.  Tolerance: exact equality, except the JPEG decode, whose
 float32 product on the card is ``torch.matmul``: at most 0.1% of the output
 bytes may differ from the CPU's chain, each by at most 1; and DXT, at most
 0.1% of the blocks (the port fixes one order and one rounding per fused
-multiply-add on both devices, so 0 is expected).
+multiply-add on both devices, so 0 is expected).  Postprocess, filters and
+the loop: byte-equal (the same float32 roundings on both devices).
 """
 
 import numpy as np
@@ -306,3 +307,77 @@ def test_dxt_on_card_equals_cpu(cuda, name, bpp, bpb):
     assert nd <= 0.001 * (w * h // 16)
     dec = dxt.dxt1_decode_rgb if bpb == 8 else dxt.dxt5_ycocg_decode_rgb
     assert torch.equal(dec(want.to(cuda), w, h).cpu(), dec(want, w, h))
+
+
+# ---- the local loop: postprocess, filters, displays on the card ----
+
+PP_CASES = [
+    ("deinterlace_blend", Codec.UYVY), ("deinterlace_blend", Codec.v210), ("deinterlace_linear", Codec.Y216),
+    ("mirror", Codec.UYVY), ("mirror", Codec.RGB), ("gamma_correct", Codec.RGB), ("grayscale", Codec.RGB),
+    ("grayscale", Codec.UYVY), ("color_matrix", Codec.RGBA), ("logo_blit", Codec.RGB),
+    ("matrix2_uyvy", Codec.UYVY), ("scale_bilinear_rgb", Codec.RGB), ("blank_region", Codec.UYVY),
+]
+
+
+def _pp_call(name, src, codec, w):
+    from ultragrid_tpu_torch.ops import postprocess as pp
+
+    rng = np.random.default_rng(3)
+    args = {
+        "deinterlace_blend": (codec,), "deinterlace_linear": (codec,), "mirror": (w, codec),
+        "gamma_correct": (2.2,), "grayscale": (w, codec),
+        "color_matrix": (w, codec, np.array([[0.299, 0.587, 0.114], [0.5, -0.4187, -0.0813], [-0.1687, -0.3313, 0.5]])),
+        "logo_blit": (w, codec, rng.integers(0, 256, (64, 96, 4), dtype=np.uint8), 10, 20),
+        "matrix2_uyvy": (w, np.array([1, -0.11555, -0.207938, 0, 1.01864, 0.114618, 0, 0.075049, 1.025327])),
+        "scale_bilinear_rgb": (w, codec, 1280, 720), "blank_region": (w, codec, 100, 50, 300, 200),
+    }[name]
+    return getattr(pp, name)(src, *args)
+
+
+@pytest.mark.parametrize("name,codec", PP_CASES, ids=[f"{n}-{c.name}" for n, c in PP_CASES])
+def test_postprocess_on_card_equals_cpu(cuda, name, codec):
+    w = 1920
+    src = torch.as_tensor(content(w, 1080, codec, 9))
+    got = _pp_call(name, src.to(cuda), codec, w)
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), _pp_call(name, src, codec, w))
+
+
+def test_filter_chain_stays_on_card_and_equals_cpu(cuda):
+    from ultragrid_tpu_torch.modules.filters import FilterChain
+    from ultragrid_tpu_torch.utils.pattern import generate_pattern
+
+    spec = "deinterlace:blend,mirror,border,text:t=UG,crop:1280:720:8:8,scale:640:360,interlace"
+    src = generate_pattern(1920, 1080, Codec.UYVY, "smpte_bars", device="cpu")
+    assert torch.equal(generate_pattern(1920, 1080, Codec.UYVY, "smpte_bars").cpu(), src)
+    desc = VideoDesc(1920, 1080, Codec.UYVY, 60.0)
+    got = FilterChain(spec).apply(VideoFrame(desc, [src.to(cuda)]))
+    want = FilterChain(spec).apply(VideoFrame(desc, [src]))
+    assert got.data.is_cuda and torch.equal(got.data.cpu(), want.data)
+    gen = FilterChain("noise:20").apply(VideoFrame(desc, [src.to(cuda)])).data
+    assert gen.is_cuda and int((gen.long() - src.to(cuda).long()).abs().max()) <= 20
+
+
+def test_local_loop_on_card_equals_cpu(cuda):
+    from ultragrid_tpu_torch.modules.extra_displays import register_pipe_delegate
+    from ultragrid_tpu_torch.pipeline.loop import run_local_pipeline
+
+    got, want = [], []
+    register_pipe_delegate("card", got.append)
+    register_pipe_delegate("host", want.append)
+    args = ("testcard:s=1920x1080:f=240:c=UYVY", 12, "deinterlace:blend,mirror,border", "scale:960x540")
+    assert run_local_pipeline(args[0], "pipe:card", *args[1:]) == 12
+    assert run_local_pipeline(args[0], "pipe:host", *args[1:], device="cpu") == 12
+    assert len(got) == len(want) == 13
+    for g, w in zip(got[:-1], want[:-1]):
+        assert g.data.is_cuda and torch.equal(g.data.cpu(), w.data)
+
+
+def test_stitch_on_card_equals_cpu(cuda):
+    from ultragrid_tpu_torch.modules.video_capture import initialize_video_capture
+
+    spec = ("stitch:testcard:s=640x480:f=240:c=UYVY:p=smpte_bars#testcard:s=640x480:f=240:c=RGB:p=noise"
+            ";size=1024x512")
+    gpu, cpu = initialize_video_capture(spec), initialize_video_capture(spec, device="cpu")
+    (g, _), (c, _) = gpu.grab(), cpu.grab()
+    assert g.data.is_cuda and torch.equal(g.data.cpu(), c.data)

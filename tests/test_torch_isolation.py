@@ -33,6 +33,11 @@ from ultragrid_tpu_torch.ops import _kutils, color, dxt, fec, jpeg_cuda, pixfmt,
 from ultragrid_tpu_torch.ops.jpeg import JpegBatchEncoder
 from ultragrid_tpu_torch.ops.fec import LdgmSession, RsSession, fec_from_spec
 from ultragrid_tpu_torch.ops.jpeg import JpegDecoder, decode_jpeg_device, decode_jpeg_to_frame
+import ultragrid_tpu_torch.modules
+from ultragrid_tpu_torch.modules import extra_displays, filters, registry, stitch, video_capture, video_display
+from ultragrid_tpu_torch.modules.video_capture import TestcardCapture, initialize_video_capture
+from ultragrid_tpu_torch.pipeline.loop import run_local_pipeline
+from ultragrid_tpu_torch.utils import capabilities, log, pattern, tiling
 
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 if not torch.cuda.is_available():
@@ -59,7 +64,9 @@ if not torch.cuda.is_available():
                  lambda: pixfmt.convert_frame(frame, 64, Codec.UYVY, Codec.RGB),
                  lambda: DxtCompress("DXT1"), lambda: DxtDecompress(), lambda: JpegToDxtDecompress(),
                  lambda: BatchedJpegLdgmPipeline(desc, 2),
-                 lambda: JpegBatchEncoder(64, 32, 2).encode(np.stack([frame, frame]))):
+                 lambda: JpegBatchEncoder(64, 32, 2).encode(np.stack([frame, frame])),
+                 lambda: TestcardCapture("s=64x32"), lambda: initialize_video_capture("testcard:s=64x32"),
+                 lambda: run_local_pipeline("testcard:s=64x32:f=1000", "dummy", 1)):
         try:
             make()
         except RuntimeError:
@@ -99,6 +106,13 @@ back = DxtDecompress(device="cpu").decompress(d1, Codec.RGB)
 assert tuple(back.data.shape) == (32, 192)
 jd = JpegToDxtDecompress(device="cpu").decompress(VideoFrame(desc.with_(color_spec=Codec.JPEG), [rec]), Codec.DXT5)
 assert jd.data.numel() == 64 * 32
+# the local loop on the CPU: testcard -> filters -> postprocess -> display
+got = []
+extra_displays.register_pipe_delegate("iso", got.append)
+n = run_local_pipeline("testcard:s=96x64:f=1000:c=UYVY", "pipe:iso", 3,
+                       "deinterlace:blend,mirror,border", "scale:48x32", device="cpu")
+assert n == 3 and len(got) == 4 and got[-1] is None and tuple(got[0].data.shape) == (32, 96)
+assert capabilities.get_capabilities()["backend"] == "torch-cuda"
 assert jpeg_cuda.LAUNCHES.count == 0 and fec.LAUNCHES.count == 0
 loaded = [m for m, mod in sys.modules.items()
           if m.split(".")[0] in ("jax", "ultragrid_tpu") and mod is not None]

@@ -7,9 +7,10 @@ package; these tests hold every copied value to the reference's.
 
 import dataclasses
 
+import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from ultragrid_tpu import types as ref_types  # noqa: E402
 from ultragrid_tpu_torch import types as port_types  # noqa: E402
@@ -84,3 +85,66 @@ def test_linesize_of_every_pixel_format(name):
     for width in (1, 2, 6, 8, 48, 64, 192, 1918, 1920, 3840, 7680):
         assert port_types.vc_get_linesize(width, port_types.Codec[name]) == \
             ref_types.vc_get_linesize(width, ref_types.Codec[name])
+
+
+@pytest.mark.parametrize("name", ALL_CODECS)
+def test_codec_from_name(name):
+    info_name = ref_types.get_codec_info(ref_types.Codec[name]).name
+    for spelled in (info_name, info_name.lower(), info_name.upper()):
+        assert int(port_types.get_codec_from_name(spelled)) == int(ref_types.get_codec_from_name(spelled))
+    assert port_types.get_codec_from_name("no such codec") == port_types.Codec.NONE
+
+
+@pytest.mark.parametrize("name", [n for n in ALL_CODECS if n != "NONE"])
+def test_datalen_and_alloc(name):
+    for w, h in ((64, 32), (1920, 1080), (50, 30)):
+        p = port_types.VideoDesc(w, h, port_types.Codec[name], tile_count=2)
+        r = ref_types.VideoDesc(w, h, ref_types.Codec[name], tile_count=2)
+        assert p.datalen() == r.datalen()
+        got, want = port_types.VideoFrame.alloc(p, "cpu"), ref_types.VideoFrame.alloc(r)
+        assert len(got.tiles) == len(want.tiles) == 2
+        for g, t in zip(got.tiles, want.tiles):
+            assert tuple(g.shape) == t.shape and g.dtype == torch.uint8 and g.device.type == "cpu"
+            assert not g.any()
+
+
+DESCS = [(1920, 1080, "UYVY", 60.0, "PROGRESSIVE"), (3840, 2160, "v210", 59.94, "INTERLACED_MERGED"),
+         (720, 576, "RGB", 25.0, "UPPER_FIELD_FIRST"), (640, 480, "I420", 29.97, "LOWER_FIELD_FIRST"),
+         (1280, 720, "JPEG", 23.976, "SEGMENTED_FRAME"), (64, 32, "H265", 120.0, "PROGRESSIVE")]
+
+
+@pytest.mark.parametrize("w,h,codec,fps,interl", DESCS)
+def test_video_desc_str_and_parse(w, h, codec, fps, interl):
+    p = port_types.VideoDesc(w, h, port_types.Codec[codec], fps, port_types.InterlacingType[interl])
+    r = ref_types.VideoDesc(w, h, ref_types.Codec[codec], fps, ref_types.InterlacingType[interl])
+    assert str(p) == str(r)
+    back, ref_back = port_types.VideoDesc.parse(str(p)), ref_types.VideoDesc.parse(str(r))
+    assert dataclasses.astuple(back) == dataclasses.astuple(ref_back)
+    with pytest.raises(ValueError):
+        port_types.VideoDesc.parse("64x32 @30x, codec UYVY")
+
+
+@pytest.mark.parametrize("s", ["29.97", "30000/1001", "60", "23.98", "59.94", "25", "24000/1001",
+                               "12.5", "47.952", "0.5", "119.88"])
+def test_parse_fps(s):
+    assert port_types.parse_fps(s) == ref_types.parse_fps(s)
+
+
+def test_video_frame_fields_setter_and_copy():
+    desc = port_types.VideoDesc(64, 32, port_types.Codec.UYVY)
+    p, r = port_types.VideoFrame(desc), ref_types.VideoFrame(desc)
+    for name in ("timestamp", "compress_start", "compress_end", "callbacks"):
+        assert getattr(p, name) == getattr(r, name)
+    assert set(port_types.VideoFrame.__slots__) == set(ref_types.VideoFrame.__slots__)
+    data = torch.arange(64 * 32 * 2, dtype=torch.int32).to(torch.uint8).reshape(32, 128)
+    p.data = data  # appends the first tile
+    assert p.tiles == [data]
+    other = data.flip(0)
+    p.data = other  # replaces it
+    assert len(p.tiles) == 1 and p.data is other
+    p.timestamp, p.callbacks["ssrc"] = 3.5, 9
+    c = p.copy()
+    assert c.desc is desc and c.timestamp == 3.5 and c.callbacks == {}
+    assert torch.equal(c.data, other) and c.data.data_ptr() != other.data_ptr()
+    np_frame = port_types.VideoFrame(desc, [np.zeros((32, 128), np.uint8)]).copy()
+    assert isinstance(np_frame.data, np.ndarray)

@@ -1,0 +1,21 @@
+"""The port's modules: registry, capture, filters, displays, compression.
+
+Importing the package registers every built-in module in the port's own
+registry (ref: constructor-time REGISTER_MODULE, src/lib_common.h:124-143),
+as the JAX package's ``ultragrid_tpu/modules/__init__.py`` does for its own.
+"""
+
+from ultragrid_tpu_torch.modules.registry import (  # noqa: F401
+    LibraryClass,
+    list_modules,
+    load_library,
+    register_module,
+)
+
+import ultragrid_tpu_torch.modules.video_capture  # noqa: E402,F401
+import ultragrid_tpu_torch.modules.video_display  # noqa: E402,F401
+import ultragrid_tpu_torch.modules.video_compress  # noqa: E402,F401
+import ultragrid_tpu_torch.modules.video_decompress  # noqa: E402,F401
+import ultragrid_tpu_torch.modules.filters  # noqa: E402,F401
+import ultragrid_tpu_torch.modules.extra_displays  # noqa: E402,F401
+import ultragrid_tpu_torch.modules.stitch  # noqa: E402,F401

@@ -3,10 +3,10 @@ tensors.
 
 Counterparts of ``NoneCompress``, ``UyvyCompress``, ``DxtCompress`` and
 ``JpegCompress`` in ``ultragrid_tpu/modules/video_compress.py`` (reference
-lines 49-196; JPEG without rate control).  They are not registered with the
-CLI yet (ROADMAP.md: live sessions).  Each runs on ``device``, the card
-unless the caller names another: an array frame is copied there, a tensor
-frame must already be there.
+lines 49-196; JPEG without rate control), registered in the port's registry
+under the reference's names (reference lines 568-580).  Each runs on
+``device``, the card unless the caller names another: an array frame is
+copied there, a tensor frame must already be there.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ultragrid_tpu_torch.device import get_device, on_device
+from ultragrid_tpu_torch.modules.registry import LibraryClass, register_module
 from ultragrid_tpu_torch.ops import dxt as dxt_ops
 from ultragrid_tpu_torch.ops import pixfmt
 from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
@@ -127,3 +128,11 @@ class JpegCompress(VideoCompress):
 
     def done(self) -> None:
         self._encoder = None
+
+
+register_module("none", LibraryClass.VIDEO_COMPRESS, NoneCompress)
+register_module("uyvy", LibraryClass.VIDEO_COMPRESS, UyvyCompress)
+register_module("dxt", LibraryClass.VIDEO_COMPRESS, DxtCompress)
+register_module("cuda_dxt", LibraryClass.VIDEO_COMPRESS, DxtCompress)  # alias
+register_module("jpeg", LibraryClass.VIDEO_COMPRESS, JpegCompress)
+register_module("gpujpeg", LibraryClass.VIDEO_COMPRESS, JpegCompress)  # alias

@@ -4,9 +4,10 @@ on tensors.
 Counterparts of ``VideoDecompress``, ``DxtDecompress``, ``I420Decompress``,
 ``JpegDecompress`` and ``JpegToDxtDecompress`` in
 ``ultragrid_tpu/modules/video_decompress.py`` (reference lines 25-113; ref:
-src/video_decompress.h:90-199).  Not registered with the CLI yet
-(ROADMAP.md: live sessions).  Each runs on ``device``, the card unless the
-caller names another; the output frame's data is a uint8 tensor there.
+src/video_decompress.h:90-199), registered in the port's registry under the
+reference's names (reference lines 234-238).  Each runs on ``device``, the
+card unless the caller names another; the output frame's data is a uint8
+tensor there.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 from ultragrid_tpu_torch.device import get_device, on_device
+from ultragrid_tpu_torch.modules.registry import LibraryClass, register_module
 from ultragrid_tpu_torch.ops import dxt as dxt_ops
 from ultragrid_tpu_torch.ops.jpeg import JpegDecoder, decode_jpeg_to_frame
 from ultragrid_tpu_torch.ops.planar import i420_8_to_uyvy
@@ -102,3 +104,9 @@ class JpegToDxtDecompress(JpegDecompress):
             return None
         enc = dxt_ops.dxt1_encode_rgb if out_codec == Codec.DXT1 else dxt_ops.dxt5_ycocg_encode_rgb
         return self._out(frame, out_codec, enc(mid.data, mid.desc.width))
+
+
+register_module("dxt", LibraryClass.VIDEO_DECOMPRESS, DxtDecompress)
+register_module("i420", LibraryClass.VIDEO_DECOMPRESS, I420Decompress)
+register_module("jpeg", LibraryClass.VIDEO_DECOMPRESS, JpegDecompress)
+register_module("jpeg_to_dxt", LibraryClass.VIDEO_DECOMPRESS, JpegToDxtDecompress)

@@ -9,6 +9,7 @@ int64, so a right shift of a word never drags in a sign bit.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ultragrid_tpu_torch.ops.color import ColorCoeffs, Colorspace, get_color_coeffs
@@ -50,6 +51,24 @@ def u32_to_bytes(w: torch.Tensor) -> torch.Tensor:
     w = w.to(torch.int64)
     b = torch.stack([w & 0xFF, (w >> 8) & 0xFF, (w >> 16) & 0xFF, (w >> 24) & 0xFF], dim=-1)
     return b.to(torch.uint8).reshape(w.shape[0], -1)
+
+
+def f32(x: float) -> float:
+    """x rounded to float32 (a constant as XLA folds it)."""
+    return float(np.float32(x))
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """a * b + c with one rounding, as XLA's CPU backend fuses a product
+    into the add that consumes it (``torch.addcmul``: one rounding on the
+    CPU and on the card); scalars become float32 tensors."""
+    ref = next(x for x in (a, b, c) if isinstance(x, torch.Tensor))
+
+    def t(x):
+        return x if isinstance(x, torch.Tensor) else torch.tensor(x, dtype=torch.float32, device=ref.device)
+
+    a, b, c = t(a), t(b), t(c)
+    return torch.addcmul(c.expand(torch.broadcast_shapes(a.shape, b.shape, c.shape)), a, b)
 
 
 def cdiv2(x: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,7 @@ rewrites ``x / c`` as ``x * (1 / c)`` for a constant ``c`` (:data:`_R255`
 and friends), its CPU backend fuses a product into the add or subtract that
 consumes it (one rounding) wherever the product has no other use, and it
 sums a block's 16 lanes in a fixed order, fused.
-The port writes each such fused multiply-add out as :func:`_fma`
+The port writes each such fused multiply-add out as ``_kutils.fma``
 (``torch.addcmul``: one rounding on the CPU and on the card) and each lane
 sum as :func:`_lane_dot`, so the CPU and the card compute one thing, the
 reference's.  Where XLA computes one value two ways in two fusions (the
@@ -26,33 +26,17 @@ B/block (DXT5), wire-compatible with the reference's DXT frames.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
+
+from ultragrid_tpu_torch.ops._kutils import f32, fma
 
 _OFFSET = 128.0 / 255.0
 _U32 = 0xFFFFFFFF
 
-
-def _f32(x: float) -> float:
-    """x rounded to float32 (a constant as XLA folds it)."""
-    return float(np.float32(x))
-
-
-_R255 = _f32(1.0 / 255.0)
-_R31, _R63 = _f32(1.0 / 31.0), _f32(1.0 / 63.0)
-_R3, _R7, _R14 = _f32(1.0 / 3.0), _f32(1.0 / 7.0), _f32(1.0 / 14.0)
-_TWO_THIRDS = _f32(2.0 / 3.0)
-
-
-def _fma(a, b, c) -> torch.Tensor:
-    """a * b + c with one rounding (scalars become float32 tensors)."""
-    ref = next(x for x in (a, b, c) if isinstance(x, torch.Tensor))
-
-    def t(x):
-        return x if isinstance(x, torch.Tensor) else torch.tensor(x, dtype=torch.float32, device=ref.device)
-
-    a, b, c = t(a), t(b), t(c)
-    return torch.addcmul(c.expand(torch.broadcast_shapes(a.shape, b.shape, c.shape)), a, b)
+_R255 = f32(1.0 / 255.0)
+_R31, _R63 = f32(1.0 / 31.0), f32(1.0 / 63.0)
+_R3, _R7, _R14 = f32(1.0 / 3.0), f32(1.0 / 7.0), f32(1.0 / 14.0)
+_TWO_THIRDS = f32(2.0 / 3.0)
 
 
 def _lane_dot(x: torch.Tensor, y: torch.Tensor, vector: bool) -> torch.Tensor:
@@ -62,9 +46,9 @@ def _lane_dot(x: torch.Tensor, y: torch.Tensor, vector: bool) -> torch.Tensor:
     if not vector:
         s = x[:, 0] * y[:, 0]
         for i in range(1, x.shape[1]):
-            s = _fma(x[:, i], y[:, i], s)
+            s = fma(x[:, i], y[:, i], s)
         return s
-    s = _fma(x[:, :8], y[:, :8], x[:, 8:] * y[:, 8:])
+    s = fma(x[:, :8], y[:, :8], x[:, 8:] * y[:, 8:])
     s = s[:, :4] + s[:, 4:]
     s = s[:, :2] + s[:, 2:]
     return s[:, 0] + s[:, 1]
@@ -79,7 +63,7 @@ class _Chan:
         self.v, self.b8 = v, b8
 
     def plus(self, c) -> torch.Tensor:
-        return self.v + c if self.b8 is None else _fma(self.b8, _R255, c)
+        return self.v + c if self.b8 is None else fma(self.b8, _R255, c)
 
 
 def _blockify(px: torch.Tensor):
@@ -166,13 +150,13 @@ def _dxt1_core(r: _Chan, g: _Chan, b: _Chan):
 
     # project colors onto the min-max line, quantize t to palette index;
     # the min end's scaling is fused into the direction
-    dir_r, dir_g, dir_b = (_fma(lo, u, -hi) for lo, u, hi in zip(qmin, units, (maxr, maxg, maxb)))
-    dir_sqr = _fma(dir_b, dir_b, _fma(dir_r, dir_r, dir_g * dir_g))
+    dir_r, dir_g, dir_b = (fma(lo, u, -hi) for lo, u, hi in zip(qmin, units, (maxr, maxg, maxb)))
+    dir_sqr = fma(dir_b, dir_b, fma(dir_r, dir_r, dir_g * dir_g))
     inv = torch.where(dir_sqr > 0, 1.0 / torch.where(dir_sqr > 0, dir_sqr, 1.0), 0.0)
     t_r, t_g, t_b = dir_r * inv, dir_g * inv, dir_b * inv
-    t_bias = _fma(t_b, maxb, _fma(t_r, maxr, t_g * maxg))
-    col_t = _fma(b.v, t_b[:, None], _fma(r.v, t_r[:, None], g.v * t_g[:, None])) - t_bias[:, None]
-    col_idx = _u32(_fma(_saturate(col_t), 3.0, 0.5))  # trunc, as the C cast
+    t_bias = fma(t_b, maxb, fma(t_r, maxr, t_g * maxg))
+    col_t = fma(b.v, t_b[:, None], fma(r.v, t_r[:, None], g.v * t_g[:, None])) - t_bias[:, None]
+    col_idx = _u32(fma(_saturate(col_t), 3.0, 0.5))  # trunc, as the C cast
 
     indices = _pack_2bit(col_idx)
     indices = torch.where(max_code != min_code, indices, 0)
@@ -202,10 +186,10 @@ def _uyvy_rgb_chans(src: torch.Tensor, width: int):
     byte scaling, each chroma product into its add."""
     y, _, _, u8, v8 = _uyvy_to_px444(src, width)
     yy = (y - 0.0625) * 1.1643
-    uu, vv = _fma(u8, _R255, -0.5), _fma(v8, _R255, -0.5)
-    r = _fma(vv, 1.7926, yy)
+    uu, vv = fma(u8, _R255, -0.5), fma(v8, _R255, -0.5)
+    r = fma(vv, 1.7926, yy)
     g = yy - 0.2132 * uu - 0.5328 * vv
-    b = _fma(uu, 2.1124, yy)
+    b = fma(uu, 2.1124, yy)
     return [_Chan(c) for c in _blockify(torch.stack([r, g, b], dim=-1))]
 
 
@@ -240,7 +224,7 @@ def _dxt5_ycocg_core(r: _Chan, g: _Chan, b: _Chan):
     # Cg as the covariance and the palette see it
     cg = ((two_g - r.v) - b.v) * 0.25 + _OFFSET
     # as the bounding box sees it: the byte scaling of b fused
-    cg_box = (two_g - r.v) - b.v if b.b8 is None else _fma(b.b8, -_R255, two_g - r.v)
+    cg_box = (two_g - r.v) - b.v if b.b8 is None else fma(b.b8, -_R255, two_g - r.v)
     cg_box = cg_box * 0.25 + _OFFSET
 
     miny, minco, mincg = y.amin(dim=1), co.amin(dim=1), cg_box.amin(dim=1)
@@ -285,20 +269,20 @@ def _dxt5_ycocg_core(r: _Chan, g: _Chan, b: _Chan):
     def expand(q, bits):
         qi = _u32(q)
         e = ((qi << (8 - bits)) | (qi >> (2 * bits - 8))).to(torch.float32)
-        return _fma(e, _R255, -_OFFSET) / scale + _OFFSET
+        return fma(e, _R255, -_OFFSET) / scale + _OFFSET
 
     c0co, c0cg = expand(qmaxco, 5), expand(qmaxcg, 6)
     c1co, c1cg = expand(qminco, 5), expand(qmincg, 6)
 
     # EmitIndicesYCoCgDXT5: 4-color palette over (Co, Cg)
-    c2co = _fma(c1co - c0co, _R3, c0co)
-    c2cg = _fma(c1cg - c0cg, _R3, c0cg)
-    c3co = _fma(c1co - c0co, _TWO_THIRDS, c0co)
-    c3cg = _fma(c1cg - c0cg, _TWO_THIRDS, c0cg)
+    c2co = fma(c1co - c0co, _R3, c0co)
+    c2cg = fma(c1cg - c0cg, _R3, c0cg)
+    c3co = fma(c1co - c0co, _TWO_THIRDS, c0co)
+    c3cg = fma(c1cg - c0cg, _TWO_THIRDS, c0cg)
 
     def dist(pc, pg):
         dc, dg = co - pc[:, None], cg - pg[:, None]
-        return _fma(dc, dc, dg * dg)
+        return fma(dc, dc, dg * dg)
 
     d0, d1, d2, d3 = dist(c0co, c0cg), dist(c1co, c1cg), dist(c2co, c2cg), dist(c3co, c3cg)
     bx = d0 > d3
@@ -327,16 +311,16 @@ def _dxt5_ycocg_core(r: _Chan, g: _Chan, b: _Chan):
     for k in (6, 5, 4, 3, 2, 1):
         wmax, wmin = float(k), float(7 - k)
         if k == 1:
-            s = _fma(iminy, wmin, imaxy)
+            s = fma(iminy, wmin, imaxy)
         elif k == 2:
-            s = _fma(iminy, wmin, imaxy + imaxy)
+            s = fma(iminy, wmin, imaxy + imaxy)
         elif k == 5:
-            s = _fma(imaxy, wmax, iminy + iminy)
+            s = fma(imaxy, wmax, iminy + iminy)
         elif k == 6:
-            s = _fma(imaxy, wmax, iminy)
+            s = fma(imaxy, wmax, iminy)
         else:
-            s = _fma(imaxy, wmax, iminy * wmin)
-        ab.append(_fma(s, _R7, mid))
+            s = fma(imaxy, wmax, iminy * wmin)
+        ab.append(fma(s, _R7, mid))
     index = torch.ones_like(y, dtype=torch.int64)
     for t in ab:
         index = index + (y <= t[:, None]).to(torch.int64)
@@ -453,11 +437,11 @@ def dxt5_ycocg_decode_rgb(buf: torch.Tensor, width: int, height: int) -> torch.T
     co1, cg1, _ = _expand565(clo)
 
     def palette(a0_, a1_):
-        return torch.stack([a0_, a1_, _fma(a1_ - a0_, _R3, a0_), _fma(a1_ - a0_, _TWO_THIRDS, a0_)], dim=-1)
+        return torch.stack([a0_, a1_, fma(a1_ - a0_, _R3, a0_), fma(a1_ - a0_, _TWO_THIRDS, a0_)], dim=-1)
 
     sel = _sel_2bit(cocg_idx)
-    co = _fma(torch.gather(palette(co0, co1), 1, sel), _R255, -_OFFSET) / scale[:, None]
-    cg = _fma(torch.gather(palette(cg0, cg1), 1, sel), _R255, -_OFFSET) / scale[:, None]
+    co = fma(torch.gather(palette(co0, co1), 1, sel), _R255, -_OFFSET) / scale[:, None]
+    cg = fma(torch.gather(palette(cg0, cg1), 1, sel), _R255, -_OFFSET) / scale[:, None]
 
     r = yv + co - cg
     g = yv + cg

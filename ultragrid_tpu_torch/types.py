@@ -15,7 +15,10 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+from fractions import Fraction
 from typing import Any, Dict, Optional
+
+import torch
 
 
 def to_fourcc(a: str, b: str, c: str, d: str) -> int:
@@ -176,6 +179,13 @@ def codec_is_a_rgb(codec: Codec) -> bool:
     return get_codec_info(codec).rgb
 
 
+def get_codec_from_name(name: str) -> Codec:
+    for c, info in CODEC_INFO.items():
+        if info.name.lower() == name.lower():
+            return c
+    return Codec.NONE
+
+
 def vc_get_linesize(width: int, codec: Codec) -> int:
     """Aligned byte length of one line (ref: src/video_codec.c:508-522).
     Raises for a compressed codec: its frames have no lines."""
@@ -185,6 +195,33 @@ def vc_get_linesize(width: int, codec: Codec) -> int:
     if info.h_align:
         width = (width + info.h_align - 1) // info.h_align * info.h_align
     return (width + info.block_size_pixels - 1) // info.block_size_pixels * info.block_size_bytes
+
+
+# planes of a planar codec as (h, v) subsampling pairs (ref:
+# pixfmt_plane_info[], src/video_codec.c:214-217)
+_PLANES = {Codec.I420: ((1, 1), (2, 2), (2, 2))}
+
+
+def vc_get_datalen(width: int, height: int, codec: Codec) -> int:
+    """Storage size of a frame (ref: src/video_codec.c:544-563); a compressed
+    codec counts its blocks as the reference does."""
+    info = get_codec_info(codec)
+    if Codec(codec) in _PLANES:
+        return sum(-(-width // h) * -(-height // v) for h, v in _PLANES[Codec(codec)])
+    if info.opaque:
+        if not info.block_size_pixels:
+            return 0
+        return -(-width // info.block_size_pixels) * info.block_size_bytes * height
+    return vc_get_linesize(width, codec) * height
+
+
+_INTERLACING_SUFFIX = {
+    InterlacingType.PROGRESSIVE: "p",
+    InterlacingType.UPPER_FIELD_FIRST: "uff",
+    InterlacingType.LOWER_FIELD_FIRST: "lff",
+    InterlacingType.INTERLACED_MERGED: "i",
+    InterlacingType.SEGMENTED_FRAME: "psf",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,24 +238,89 @@ class VideoDesc:
     def linesize(self) -> int:
         return vc_get_linesize(self.width, self.color_spec)
 
+    def datalen(self) -> int:
+        return vc_get_datalen(self.width, self.height, self.color_spec)
+
     def with_(self, **kw: Any) -> "VideoDesc":
         return dataclasses.replace(self, **kw)
+
+    def __str__(self) -> str:
+        fps = f"{self.fps:.4g}"
+        return (f"{self.width}x{self.height} @{fps}{_INTERLACING_SUFFIX[self.interlacing]}, "
+                f"codec {get_codec_info(self.color_spec).name}")
+
+    @staticmethod
+    def parse(s: str) -> "VideoDesc":
+        """Parse ``WxH @fps[pi], codec NAME`` round-trippable with __str__."""
+        size_part, rest = s.split(" @", 1)
+        w, h = size_part.split("x")
+        fps_part, codec_part = rest.split(", codec ")
+        by_suffix = {v: k for k, v in _INTERLACING_SUFFIX.items()}
+        for suffix in ("psf", "uff", "lff", "i", "p"):
+            if fps_part.endswith(suffix):
+                return VideoDesc(int(w), int(h), get_codec_from_name(codec_part),
+                                 float(fps_part[: -len(suffix)]), by_suffix[suffix])
+        raise ValueError(f"cannot parse interlacing from {fps_part!r}")
+
+
+def parse_fps(fps_str: str) -> Fraction:
+    """Parse fps strings like ``29.97``, ``30000/1001``, ``60``.
+
+    Mirrors get_framerate semantics (ref: test/get_framerate_test.cpp):
+    29.97 -> 30000/1001, 23.98 -> 24000/1001 etc.
+    """
+    if "/" in fps_str:
+        num, den = fps_str.split("/")
+        return Fraction(int(num), int(den))
+    val = float(fps_str)
+    if abs(val - round(val)) < 1e-9:
+        return Fraction(round(val), 1)
+    # NTSC-style rates: x.97/x.98 represent round(x+1)*1000/1001
+    approx = Fraction(round((val * 1001) / 1000)) * 1000 / 1001
+    if abs(float(approx) - val) < 0.01:
+        return Fraction(round((val * 1001) / 1000) * 1000, 1001)
+    return Fraction(val).limit_denominator(100000)
 
 
 class VideoFrame:
     """A frame: one array or tensor per tile plus its descriptor (ref:
-    struct video_frame, src/types.h:301-342).  ``data`` is the first tile."""
+    struct video_frame, src/types.h:301-342).  ``data`` is the first tile:
+    uint8 ``[height, linesize]`` for a pixel format, 1-D for a planar or
+    compressed codec."""
 
-    __slots__ = ("desc", "tiles", "timestamp")
+    __slots__ = ("desc", "tiles", "timestamp", "compress_start", "compress_end", "callbacks")
 
     def __init__(self, desc: VideoDesc, tiles: Optional[list] = None, timestamp: float = -1.0):
         self.desc = desc
         self.tiles = tiles if tiles is not None else []
-        self.timestamp = timestamp  # seconds
+        self.timestamp = timestamp  # seconds; RTP TS = timestamp * 90 kHz
+        self.compress_start = 0.0
+        self.compress_end = 0.0
+        self.callbacks: Dict[str, Any] = {}
 
     @property
     def data(self):
         return self.tiles[0]
+
+    @data.setter
+    def data(self, value) -> None:
+        if self.tiles:
+            self.tiles[0] = value
+        else:
+            self.tiles.append(value)
+
+    @staticmethod
+    def alloc(desc: VideoDesc, device) -> "VideoFrame":
+        """Zeroed frame storage on ``device`` (ref: vf_alloc_desc_data)."""
+        flat = Codec(desc.color_spec) in _PLANES or get_codec_info(desc.color_spec).opaque
+        shape = (desc.datalen(),) if flat else (desc.height, desc.linesize())
+        return VideoFrame(desc, [torch.zeros(shape, dtype=torch.uint8, device=device)
+                                 for _ in range(desc.tile_count)])
+
+    def copy(self) -> "VideoFrame":
+        """A frame with copies of the tiles, on their devices."""
+        return VideoFrame(self.desc, [t.clone() if isinstance(t, torch.Tensor) else t.copy()
+                                      for t in self.tiles], self.timestamp)
 
     def __repr__(self) -> str:
         return f"VideoFrame({self.desc})"
