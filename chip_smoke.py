@@ -18,7 +18,12 @@ then the local loop, which runs no hand kernel: every postprocess function
 at 1080p and 4K, every filter name at 1080p, and ``run_local_pipeline``
 (4K60 testcard -> deinterlace:blend,mirror,border -> scale:1920x1080 ->
 display, 120 frames) with stitch and conference, each against the CPU plain
-path; and times kernels, steps, the receive step, the 4K batch in frames/s,
+path; K1's coefficient entry (the JPEG geometries without a mega matrix)
+against its plain version; then the live session through the port's entry
+points: sender -> 127.0.0.1 UDP -> receiver at 1080p60, JPEG + LDGM with
+seeded packet loss (the receiver's peel on the card) and uncompressed + LDGM,
+``--protocol loopback`` with JPEG 4:4:4, JPEG rate control against its CPU
+quality sequence, and a 4K timing row; and times kernels, steps, the receive step, the 4K batch in frames/s,
 4K latency, conversions, DXT, the postprocess functions and the loop's
 chain.  Every phase prints one JSON line; any failed
 check raises, so the exit code is non-zero.  The last lines are the kernel
@@ -34,6 +39,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -559,6 +565,288 @@ def phase_local_loop(dev):
             "conference": {"participants": 4, "bytes_differing": nd_conf[0]}}
 
 
+# ---- slice 6: the live session (sender -> RTP/UDP -> receiver) ----
+
+LIVE_CAPTURE = "testcard:s=1920x1080:f=60:c=UYVY"
+LIVE_CAPTURE_4K = "testcard:s=3840x2160:f=60:c=UYVY"
+LIVE_FRAMES = 120
+LIVE_LOSS = 1  # data packets dropped per frame before the receiver, seeded (8 symbols at 1080p)
+LIVE_GRACE_S = 2.0  # how long the receiver may trail the sender's last frame
+# the JPEG geometries without a mega matrix (codec, subsampling, quality):
+# a PyTorch front end, then K1's coefficient entry
+P2_GEOMS = [("UYVY", "444", 80), ("YUYV", "444", 95), ("RGB", "422", 80), ("RGBA", "422", 90)]
+
+
+def free_port_pair() -> int:
+    """A UDP port p with p + 1 free too (RTP and RTCP), from the OS."""
+    import socket
+
+    for _ in range(64):
+        a, b = socket.socket(socket.AF_INET, socket.SOCK_DGRAM), socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        a.bind(("", 0))
+        port = a.getsockname()[1]
+        try:
+            b.bind(("", port + 1))
+        except OSError:
+            continue
+        finally:
+            a.close()
+            b.close()
+        return port
+    raise RuntimeError("no free UDP port pair")
+
+
+def drop_data_packets(session, per_frame: int, seed: int, k: int, m: int):
+    """Drop ``per_frame`` seeded LDGM data packets of every frame out of the
+    sender session's batches, so they never reach the receiver; returns the
+    list the dropped counts go to."""
+    rng = np.random.default_rng(seed)
+    send = session.send_batch
+    dropped = []
+
+    def send_batch(ts, pt, hdrs, data, offsets, sizes, m_last, pace_ns=0):
+        data_end = np.asarray(data).size * k // (k + m)
+        offsets, sizes = np.asarray(offsets), np.asarray(sizes)
+        cand = np.flatnonzero(offsets + sizes <= data_end)
+        lost = rng.choice(cand, min(per_frame, cand.size), replace=False)
+        keep = np.setdiff1d(np.arange(sizes.size), lost)
+        dropped.append(int(lost.size))
+        return send(ts, pt, hdrs[keep], data, offsets[keep], sizes[keep], m_last, pace_ns)
+
+    session.send_batch = send_batch
+    return dropped
+
+
+def live_run(dev, capture: str, compress: str, fec: str, frames: int, mtu: int = 1500, loss: int = 0,
+             keep_every: int = 0, profile_it: bool = False):
+    """One session on 127.0.0.1 through the port's entry points: VideoSender
+    and VideoReceiver on the card (``--param ldgm-device=device``), a dummy
+    display.  The kernels' launch counts are set to 0 just before the
+    sender runs and read just after the receiver stops.  Returns the
+    session's numbers and the frames kept (every ``keep_every``-th shown)."""
+    from ultragrid_tpu_torch.ops import fec as fec_ops
+    from ultragrid_tpu_torch.ops import jpeg_cuda
+    from ultragrid_tpu_torch.pipeline.receiver import VideoReceiver
+    from ultragrid_tpu_torch.pipeline.sender import VideoSender
+    from ultragrid_tpu_torch.utils import params
+
+    params.set_commandline_param("ldgm-device", "device")
+    port = free_port_pair()
+    recv = VideoReceiver("dummy", rx_port=port, device=dev)
+    shown, kept, lat, off_card = [], [], [], [0]
+    orig = recv.display.put_frame
+
+    def put(frame, blocking=True):
+        if frame is not None:
+            now90 = int(time.monotonic() * 90000)
+            lat.append(((now90 - int(round(frame.timestamp * 90000))) & 0xFFFFFFFF) / 90.0)
+            shown.append(time.perf_counter())
+            if not frame.data.is_cuda:
+                off_card[0] += 1
+            if keep_every and len(shown) % keep_every == 1:
+                kept.append(frame.data.clone())
+        orig(frame, blocking)
+
+    recv.display.put_frame = put
+    rt = threading.Thread(target=recv.run, name="receiver", daemon=True)
+    rt.start()
+    sender = VideoSender(capture, "127.0.0.1", compress_spec=compress, fec_spec=fec, tx_port=port, mtu=mtu,
+                         frame_limit=frames, device=dev)
+    dropped = []
+    if loss:
+        k, m = (int(x) for x in fec.split(":")[1:3])
+        dropped = drop_data_packets(sender.session, loss, 17, k, m)
+    torch.cuda.synchronize()
+    for c in (jpeg_cuda.LAUNCHES, jpeg_cuda.COEFF_LAUNCHES, fec_ops.LAUNCHES):
+        c.reset()
+    prof = None
+    if profile_it:
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.__enter__()
+    t0 = time.perf_counter()
+    sent = sender.run()
+    deadline = time.perf_counter() + LIVE_GRACE_S
+    while len(shown) < sent and time.perf_counter() < deadline:
+        time.sleep(0.01)
+    recv.should_exit = True
+    rt.join(timeout=30)
+    torch.cuda.synchronize()
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    params.reset_params()
+    if rt.is_alive():
+        raise RuntimeError(f"live session {compress} {fec}: the receiver did not stop")
+    launches = {"jpeg_encode": jpeg_cuda.LAUNCHES.count, "jpeg_pack_coeffs": jpeg_cuda.COEFF_LAUNCHES.count,
+                "gf2_parity": fec_ops.LAUNCHES.count}
+    wall = (shown[-1] - t0) if shown else float("nan")
+    # the first frames also pay the receiver's warm-up (its threads' first
+    # decode); the steady p95 leaves out the first 30 shown
+    steady = sorted(lat[30:])
+    lat.sort()
+    st = recv.rx_state
+    out = {"capture": capture, "compress": compress, "fec": fec, "mtu": mtu, "frames_sent": sent,
+           "frames_displayed": len(shown), "frames_per_s": len(shown) / wall if shown else 0.0,
+           "seconds": wall, "frames_off_card": off_card[0], "packets_dropped": int(sum(dropped)),
+           "fec_jobs": st.fec_jobs, "fec_jobs_recovered": st.fec_recovered,
+           "frames_missing_data": st.frames_missing_data, "launches": launches,
+           "latency_ms_p50": lat[len(lat) // 2] if lat else None,
+           "latency_ms_p95": lat[min(len(lat) - 1, int(len(lat) * 0.95))] if lat else None,
+           "latency_ms_p95_after_first_30": steady[min(len(steady) - 1, int(len(steady) * 0.95))] if steady else None}
+    if prof is not None:
+        per = {}
+        n_launch = 0
+        for evt in prof.key_averages():
+            if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+                for kname in ("jpeg_encode_kernel", "gf2_parity_kernel"):
+                    if kname in evt.key:
+                        per[kname] = per.get(kname, 0) + evt.count
+            elif evt.key.startswith(LAUNCH_CALLS):
+                n_launch += evt.count
+        out["profiler"] = {"device_events_per_frame_sent": {k_: v / sent for k_, v in per.items()},
+                           "cuda_launch_calls_per_frame_sent": n_launch / sent}
+    return out, kept, sender
+
+
+def phase_live_session(dev):
+    """This slice's main path: the port's sender -> 127.0.0.1 UDP -> the
+    port's receiver, on the card.  1080p60 testcard, JPEG q80 + LDGM
+    256:26:5 with seeded data-packet loss (the peel runs K2 on the card),
+    120 frames: every displayed frame on the card and equal to the card's
+    encode -> decode of its testcard frame, which equals the CPU plain path
+    (<= 0.1% of bytes off by 1); 1080p60 uncompressed + LDGM; a profiled
+    run for launches per frame; --protocol loopback with jpeg:80:0:444 (K1's
+    coefficient entry); jpeg rate control against its CPU quality sequence;
+    a 4K timing row."""
+    from ultragrid_tpu_torch.modules.video_capture import initialize_video_capture
+    from ultragrid_tpu_torch.modules.video_compress import JpegCompress
+    from ultragrid_tpu_torch.modules.video_decompress import JpegDecompress
+    from ultragrid_tpu_torch.ops import jpeg_cuda
+    from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
+    from ultragrid_tpu_torch.pipeline.loopback import LoopbackRxTx
+    from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame
+
+    t_phase = time.perf_counter()
+    out = {"phase": "live_session"}
+    jpeg = "jpeg:80"
+    main_run, kept, sender = live_run(dev, LIVE_CAPTURE, jpeg, FEC, LIVE_FRAMES, loss=LIVE_LOSS, keep_every=20)
+    out["jpeg_ldgm_1080p"] = main_run
+    if main_run["frames_displayed"] < LIVE_FRAMES // 2 or main_run["frames_off_card"]:
+        raise RuntimeError(f"live session 1080p jpeg: {main_run}")
+    if min(main_run["launches"]["jpeg_encode"], main_run["launches"]["gf2_parity"]) < 1:
+        raise RuntimeError(f"live session 1080p jpeg skipped a kernel: {main_run['launches']}")
+    if main_run["packets_dropped"] < 1 or main_run["fec_jobs_recovered"] < 1:
+        raise RuntimeError("live session 1080p jpeg: no loss was recovered by the peel")
+    # the expected frames: the card's encode -> decode of each testcard ring
+    # frame; each kept frame must be one of them, and they must equal the
+    # CPU plain path
+    ring = sender.capture.frames
+    enc = JpegEncoder(W1080, H1080)
+    dec = JpegDecompress(device=dev)
+    desc_j = VideoDesc(W1080, H1080, Codec.JPEG, 60.0)
+    expect = [dec.decompress(VideoFrame(desc_j, [enc.encode(f)]), Codec.UYVY).data for f in ring]
+    matched = set()
+    for f in kept:
+        hit = [i for i, e in enumerate(expect) if torch.equal(f, e)]
+        if not hit:
+            raise RuntimeError("live session 1080p jpeg: a displayed frame is no testcard frame's encode -> decode")
+        matched.add(hit[0])
+    ring_cpu = initialize_video_capture(LIVE_CAPTURE, device="cpu").frames
+    dec_cpu = JpegDecompress(device="cpu")
+    worst = (0, 0)
+    for i in sorted(matched)[:2]:
+        want = dec_cpu.decompress(VideoFrame(desc_j, [JpegEncoder(W1080, H1080).encode(ring_cpu[i], device="cpu")]),
+                                  Codec.UYVY).data
+        nd, err = byte_diff(expect[i], want)
+        worst = max(worst, (nd, err))
+        if err > 1 or nd > MAX_DIFF_BYTE_SHARE * want.numel():
+            raise RuntimeError(f"live session: ring frame {i} differs from the CPU plain path ({nd} bytes, max {err})")
+    out["jpeg_ldgm_1080p"].update(displayed_frames_checked=len(kept), ring_frames_matched=len(matched),
+                                  bytes_differing_from_cpu_plain=worst[0], max_abs_err_vs_cpu_plain=worst[1])
+    # launches per frame from the profiler, on a shorter profiled session
+    prof_run, _, _ = live_run(dev, LIVE_CAPTURE, jpeg, FEC, 30, loss=LIVE_LOSS, profile_it=True)
+    out["jpeg_ldgm_1080p_profiled"] = prof_run
+    # 1080p60 uncompressed with LDGM: displayed frames are the ring frames
+    # (a frame that lost a packet on the way is shown with the hole
+    # zero-filled, as the reference does; every whole one is a ring frame)
+    raw_run, kept_raw, sender_raw = live_run(dev, LIVE_CAPTURE, "none", FEC, LIVE_FRAMES, mtu=9000, keep_every=20)
+    whole = sum(any(torch.equal(f, r) for r in sender_raw.capture.frames) for f in kept_raw)
+    if (raw_run["frames_displayed"] < 1 or raw_run["frames_off_card"] or whole < 1
+            or len(kept_raw) - whole > raw_run["frames_missing_data"]):
+        raise RuntimeError(f"live session 1080p uncompressed: {raw_run}, {whole} of {len(kept_raw)} kept frames whole")
+    raw_run.update(displayed_frames_checked=len(kept_raw), displayed_frames_whole=whole)
+    out["none_ldgm_1080p"] = raw_run
+    # --protocol loopback with jpeg at 4:4:4: K1's coefficient entry
+    shown = []
+    lb = LoopbackRxTx(LIVE_CAPTURE, "dummy", compress_spec="jpeg:80:0:444", frame_limit=30, device=dev)
+    orig = lb.display.put_frame
+    lb.display.put_frame = lambda f, blocking=True: (shown.append(f is None or f.data.is_cuda), orig(f, blocking))
+    torch.cuda.synchronize()
+    jpeg_cuda.LAUNCHES.reset()
+    jpeg_cuda.COEFF_LAUNCHES.reset()
+    t0 = time.perf_counter()
+    n_lb = lb.run()
+    torch.cuda.synchronize()
+    lb_s = time.perf_counter() - t0
+    lb_launches = {"jpeg_pack_coeffs": jpeg_cuda.COEFF_LAUNCHES.count, "jpeg_encode": jpeg_cuda.LAUNCHES.count}
+    if n_lb != 30 or not all(shown) or lb_launches["jpeg_pack_coeffs"] < 30:
+        raise RuntimeError(f"loopback jpeg:80:0:444: {n_lb} shown, launches {lb_launches}")
+    out["loopback_jpeg_444"] = {"frames_shown": n_lb, "frames_per_s": n_lb / lb_s, "all_on_card": True,
+                                "launches": lb_launches}
+    # jpeg rate control on the card against the CPU's quality sequence
+    w_r, h_r = 640, 360
+    frames_r = [torch.as_tensor(content(h_r, 2 * w_r, 60 + i)) for i in range(24)]
+    desc_r = VideoDesc(w_r, h_r, Codec.UYVY, 30.0)
+    size80 = JpegEncoder(w_r, h_r).encode(frames_r[0], device="cpu").size
+    rate = int(size80 * 8 * 30 * 0.7)
+    qs = {}
+    files = {}
+    for where in ("card", "cpu"):
+        c = JpegCompress(f"80:rate={rate}", device=dev if where == "card" else "cpu")
+        qs[where], files[where] = [], []
+        for f in frames_r:
+            files[where].append(c.compress(VideoFrame(desc_r, [f.to(dev) if where == "card" else f])).data)
+            qs[where].append(c._rc.value)
+    same_files = sum(np.array_equal(a, b) for a, b in zip(files["card"], files["cpu"]))
+    if qs["card"] != qs["cpu"] or len(set(qs["cpu"])) < 2:
+        raise RuntimeError(f"jpeg rate control: card {qs['card']} vs CPU {qs['cpu']}")
+    out["jpeg_rate_control"] = {"geometry": f"{w_r}x{h_r} UYVY", "rate_bps": rate, "frames": len(frames_r),
+                                "qualities": qs["card"], "same_as_cpu": True,
+                                "files_equal_to_cpu": int(same_files)}
+    # the 4K timing row
+    out["jpeg_ldgm_4k"] = live_run(dev, LIVE_CAPTURE_4K, jpeg, FEC, LIVE_FRAMES)[0]
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def coeff_entry_timing(dev):
+    """K1's coefficient entry at 1080p UYVY 4:4:4 q80: CUDA events, profiler
+    device time, its plain version (symbols and pack on the card), and its
+    bound: the coefficients read once, the slots and bit counts written
+    once (integer work; the bytes bound it)."""
+    from ultragrid_tpu_torch.ops import jpeg_cuda
+    from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
+    from ultragrid_tpu_torch.types import Codec
+
+    enc = JpegEncoder(W1080, H1080, in_codec=Codec.UYVY, subsampling="444")
+    src = torch.as_tensor(content(H1080, 2 * W1080, 8)).to(dev)
+    q = enc.plane_coefficients(src)
+    q32 = q.to(torch.int32)
+    huff = enc.tables(dev)["huff"]
+
+    def run():
+        return jpeg_cuda.encode_coefficients(q32, huff, ny=enc.ky, restart_interval=enc.restart_interval,
+                                             wwords=enc.wwords)
+
+    nbytes = q32.numel() * 4 + huff.numel() * 4 + enc.nblocks * (enc.wwords + 1) * 4 + 1
+    bms, by = bound_ms(nbytes, 0)
+    dms = kernel_device_ms(run, "jpeg_pack_coeffs_kernel")
+    return {"ms": cuda_ms(run), "device_ms": dms, "plain_ms": cuda_ms(lambda: enc.symbols_and_pack(q, enc.wwords),
+                                                                   runs=PLAIN_RUNS, warmup=1),
+            "front_end_ms": cuda_ms(lambda: enc.plane_coefficients(src), runs=10),
+            "bound_ms": bms, "bound_by": by, "share_of_bound": bms / dms, "mbytes": nbytes / 1e6}
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "ultragrid_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -660,7 +948,30 @@ def main() -> int:
     file_p = enc_p.encode(fr.cpu())
     if enc_o.wwords != enc_p.wwords or not np.array_equal(file_k, file_p):
         raise RuntimeError("K1 escalation: file differs from the CPU plain path")
-    emit({"phase": "k1", "max_abs_err": k1_err, "cases": cases,
+    # the per-plane geometries: the PyTorch front end on the card equals the
+    # CPU's coefficients; K1's coefficient entry equals its plain version
+    # (symbols and pack, integer work: bit-equal); the files equal the CPU's
+    p2_cases = []
+    coeff_err = 0
+    for cname, sub, q in P2_GEOMS:
+        enc = JpegEncoder(W1080, H1080, in_codec=Codec[cname], quality=q, subsampling=sub)
+        fr = frame_for(enc, 21)
+        coeffs = enc.plane_coefficients(fr)
+        if not torch.equal(coeffs.cpu(), enc.plane_coefficients(fr.cpu())):
+            raise RuntimeError(f"per-plane front end {cname} {sub}: the card differs from the CPU")
+        got = jpeg_cuda.encode_coefficients(coeffs.to(torch.int32), enc.tables(dev)["huff"], ny=enc.ky,
+                                            restart_interval=enc.restart_interval, wwords=enc.wwords)
+        want = enc.symbols_and_pack(coeffs, enc.wwords)
+        err, nd = max_abs_err(got, want), differing_blocks(got, want)
+        coeff_err = max(coeff_err, err)
+        if err or nd:
+            raise RuntimeError(f"K1 coefficient entry {cname} {sub}: {nd} blocks differ from its plain version")
+        if not np.array_equal(enc.encode(fr), enc.encode(fr.cpu())):
+            raise RuntimeError(f"per-plane {cname} {sub}: the file differs from the CPU plain path")
+        p2_cases.append({"geometry": f"{W1080}x{H1080} {cname} q{q} {sub}", "front_end_equal_to_cpu": True,
+                         "differing_blocks": nd, "file_equal_to_cpu": True})
+    emit({"phase": "k1", "max_abs_err": k1_err, "cases": cases, "coefficient_entry_max_abs_err": coeff_err,
+          "coefficient_entry_cases": p2_cases,
           "overflow_escalated_to_wwords": enc_o.wwords})
 
     # ---- k2: parts -> parity -> staircase vs its plain version ----
@@ -1018,6 +1329,8 @@ def main() -> int:
     emit(phase_postprocess(dev))
     emit(phase_filters(dev))
     emit(phase_local_loop(dev))
+    live = phase_live_session(dev)
+    emit(live)
 
     # ---- timing: mean of back-to-back launches between two CUDA events;
     # profiler device time beside it ----
@@ -1170,19 +1483,34 @@ def main() -> int:
     for r in conv_t:
         r["idle_share"] = max(0.0, 1 - r["device_ms"] / r["host_ms"])
     rows_t += conv_t
+    coeff_t = coeff_entry_timing(dev)
+    rows_t.append({"what": "K1 coefficient entry (jpeg_pack_coeffs) 1080p UYVY q80 4:4:4", **coeff_t})
     emit({"phase": "timing", "card": smi, "rows": rows_t})
 
     one_call = "none: no single PyTorch call computes this function"
+    live_l = live["jpeg_ldgm_1080p"]["launches"]
     emit({"kernels": [
         {"name": "jpeg_encode", "route": "cuda", "source": "ultragrid_tpu_torch/csrc/jpeg_encode.cu",
-         "replaces": "ultragrid_tpu/ops/jpeg_pallas.py:122", "launches": launches["jpeg_encode"],
+         "replaces": "ultragrid_tpu/ops/jpeg_pallas.py:122", "launches": live_l["jpeg_encode"],
+         "launches_on": "live session 1080p jpeg + LDGM, " + str(LIVE_FRAMES) + " frames",
+         "launches_sender_step": launches["jpeg_encode"],
          "max_abs_err": k1_err, **{key: k1_t["1080p"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "device_ms": k1_t["1080p"]["device_ms"], "library_ms": None, "library": one_call,
          "at": "1920x1080 UYVY q80 4:2:2", "8k": k1_t["8K"],
          "tolerance": "bit-equal under dyadic W in every layout and restart interval; "
                       "real W <= 0.1% of blocks differing"},
+        {"name": "jpeg_pack_coeffs", "route": "cuda", "source": "ultragrid_tpu_torch/csrc/jpeg_encode.cu",
+         "replaces": "ultragrid_tpu/ops/jpeg_pallas.py:122",
+         "launches": live["loopback_jpeg_444"]["launches"]["jpeg_pack_coeffs"],
+         "launches_on": "--protocol loopback jpeg:80:0:444 1080p, 30 frames",
+         "max_abs_err": coeff_err, **{key: coeff_t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "device_ms": coeff_t["device_ms"], "library_ms": None, "library": one_call,
+         "at": "1920x1080 UYVY q80 4:4:4 coefficients",
+         "tolerance": "bit-equal (integer symbols and pack)"},
         {"name": "gf2_parity", "route": "cuda", "source": "ultragrid_tpu_torch/csrc/gf2_parity.cu",
-         "replaces": "ultragrid_tpu/ops/fec.py:141", "launches": launches["gf2_parity"],
+         "replaces": "ultragrid_tpu/ops/fec.py:141", "launches": live_l["gf2_parity"],
+         "launches_on": "live session 1080p jpeg + LDGM with loss (the receiver's peel)",
+         "launches_sender_step": launches["gf2_parity"],
          "max_abs_err": k2_err, **{key: k2_t["1080p"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "device_ms": k2_t["1080p"]["device_ms"], "library_ms": None, "library": one_call,
          "at": "1080p step's parts, LDGM 256:26:5", "8k": k2_t["8K"],

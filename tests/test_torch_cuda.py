@@ -381,3 +381,128 @@ def test_stitch_on_card_equals_cpu(cuda):
     gpu, cpu = initialize_video_capture(spec), initialize_video_capture(spec, device="cpu")
     (g, _), (c, _) = gpu.grab(), cpu.grab()
     assert g.data.is_cuda and torch.equal(g.data.cpu(), c.data)
+
+
+# ---- slice 6: the live session ----
+
+
+def test_loop_built_under_a_side_stream_runs_on_the_default_stream(cuda):
+    """P3: a pipeline built under a side stream keeps that stream, and both
+    its threads enqueue there, so run() on the default stream shows the
+    same frames as the CPU path."""
+    from ultragrid_tpu_torch.modules.extra_displays import register_pipe_delegate
+    from ultragrid_tpu_torch.modules.video_capture import initialize_video_capture
+    from ultragrid_tpu_torch.modules.video_display import initialize_video_display
+    from ultragrid_tpu_torch.pipeline.loop import CaptureToDisplayPipeline, run_local_pipeline
+
+    got, want = [], []
+    register_pipe_delegate("side", got.append)
+    register_pipe_delegate("side_host", want.append)
+    spec, n = "testcard:s=1920x1080:f=240:c=UYVY", 12
+    chain, post = "deinterlace:blend,mirror,border", "scale:960x540"
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        pipe = CaptureToDisplayPipeline(initialize_video_capture(spec), initialize_video_display("pipe:side"),
+                                        n, chain, post)
+    assert pipe.stream == side and torch.cuda.current_stream() != side
+    assert pipe.run() == n
+    torch.cuda.synchronize()
+    assert run_local_pipeline(spec, "pipe:side_host", n, chain, post, device="cpu") == n
+    assert len(got) == len(want) == n + 1
+    for g, w in zip(got[:-1], want[:-1]):
+        assert g.data.is_cuda and torch.equal(g.data.cpu(), w.data)
+
+
+@pytest.mark.parametrize("w,h,codec,sub,q", [
+    (1920, 1080, Codec.UYVY, "444", 80), (1920, 1080, Codec.YUYV, "444", 95),
+    (1920, 1080, Codec.RGB, "422", 80), (1920, 1080, Codec.RGBA, "422", 90),
+    (96, 40, Codec.UYVY, "444", 80),
+])
+def test_k1_coefficient_entry_matches_plain(cuda, w, h, codec, sub, q):
+    """The P2 geometries: the front end on the card equals the CPU's, and
+    K1's coefficient entry equals its plain version (symbols and pack)."""
+    enc = JpegEncoder(w, h, in_codec=codec, quality=q, subsampling=sub)
+    assert enc.per_plane
+    src = content(w, h, codec, 3)
+    frame = torch.as_tensor(src).to(cuda)
+    coeffs = enc.plane_coefficients(frame)
+    assert torch.equal(coeffs.cpu(), enc.plane_coefficients(torch.as_tensor(src)))
+    before, fused = jpeg_cuda.COEFF_LAUNCHES.count, jpeg_cuda.LAUNCHES.count
+    got = enc._encode(frame)
+    assert jpeg_cuda.COEFF_LAUNCHES.count == before + 1 and jpeg_cuda.LAUNCHES.count == fused
+    want = enc.encode_plain(frame)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    assert np.array_equal(enc.encode(frame), enc.encode(torch.as_tensor(src)))
+
+
+def _free_port_pair():
+    import socket
+
+    for _ in range(64):
+        a = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        a.bind(("", 0))
+        p = a.getsockname()[1]
+        b = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        try:
+            b.bind(("", p + 1))
+        except OSError:
+            continue
+        finally:
+            a.close()
+            b.close()
+        return p
+    raise RuntimeError("no free UDP port pair")
+
+
+@pytest.mark.parametrize("compress,fec", [("jpeg:80", "ldgm:256:26:5"), ("none", "none")])
+def test_live_session_1080p_on_card(cuda, compress, fec):
+    """Sender -> 127.0.0.1 -> receiver at 1080p on the card: every displayed
+    frame is on the card and equals the CPU plain path's (the testcard frame
+    itself uncompressed; its encode -> decode within 0.1% of bytes off by 1
+    for JPEG)."""
+    import threading
+
+    from ultragrid_tpu_torch.pipeline.receiver import VideoReceiver
+    from ultragrid_tpu_torch.pipeline.sender import VideoSender
+    from ultragrid_tpu_torch.utils import params
+    from ultragrid_tpu_torch.utils.pattern import generate_pattern
+
+    params.set_commandline_param("ldgm-device", "device")
+    try:
+        port = _free_port_pair()
+        recv = VideoReceiver("dummy", rx_port=port, frame_limit=10, timeout=30.0)
+        shown = []
+        orig = recv.display.put_frame
+
+        def put(frame, blocking=True):
+            if frame is not None:
+                shown.append(frame.data.clone())
+            orig(frame, blocking)
+
+        recv.display.put_frame = put
+        t = threading.Thread(target=recv.run, daemon=True)
+        t.start()
+        VideoSender("testcard:s=1920x1080:f=60:c=UYVY:still=1", "127.0.0.1", compress_spec=compress,
+                    fec_spec=fec, tx_port=port, mtu=9000, frame_limit=40).run()
+        t.join(timeout=30)
+        assert not t.is_alive() and len(shown) >= 10
+    finally:
+        params.reset_params()
+    src = generate_pattern(1920, 1080, Codec.UYVY, "bars", device="cpu")
+    if compress == "none":
+        want = src
+    else:
+        desc = VideoDesc(1920, 1080, Codec.JPEG, 60.0)
+        file_cpu = JpegEncoder(1920, 1080).encode(src)
+        want = JpegDecompress(device="cpu").decompress(VideoFrame(desc, [file_cpu]), Codec.UYVY).data
+    # UDP on localhost may drop a packet; the receiver then shows the frame
+    # with the hole zero-filled, as the reference does: every frame that
+    # arrived whole must equal the CPU plain path
+    whole = 0
+    for g in shown:
+        assert g.is_cuda and g.shape == want.shape
+        d = (g.cpu().long() - want.long()).abs()
+        whole += int(d.max()) <= 1 and int((d != 0).sum()) <= 0.001 * d.numel()
+    assert whole >= max(1, len(shown) - recv.rx_state.frames_missing_data)

@@ -2,7 +2,8 @@
 
 A subprocess blocks ``jax`` and ``ultragrid_tpu`` in ``sys.modules`` (so any
 import of either, direct or indirect, fails) and drives the port with its own
-types.  A source scan rejects any ``import`` of either in the port,
+types, down to a live session over 127.0.0.1 on the CPU.  A source scan
+rejects any ``import`` of either in the port,
 ``chip_smoke.py``, ``chip_profile.py`` and ``chip_phases.py``.
 """
 
@@ -113,7 +114,53 @@ n = run_local_pipeline("testcard:s=96x64:f=1000:c=UYVY", "pipe:iso", 3,
                        "deinterlace:blend,mirror,border", "scale:48x32", device="cpu")
 assert n == 3 and len(got) == 4 and got[-1] is None and tuple(got[0].data.shape) == (32, 96)
 assert capabilities.get_capabilities()["backend"] == "torch-cuda"
-assert jpeg_cuda.LAUNCHES.count == 0 and fec.LAUNCHES.count == 0
+# the live session: every new module, the CLI, a loopback and a sender ->
+# receiver pair over 127.0.0.1 on the CPU; each defaults to the card
+import threading
+from ultragrid_tpu_torch import cli, native
+from ultragrid_tpu_torch.modules import messaging, video_compress, video_decompress
+from ultragrid_tpu_torch.net import pbuf, rtcp, rtp, rtp_types, transmit, video_rx, vrx_fast
+from ultragrid_tpu_torch.pipeline import loopback, receiver, sender
+from ultragrid_tpu_torch.utils import control_socket, crash, keyboard, params, profiler, ratectl
+from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
+if not torch.cuda.is_available():
+    for make in (lambda: sender.VideoSender("testcard:s=64x32", "127.0.0.1"),
+                 lambda: receiver.VideoReceiver("dummy", rx_port=0),
+                 lambda: loopback.LoopbackRxTx("testcard:s=64x32", "dummy"),
+                 lambda: video_compress.CompressDriver("jpeg"),
+                 lambda: cli.main(["-t", "testcard:s=64x32", "-d", "dummy", "-x", "loopback", "--frames", "1"])):
+        try:
+            make()
+        except RuntimeError:
+            pass
+        else:
+            raise SystemExit("a live-session entry point ran without a card on its default device")
+native.udp_tx_lib(); native.udp_rx_lib(); native.video_rx_fast_lib()
+assert JpegEncoder(64, 32, in_codec=Codec.UYVY, subsampling="444").encode(frame, device="cpu")[:2].tobytes() == b"\xff\xd8"
+assert cli.main(["-t", "testcard:s=64x32:f=1000:c=UYVY", "-d", "dummy", "-x", "loopback", "-c", "jpeg:80:rate=1M",
+                 "--frames", "2", "--device", "cpu"]) == 0
+import socket
+while True:  # a UDP port p with p + 1 free too (RTP and RTCP)
+    a, b = socket.socket(socket.AF_INET, socket.SOCK_DGRAM), socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    a.bind(("", 0))
+    port = a.getsockname()[1]
+    try:
+        b.bind(("", port + 1))
+        break
+    except OSError:
+        pass
+    finally:
+        a.close()
+        b.close()
+params.set_commandline_param("ldgm-device", "device")
+rx = receiver.VideoReceiver("dummy", rx_port=port, frame_limit=2, timeout=20.0, device="cpu")
+t = threading.Thread(target=rx.run, daemon=True)
+t.start()
+sender.VideoSender("testcard:s=64x32:f=60:c=UYVY:still=1", "127.0.0.1", compress_spec="jpeg", fec_spec="ldgm:8:4:3",
+                   tx_port=port, frame_limit=12, device="cpu").run()
+t.join(timeout=20)
+assert rx.frames_displayed >= 2 and rx.rx_state.fec_jobs >= 2, (rx.frames_displayed, rx.rx_state.fec_jobs)
+assert jpeg_cuda.LAUNCHES.count == 0 and jpeg_cuda.COEFF_LAUNCHES.count == 0 and fec.LAUNCHES.count == 0
 loaded = [m for m, mod in sys.modules.items()
           if m.split(".")[0] in ("jax", "ultragrid_tpu") and mod is not None]
 assert not loaded, loaded

@@ -115,10 +115,18 @@ def test_header_bytes(w, h, codec, q, ri, sub):
 
 
 def test_geometry_without_mega_matrix_raises():
-    # UYVY forced to 4:4:4 has no mega formulation in the reference either
-    assert ref_jpeg.JpegEncoder(64, 16, in_codec=RefCodec.UYVY, subsampling="444")._mega is None
-    with pytest.raises(NotImplementedError, match="non-mega"):
-        port_jpeg.JpegEncoder(64, 16, in_codec=Codec.UYVY, subsampling="444")
+    # UYVY forced to 4:4:4 has no mega formulation in the reference either:
+    # both take the per-plane front end (tests/test_torch_session.py holds
+    # its files to the reference's stages), and its header is the reference's
+    ref = ref_jpeg.JpegEncoder(64, 16, in_codec=RefCodec.UYVY, subsampling="444")
+    assert ref._mega is None
+    enc = port_jpeg.JpegEncoder(64, 16, in_codec=Codec.UYVY, subsampling="444")
+    assert enc.per_plane and enc.plan is None and enc._header == ref._header
+    # 4:2:0 from RGB has no front end at all: both raise the same error
+    with pytest.raises(ValueError, match="4:2:0 encode supports UYVY/YUYV input"):
+        ref_jpeg.JpegEncoder(64, 16, in_codec=RefCodec.RGB, subsampling="420")
+    with pytest.raises(ValueError, match="4:2:0 encode supports UYVY/YUYV input"):
+        port_jpeg.JpegEncoder(64, 16, in_codec=Codec.RGB, subsampling="420")
 
 
 @pytest.mark.parametrize("k,m,c", [(8, 4, 3), (32, 6, 4), (32, 16, 5), (64, 12, 3), (256, 26, 5), (1500, 240, 5)])

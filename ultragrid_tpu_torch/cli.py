@@ -1,0 +1,278 @@
+"""CLI entry point of the port, the analogue of the reference's ``uv`` binary.
+
+The port of ``ultragrid_tpu/cli.py``: the same option grammar for what the
+port holds (src/main.cpp:690-740):
+
+  -t DEVICE[:cfg]    capture device (testcard, testcard2, noise)
+  -d DISPLAY[:cfg]   display (dummy, null, dump, file, conference, ...)
+  -c COMPRESS[:opts] video compression (none, uyvy, dxt, jpeg[:rate=])
+  -f FEC             forward error correction (none|mult:N|ldgm:...|rs:k:n)
+  -x PROTOCOL        ultragrid_rtp (default) or loopback
+  --device DEV       where frames live and kernels run: cuda (default) or cpu
+
+Run a sender ``python -m ultragrid_tpu_torch -t testcard -c jpeg -f ldgm
+<host>``, a receiver ``python -m ultragrid_tpu_torch -d dummy``, both on the
+card unless ``--device cpu`` is given.  Options whose modules are not in the
+port yet (audio, encryption, export, RTSP, standards mode, NAT traversal,
+the other rxtx protocols, full-duplex sessions, windowed displays) are
+refused with an error that names the missing module; none is accepted and
+ignored.  The reference's ``~/.ug.rc`` aliases are not read.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from ultragrid_tpu_torch.modules.registry import LibraryClass, list_modules
+from ultragrid_tpu_torch.utils import log as _log
+from ultragrid_tpu_torch.utils.params import print_param_doc, set_commandline_param
+
+# option dest -> the module of the reference it needs, not ported yet
+_NOT_PORTED = {
+    "playback": "-I/--playback needs the import capture (ultragrid_tpu/modules/file_io.py)",
+    "audio_channel_map": "-U needs the audio modules (ultragrid_tpu/audio/)",
+    "audio_delay": "--audio-delay needs the audio modules (ultragrid_tpu/audio/)",
+    "audio_capture_format": "-a needs the audio modules (ultragrid_tpu/audio/)",
+    "audio_capture_channels": "--audio-capture-channels needs the audio modules (ultragrid_tpu/audio/)",
+    "audio_scale": "--audio-scale needs the audio modules (ultragrid_tpu/audio/)",
+    "audio_host": "--audio-host needs the audio modules (ultragrid_tpu/audio/)",
+    "echo_cancellation": "--echo-cancellation needs ultragrid_tpu/audio/echo.py",
+    "window_title": "--window-title needs a windowed display (gl, x11, drm)",
+    "nat_traverse": "-N/--nat-traverse needs ultragrid_tpu/net/nat.py",
+    "encryption": "-e/--encryption needs ultragrid_tpu/utils/crypto.py",
+    "record": "-E/--record needs ultragrid_tpu/utils/export.py",
+    "rtsp": "--rtsp needs ultragrid_tpu/net/rtsp.py",
+    "rtp_standard": "--rtp-standard needs ultragrid_tpu/net/rtpdec_jpeg.py and utils/sdp.py",
+    "audio_capture": "-s/--audio-capture needs the audio modules (ultragrid_tpu/audio/)",
+    "audio_playback": "-r/--audio-playback needs the audio modules (ultragrid_tpu/audio/)",
+    "audio_codec": "-A/--audio-codec needs the audio modules (ultragrid_tpu/audio/)",
+    "audio_filter": "-i/--audio-filter needs the audio modules (ultragrid_tpu/audio/)",
+}
+
+_PROTOCOLS_NOT_PORTED = {
+    "mpegts": "ultragrid_tpu/pipeline/mpegts.py",
+    "ihdtv": "ultragrid_tpu/pipeline/ihdtv.py",
+    "sage": "the SAGE SDK",
+    "omt": "the Open Media Transport SDK",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="ultragrid-tpu-torch",
+        description="UltraGrid-class media pipeline, PyTorch + CUDA port")
+    p.add_argument("-t", "--capture", default=None, help="capture device spec")
+    p.add_argument("-d", "--display", default=None, help="display spec")
+    p.add_argument("-c", "--compress", default="none",
+                   help="video compression: none|uyvy|dxt|jpeg[:q][:ri][:sub][:rate=<bps>]")
+    p.add_argument("-f", "--fec", action="append", default=None,
+                   help="FEC: [V:]{none|mult:N|ldgm:k:m:c|ldgm:P%%|rs:k:n} "
+                        "(A: is audio, not ported; ref: main.cpp:824-839)")
+    p.add_argument("-l", "--limit-bitrate", default="auto",
+                   help="auto|dynamic|unlimited|<num>[kMG][!][E] "
+                        "(ref: parse_bitrate, rtp_common.c:777)")
+    p.add_argument("-T", "--ttl", type=int, default=-1,
+                   help="TTL for multicast/unicast (0..255, -1 default)")
+    p.add_argument("-4", dest="force_ip_version", action="store_const", const=4,
+                   default=0, help="force IPv4 resolution")
+    p.add_argument("-6", dest="force_ip_version", action="store_const", const=6,
+                   help="force IPv6 resolution")
+    p.add_argument("--start-paused", action="store_true",
+                   help="start the sender paused; unpause with the control socket's 'play'")
+    p.add_argument("--conv-policy", default=None, metavar="dsc",
+                   help="pixfmt conversion preference order: permutation of "
+                        "d(epth) s(ubsampling) c(olor) (ref: host.cpp:344)")
+    p.add_argument("--pix-fmts", action="store_true",
+                   help="list supported pixel formats (ref: OPT_PIX_FMTS)")
+    p.add_argument("--video-codecs", action="store_true",
+                   help="list video codecs (ref: OPT_VIDEO_CODECS)")
+    p.add_argument("-v", "--version", action="store_true", help="print version and exit")
+    p.add_argument("-H", "--fullhelp", action="store_true",
+                   help="extended module listing (alias of --list-modules)")
+    p.add_argument("--mcast-if", default=None, metavar="IFADDR",
+                   help="IPv4 address of the interface for multicast "
+                        "(ref: --mcast-if, main.cpp:892)")
+    p.add_argument("-P", "--ports", default="5004", help="RTP base port[:tx]")
+    p.add_argument("-m", "--mtu", type=int, default=1500)
+    p.add_argument("-M", "--mode", default="normal",
+                   help="video mode: normal|dual-link|3D|tiled-2x2|3x1")
+    p.add_argument("-V", "--verbose", action="count", default=0)
+    p.add_argument("--param", action="append", default=[], help="key=value tuning params")
+    p.add_argument("-n", "--control-port", type=int, default=5054,
+                   help="runtime control TCP port (0 = ephemeral; "
+                        "ref: control_socket.c:178, default 5054)")
+    p.add_argument("-F", "--capture-filter", default="", help="comma-separated capture filter chain")
+    p.add_argument("-p", "--postprocess", default="", help="display postprocess chain")
+    p.add_argument("--frames", type=int, default=None, help="stop after N frames")
+    p.add_argument("-x", "--protocol", default="ultragrid_rtp",
+                   help="rxtx protocol: ultragrid_rtp | loopback (ref: --protocol)")
+    p.add_argument("-L", "--list-modules", action="store_true")
+    p.add_argument("-b", "--capabilities", action="store_true",
+                   help="print machine-readable capabilities JSON (GUI contract)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of frames and kernels: cuda (default) or cpu")
+    # the reference's options whose modules the port does not hold yet:
+    # parsed, so that using one is refused by name (see _NOT_PORTED)
+    p.add_argument("-I", "--playback", default=None, metavar="DIR", help=argparse.SUPPRESS)
+    p.add_argument("-U", "--audio-channel-map", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--audio-delay", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("-a", "--audio-capture-format", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--audio-capture-channels", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--audio-scale", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--audio-host", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--echo-cancellation", action="store_true", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--window-title", default=None, help=argparse.SUPPRESS)
+    p.add_argument("-N", "--nat-traverse", nargs="?", const="auto", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--audio-protocol", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--video-protocol", default=None, help=argparse.SUPPRESS)
+    p.add_argument("-e", "--encryption", default=None, help=argparse.SUPPRESS)
+    p.add_argument("-E", "--record", nargs="?", const="", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--rtsp", action="store_true", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--rtp-standard", action="store_true", default=None, help=argparse.SUPPRESS)
+    p.add_argument("-s", "--audio-capture", default=None, help=argparse.SUPPRESS)
+    p.add_argument("-r", "--audio-playback", default=None, help=argparse.SUPPRESS)
+    p.add_argument("-A", "--audio-codec", default=None, help=argparse.SUPPRESS)
+    p.add_argument("-i", "--audio-filter", default=None, help=argparse.SUPPRESS)
+    p.add_argument("host", nargs="?", default=None, help="receiver address (sender mode)")
+    return p
+
+
+def refusal(args) -> str:
+    """Why the port cannot run ``args``, or "" when it can."""
+    if args.audio_protocol or args.video_protocol:
+        # the reference removed per-medium protocols too (main.cpp:630-636)
+        return "Separate audio and video protocol setting no longer available!"
+    for dest, why in _NOT_PORTED.items():
+        if getattr(args, dest) is not None:
+            return f"not in the port yet: {why}"
+    for spec in args.fec or []:
+        if len(spec) > 2 and spec[1] == ":" and spec[0].upper() == "A":
+            return "not in the port yet: -f A:... needs the audio modules (ultragrid_tpu/audio/)"
+    if args.protocol in _PROTOCOLS_NOT_PORTED:
+        return f"not in the port yet: --protocol {args.protocol} needs {_PROTOCOLS_NOT_PORTED[args.protocol]}"
+    if args.protocol not in ("ultragrid_rtp", "loopback"):
+        return f"unknown protocol {args.protocol!r}"
+    if args.capture and args.host and args.display and args.protocol == "ultragrid_rtp":
+        return "not in the port yet: a full-duplex session needs ultragrid_tpu/pipeline/duplex.py"
+    return ""
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    _log.set_log_level(_log.LOG_LEVEL_INFO + args.verbose)
+
+    # backtrace-on-crash like the reference (host.cpp crash_signal_handler)
+    from ultragrid_tpu_torch.utils.crash import install_crash_handler
+
+    install_crash_handler()
+
+    if args.version:
+        from ultragrid_tpu_torch import __version__
+
+        print(f"ultragrid-tpu-torch {__version__} (PyTorch + CUDA)")
+        return 0
+
+    why = refusal(args)
+    if why:
+        print(why, file=sys.stderr)
+        return 1
+
+    if args.pix_fmts or args.video_codecs:
+        from ultragrid_tpu_torch.types import VCF_INTERFRAME, Codec, get_codec_info
+
+        for c in Codec:
+            info = get_codec_info(c)
+            if c == Codec.NONE:
+                continue
+            is_pixfmt = not info.opaque
+            if (args.pix_fmts and is_pixfmt) or (args.video_codecs and not is_pixfmt):
+                attrs = []
+                if is_pixfmt:
+                    attrs.append(f"{info.bits_per_channel}b")
+                    attrs.append("rgb" if info.rgb else "yuv")
+                if info.flags & VCF_INTERFRAME:
+                    attrs.append("interframe")
+                print(f"{c.name:12s} {' '.join(attrs)}")
+        return 0
+
+    if args.conv_policy:
+        from ultragrid_tpu_torch.ops.pixfmt import set_pixfmt_conv_policy
+
+        try:
+            set_pixfmt_conv_policy(args.conv_policy)
+        except ValueError as e:
+            print(f"--conv-policy: {e}", file=sys.stderr)
+            return 1
+
+    if args.capabilities:
+        from ultragrid_tpu_torch.utils.capabilities import print_capabilities
+
+        print_capabilities()
+        return 0
+
+    if args.list_modules or args.fullhelp:
+        # importing the modules and pipelines registers them and their --param docs
+        import ultragrid_tpu_torch.modules  # noqa: F401
+        import ultragrid_tpu_torch.pipeline.receiver  # noqa: F401
+        import ultragrid_tpu_torch.pipeline.sender  # noqa: F401
+
+        for cls in LibraryClass:
+            mods = list_modules(cls)
+            if mods:
+                print(f"{cls.value}: {' '.join(mods)}")
+        print()
+        print(print_param_doc())
+        return 0
+
+    # -f [V:]spec (ref: main.cpp:824-839); the last one wins
+    video_fec = "none"
+    for spec in args.fec or []:
+        video_fec = spec[2:] if len(spec) > 2 and spec[:2].upper() == "V:" else spec
+    args.fec = video_fec
+
+    for kv in args.param:
+        key, _, val = kv.partition("=")
+        set_commandline_param(key, val or None)
+
+    # --param profile[=path] turns on zone tracing (Chrome trace JSON)
+    from ultragrid_tpu_torch.utils import profiler
+
+    profiler.maybe_enable_from_params()
+
+    if args.protocol == "loopback" and args.capture:
+        # single-process fixture: compressed frames straight to the display
+        # (ref: src/rxtx/loopback.c)
+        from ultragrid_tpu_torch.pipeline.loopback import LoopbackRxTx
+
+        lb = LoopbackRxTx(
+            args.capture, args.display or "dummy", compress_spec=args.compress,
+            frame_limit=args.frames, capture_filter=args.capture_filter,
+            postprocess=args.postprocess, device=args.device,
+        )
+        n = lb.run()
+        print(f"{n} frames processed (loopback)")
+        return 0
+    if args.capture and args.host:
+        from ultragrid_tpu_torch.pipeline.sender import run_sender
+
+        return run_sender(args)
+    if args.display and not args.capture:
+        from ultragrid_tpu_torch.pipeline.receiver import run_receiver
+
+        return run_receiver(args)
+    if args.capture and args.display:
+        from ultragrid_tpu_torch.pipeline.loop import run_local_pipeline
+
+        n = run_local_pipeline(args.capture, args.display, args.frames,
+                               capture_filter=args.capture_filter,
+                               postprocess=args.postprocess, device=args.device)
+        print(f"{n} frames processed")
+        return 0
+
+    print("nothing to do: specify -t (capture) and/or -d (display)", file=sys.stderr)
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,6 +7,9 @@ would move coefficients.  Both switches are set once, here, on import.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -25,6 +28,20 @@ def get_device(name: str = "cuda") -> torch.device:
         raise RuntimeError(
             f"device {name!r} requested but torch.cuda.is_available() is False")
     return dev
+
+
+def pipeline_stream(device: torch.device) -> Optional[torch.cuda.Stream]:
+    """The one CUDA stream a pipeline on ``device`` enqueues on: the stream
+    current where the pipeline is built (None off the card).  Every thread
+    of the pipeline that puts work on the card enters it
+    (:func:`stream_context`), so work handed from one thread to the next is
+    ordered by the stream itself."""
+    return torch.cuda.current_stream(device) if device.type == "cuda" else None
+
+
+def stream_context(stream: Optional[torch.cuda.Stream]):
+    """Make ``stream`` current in this thread (nothing for None)."""
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
 
 
 def on_device(x, device) -> torch.Tensor:

@@ -1,24 +1,42 @@
-"""Video compression modules of the port: passthrough, UYVY, DXT and JPEG on
-tensors.
+"""Video compression modules of the port, and the compress driver.
 
 Counterparts of ``NoneCompress``, ``UyvyCompress``, ``DxtCompress`` and
 ``JpegCompress`` in ``ultragrid_tpu/modules/video_compress.py`` (reference
-lines 49-196; JPEG without rate control), registered in the port's registry
-under the reference's names (reference lines 568-580).  Each runs on
-``device``, the card unless the caller names another: an array frame is
-copied there, a tensor frame must already be there.
+lines 49-196), registered in the port's registry under the reference's names
+(reference lines 568-580), and of ``compress_init`` and ``CompressDriver``
+(reference lines 583-679).  Each module runs on ``device``, the card unless
+the caller names another: an array frame is copied there, a tensor frame
+must already be there.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+import time
 from typing import Optional
 
-from ultragrid_tpu_torch.device import get_device, on_device
-from ultragrid_tpu_torch.modules.registry import LibraryClass, register_module
+import torch
+
+from ultragrid_tpu_torch.device import get_device, on_device, stream_context
+from ultragrid_tpu_torch.modules.messaging import (
+    Message,
+    MsgChangeCompress,
+    Module,
+    RESPONSE_INT_SERV_ERR,
+    RESPONSE_OK,
+    Response,
+)
+from ultragrid_tpu_torch.modules.registry import LibraryClass, list_modules, load_library, register_module
 from ultragrid_tpu_torch.ops import dxt as dxt_ops
 from ultragrid_tpu_torch.ops import pixfmt
 from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
 from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame
+from ultragrid_tpu_torch.utils import profiler
+from ultragrid_tpu_torch.utils.log import Logger
+from ultragrid_tpu_torch.utils.ratectl import jpeg_controller, parse_rate
+
+log = Logger("compress")
 
 
 class VideoCompress:
@@ -98,36 +116,55 @@ class DxtCompress(VideoCompress):
 
 
 class JpegCompress(VideoCompress):
-    """Config ``jpeg[:quality][:restart_interval][:subsampling]`` (quality
-    default 80; subsampling 422 for YCbCr inputs, 444 for RGB, or 420)."""
+    """Config ``jpeg[:quality][:restart_interval][:subsampling][:rate=<bps>]``
+    (quality default 80; subsampling 422 for YCbCr inputs, 444 for RGB, or
+    420).  ``rate=`` (or a fixed ``-l`` on the sender, through
+    :meth:`set_target_bitrate`) turns on closed-loop rate control: the
+    quality ladder of :mod:`ultragrid_tpu_torch.utils.ratectl` follows the
+    measured file sizes, one encoder per quality."""
 
     def __init__(self, cfg: str = "", device="cuda"):
-        parts = [p for p in cfg.split(":") if p]
-        if any("=" in p for p in parts):
-            raise NotImplementedError("jpeg key=value options (rate=) are not ported yet")
         super().__init__(cfg, device)
+        parts = [p for p in cfg.split(":") if p]
+        kv = {k: v for k, _, v in (p.partition("=") for p in parts if "=" in p)}
+        parts = [p for p in parts if "=" not in p]
         self.quality = int(parts[0]) if parts else 80
         # 0 = auto (restarts are always used)
         self.restart_interval = (int(parts[1]) or None) if len(parts) > 1 else None
         self.subsampling = parts[2] if len(parts) > 2 else None
-        self._encoder: Optional[JpegEncoder] = None
+        self._encoders: dict = {}  # quality -> JpegEncoder
         self._desc: Optional[VideoDesc] = None
+        self._rate_bps = parse_rate(kv["rate"]) if "rate" in kv else 0
+        self._rc = None
+
+    def set_target_bitrate(self, bps: int) -> None:
+        """Sender hook for a fixed ``-l`` rate; an explicit ``rate=`` wins."""
+        if not self._rate_bps:
+            self._rate_bps = int(bps)
+            self._rc = None  # rebuilt against the new target at the next geometry
 
     def compress(self, frame: VideoFrame) -> VideoFrame:
         """Uncompressed frame -> VideoFrame whose data is the JPEG file
         (np.uint8, 1-D)."""
         desc = frame.desc
         if self._desc != desc:
+            self._encoders.clear()
             self._desc = desc
-            self._encoder = JpegEncoder(
-                desc.width, desc.height, in_codec=desc.color_spec,
-                quality=self.quality, restart_interval=self.restart_interval,
-                subsampling=self.subsampling)
-        data = self._encoder.encode(on_device(frame.data, self.device))
+            if self._rate_bps:
+                self._rc = jpeg_controller(self._rate_bps, desc.fps or 30.0, self.quality)
+        q = self._rc.value if self._rc is not None else self.quality
+        enc = self._encoders.get(q)
+        if enc is None:
+            enc = self._encoders[q] = JpegEncoder(
+                desc.width, desc.height, in_codec=desc.color_spec, quality=q,
+                restart_interval=self.restart_interval, subsampling=self.subsampling)
+        data = enc.encode(on_device(frame.data, self.device))
+        if self._rc is not None:
+            self._rc.update(int(data.size))
         return self._out(frame, Codec.JPEG, data)
 
     def done(self) -> None:
-        self._encoder = None
+        self._encoders.clear()
 
 
 register_module("none", LibraryClass.VIDEO_COMPRESS, NoneCompress)
@@ -136,3 +173,110 @@ register_module("dxt", LibraryClass.VIDEO_COMPRESS, DxtCompress)
 register_module("cuda_dxt", LibraryClass.VIDEO_COMPRESS, DxtCompress)  # alias
 register_module("jpeg", LibraryClass.VIDEO_COMPRESS, JpegCompress)
 register_module("gpujpeg", LibraryClass.VIDEO_COMPRESS, JpegCompress)  # alias
+
+
+def compress_init(spec: str, device="cuda") -> VideoCompress:
+    """ref: compress_init, src/video_compress.cpp:212; the module runs on
+    ``device``."""
+    name, _, cfg = spec.partition(":")
+    cls = load_library(name, LibraryClass.VIDEO_COMPRESS)
+    if cls is None:
+        # control-socket commands use the reference's capitalised module
+        # names ("compress JPEG:60"); registry keys are lowercase
+        cls = load_library(name.lower(), LibraryClass.VIDEO_COMPRESS)
+    if cls is None:
+        raise ValueError(f"unknown compression {name!r} (the port has: "
+                         f"{', '.join(list_modules(LibraryClass.VIDEO_COMPRESS))})")
+    return cls(cfg, device=device)
+
+
+class CompressDriver:
+    """Worker-thread compress stage with runtime reconfiguration (ref:
+    compress driver, src/video_compress.cpp:79-209).
+
+    Push frames with :meth:`enqueue`; pop results with :meth:`pop`.  A
+    ``MsgChangeCompress`` on the module swaps in a new codec without dropping
+    frames (the new module is built off-thread, then swapped in one
+    assignment).  On the card the worker enqueues its device work on
+    ``stream``, the pipeline's one stream (see ``pipeline/sender.py``).
+    """
+
+    def __init__(self, spec: str, parent: Optional[Module] = None, device="cuda",
+                 stream: Optional[torch.cuda.Stream] = None):
+        self.device = get_device(device)
+        self.stream = stream
+        self.module = Module("compress", parent)
+        self.module.msg_callback = self._on_message
+        self._impl = compress_init(spec, self.device)
+        self._lock = threading.Lock()
+        self.in_queue: "queue.Queue" = queue.Queue(maxsize=2)
+        self.out_queue: "queue.Queue" = queue.Queue(maxsize=2)
+        self._thread = threading.Thread(target=self._worker, name="compress", daemon=True)
+        self._thread.start()
+
+    @property
+    def impl(self) -> VideoCompress:
+        return self._impl
+
+    def _on_message(self, msg: Message) -> Response:
+        if isinstance(msg, MsgChangeCompress):
+            try:
+                new_impl = compress_init(msg.config, self.device)
+            except Exception as e:  # noqa: BLE001 - reported to the sender of the message
+                return Response(RESPONSE_INT_SERV_ERR, str(e))
+            with self._lock:
+                old, self._impl = self._impl, new_impl
+            old.done()
+            log.notice(f"compression changed to {msg.config}")
+            return Response(RESPONSE_OK)
+        return Response(RESPONSE_INT_SERV_ERR, "unsupported message")
+
+    def _worker(self) -> None:
+        with stream_context(self.stream):
+            while True:
+                frame = self.in_queue.get()
+                if frame is None:
+                    self.out_queue.put(None)
+                    return
+                frame.compress_start = time.monotonic()
+                with self._lock:
+                    impl = self._impl
+                try:
+                    out = self._compress_one(impl, frame)
+                except Exception as e:  # noqa: BLE001 - a codec failure drops the
+                    # frame, not the compress thread and with it the sender
+                    log.error(f"compress: dropping frame: {e}")
+                    continue
+                if out is not None:
+                    out.compress_start = frame.compress_start
+                    out.compress_end = time.monotonic()
+                    self.out_queue.put(out)
+
+    def _compress_one(self, impl, frame):
+        if len(frame.tiles) > 1:
+            # per-tile fan-out (ref: sync tile API fanned out via
+            # task_run_async, src/video_compress.cpp:79-120)
+            outs = []
+            for t in frame.tiles:
+                sub = VideoFrame(frame.desc.with_(tile_count=1), [t])
+                sub.timestamp = frame.timestamp
+                res = impl.compress(sub)
+                if res is None:
+                    return None
+                outs.append(res)
+            out = VideoFrame(outs[0].desc.with_(tile_count=len(outs)), [o.data for o in outs])
+            out.timestamp = frame.timestamp
+            return out
+        with profiler.zone("compress"):
+            return impl.compress(frame)
+
+    def enqueue(self, frame: Optional[VideoFrame]) -> None:
+        self.in_queue.put(frame)
+
+    def pop(self, timeout: Optional[float] = None) -> Optional[VideoFrame]:
+        return self.out_queue.get(timeout=timeout)
+
+    def stop(self) -> None:
+        self.in_queue.put(None)
+        self._thread.join(timeout=5)
+        self._impl.done()

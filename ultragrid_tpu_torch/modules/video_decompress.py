@@ -5,9 +5,9 @@ Counterparts of ``VideoDecompress``, ``DxtDecompress``, ``I420Decompress``,
 ``JpegDecompress`` and ``JpegToDxtDecompress`` in
 ``ultragrid_tpu/modules/video_decompress.py`` (reference lines 25-113; ref:
 src/video_decompress.h:90-199), registered in the port's registry under the
-reference's names (reference lines 234-238).  Each runs on ``device``, the
-card unless the caller names another; the output frame's data is a uint8
-tensor there.
+reference's names (reference lines 234-238), and ``decompress_init``
+(reference lines 423-443).  Each runs on ``device``, the card unless the
+caller names another; the output frame's data is a uint8 tensor there.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from ultragrid_tpu_torch.modules.registry import LibraryClass, register_module
 from ultragrid_tpu_torch.ops import dxt as dxt_ops
 from ultragrid_tpu_torch.ops.jpeg import JpegDecoder, decode_jpeg_to_frame
 from ultragrid_tpu_torch.ops.planar import i420_8_to_uyvy
-from ultragrid_tpu_torch.types import Codec, VideoFrame
+from ultragrid_tpu_torch.types import Codec, VideoFrame, get_codec_info
 
 
 class VideoDecompress:
@@ -110,3 +110,36 @@ register_module("dxt", LibraryClass.VIDEO_DECOMPRESS, DxtDecompress)
 register_module("i420", LibraryClass.VIDEO_DECOMPRESS, I420Decompress)
 register_module("jpeg", LibraryClass.VIDEO_DECOMPRESS, JpegDecompress)
 register_module("jpeg_to_dxt", LibraryClass.VIDEO_DECOMPRESS, JpegToDxtDecompress)
+
+
+_ALL = [DxtDecompress, I420Decompress, JpegDecompress, JpegToDxtDecompress]
+
+# streams only the reference's decoders read: the codec -> the reference
+# module a port of it would need (ROADMAP queue 1)
+_NOT_PORTED = {
+    Codec.H264: "h264 (own H.264 decoder, ref OwnH264Decompress) or libavcodec",
+    Codec.JPEG_XS: "jpegxs (ref JpegXsDecompress)",
+    Codec.APV: "openapv (ref ApvDecompress)",
+    Codec.CFHD: "cineform (ref CineformDecompress)",
+    Codec.J2K: "cmpto_j2k (ref J2kDecompress)",
+    Codec.J2KR: "cmpto_j2k (ref J2kDecompress)",
+}
+
+
+def decompress_init(in_codec: Codec, out_candidates: List[Codec], device="cuda"):
+    """Pick a decompressor and its output codec (ref:
+    src/video_decompress.c selection by priority): the first output
+    candidate that a port module supports.  Returns (module on ``device``,
+    out codec), or (None, None) when no candidate fits.  A stream that only
+    a decoder outside the port reads is refused by name: nothing stands in
+    for it."""
+    for out_codec in out_candidates:
+        for cls in _ALL:
+            if (in_codec, out_codec) in cls.SUPPORTS:
+                return cls(device), out_codec
+    if get_codec_info(in_codec).opaque and not any(in_codec == c for cls in _ALL for c, _ in cls.SUPPORTS):
+        need = _NOT_PORTED.get(in_codec, "libavcodec (ref LavcDecompress)")
+        raise NotImplementedError(
+            f"no decompressor for {in_codec.name} in the port: it needs {need}, "
+            "which is not ported yet (ROADMAP queue 1)")
+    return None, None

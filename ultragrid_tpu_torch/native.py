@@ -2,8 +2,10 @@
 
 ``native/jpeg_assemble.c`` (slots -> byte-stuffed JPEG entropy stream),
 ``native/jpeg_scan_decode.c`` (the receiver's entropy decode, restart
-segments across host threads) and ``native/ldgm_xor.c`` (the host LDGM
-staircase encoder) are plain C shared with the JAX package.  ``cc`` builds
+segments across host threads), ``native/ldgm_xor.c`` (the host LDGM
+staircase encoder), ``native/udp_tx.c`` (the sender's sendmmsg batches),
+``native/udp_rx.c`` (recvmmsg batches) and ``native/video_rx_fast.c`` (the
+receiver's C depacketizer) are plain C shared with the JAX package.  ``cc`` builds
 each into ``build/`` (gitignored) under a content hash of the source and the
 flags; a failed build raises, since the port has no Python fallback for any
 of them.
@@ -80,4 +82,51 @@ def ldgm_xor_lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(_build("ldgm_xor"))
     lib.ldgm_encode_xor.restype = None
     lib.ldgm_encode_xor.argtypes = [_P, _I64, _I64, _P, _I32, _I32, _P]
+    return lib
+
+
+@lru_cache(maxsize=None)
+def udp_tx_lib() -> ctypes.CDLL:
+    """sendmmsg batch sender (reference loader ``native.py:291``)."""
+    lib = ctypes.CDLL(_build("udp_tx"))
+    lib.udp_send_packets.restype = _I64
+    # fd, headers, header len, payload, offsets, sizes, npkt, pace_ns,
+    # sockaddr, sockaddr len
+    lib.udp_send_packets.argtypes = [ctypes.c_int, _P, _I32, _P, _P, _P, _I64, _I64,
+                                     _P, ctypes.c_uint32]
+    return lib
+
+
+@lru_cache(maxsize=None)
+def udp_rx_lib() -> ctypes.CDLL:
+    """recvmmsg batch receiver (reference loader ``native.py:241``)."""
+    lib = ctypes.CDLL(_build("udp_rx"))
+    lib.udp_recv_batch.restype = ctypes.c_long
+    # fd, buffer, row bytes, max packets, lengths, timeout in us
+    lib.udp_recv_batch.argtypes = [ctypes.c_int, _P, ctypes.c_long, ctypes.c_int, _P, ctypes.c_long]
+    return lib
+
+
+@lru_cache(maxsize=None)
+def video_rx_fast_lib() -> ctypes.CDLL:
+    """The receiver's C depacketizer: recvmmsg, RTP and payload-header parse
+    and the scatter into per-frame buffers (reference loader
+    ``native.py:255``)."""
+    lib = ctypes.CDLL(_build("video_rx_fast"))
+    lib.vrx_create.restype = _P
+    lib.vrx_create.argtypes = [ctypes.c_long, ctypes.c_long]
+    lib.vrx_destroy.argtypes = [_P]
+    lib.vrx_set_buffer.argtypes = [_P, ctypes.c_int, _P, ctypes.c_long]
+    lib.vrx_drain.restype = ctypes.c_long
+    lib.vrx_drain.argtypes = [_P, ctypes.c_int, ctypes.c_long, ctypes.c_double,
+                              _P, ctypes.c_long, _P, ctypes.c_int, _P, _P, _P]
+    lib.vrx_poll.argtypes = [_P, _P]
+    lib.vrx_nslots.restype = ctypes.c_int
+    lib.vrx_nslots.argtypes = [_P]
+    lib.vrx_slot_hdr.argtypes = [_P, ctypes.c_int, _P]
+    lib.vrx_slot_intervals.restype = ctypes.c_long
+    lib.vrx_slot_intervals.argtypes = [_P, ctypes.c_int, _P]
+    lib.vrx_ssrc_stats.restype = ctypes.c_long
+    lib.vrx_ssrc_stats.argtypes = [_P, ctypes.c_int, _P]
+    lib.vrx_totals.argtypes = [_P, _P, _P]
     return lib

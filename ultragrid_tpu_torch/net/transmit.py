@@ -1,0 +1,258 @@
+"""Video packetizer and traffic shaper (ref: src/transmit.c).
+
+The port's copy of ``ultragrid_tpu/net/transmit.py``, video only.
+Wire-compatible: symbol-aligned packet splitting (get_packet_sizes,
+transmit.c:589-623), video/FEC payload headers, M bit on the frame's last
+packet, packet pacing modes unlimited/auto (75% of frame time)/fixed
+(get_packet_rate, transmit.c:653-689), mult:N duplication.
+
+FEC goes through the port's :func:`ultragrid_tpu_torch.ops.fec.fec_from_spec`;
+the LDGM encode is the shared host C XOR, as in the reference.  An
+uncompressed frame that lives on the card is copied to the host once per
+frame, in :meth:`Tx.send_video`, before FEC and packetisation.  Not in the
+port yet, and refused by name: audio (``send_audio``), the RFC 2435
+standards mode (``net/rtpdec_jpeg.py``) and per-packet encryption
+(``utils/crypto.py``).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ultragrid_tpu_torch.net import rtp_types as rt
+from ultragrid_tpu_torch.net.rtp import RtpSession, get_local_mediatime
+from ultragrid_tpu_torch.ops.fec import FecDesc, RsSession, fec_from_spec
+from ultragrid_tpu_torch.types import (
+    PIX_BLOCK_LCM,
+    Codec,
+    VideoFrame,
+    get_codec_info,
+    is_codec_opaque,
+    vc_get_linesize,
+)
+from ultragrid_tpu_torch.utils.log import Logger
+
+log = Logger("transmit")
+
+RATE_UNLIMITED = -1
+RATE_AUTO = 0
+RATE_DYNAMIC = -2  # auto, but an occasional huge frame may exceed frame time
+_EXCESS_GAP = 4  # min frames between excess frames (ref: transmit.c:130)
+
+
+def parse_bitrate(spec: str):
+    """Parse the ``-l/--limit-bitrate`` grammar (ref: parse_bitrate,
+    rtp_common.c:777-840): ``auto | dynamic | unlimited | <num>[kMG][!][E]``.
+    Returns (bitrate, fixed): bitrate is bps or a RATE_* sentinel; fixed
+    means send at the nominal rate even when auto would be slower ('E')."""
+    spec = (spec or "").strip()
+    named = {"auto": RATE_AUTO, "dynamic": RATE_DYNAMIC,
+             "unlimited": RATE_UNLIMITED, "": RATE_AUTO}
+    if spec in named:
+        return named[spec], False
+    fixed = False
+    while spec and spec[-1] in "!E":
+        if spec[-1] == "E":
+            fixed = True
+        spec = spec[:-1]  # '!' just acknowledges an intentionally low rate
+    mult = 1
+    if spec and spec[-1] in "kKMG":
+        mult = {"k": 1_000, "K": 1_000, "M": 1_000_000, "G": 1_000_000_000}[spec[-1]]
+        spec = spec[:-1]
+    try:
+        bps = int(float(spec) * mult)
+    except ValueError:
+        raise ValueError(f"bad bitrate spec {spec!r}") from None
+    if bps <= 0:
+        raise ValueError("bitrate must be positive")
+    return bps, fixed
+
+
+IPV4_HDR_LEN = 20
+UDP_HDR_LEN = 8
+
+
+def get_video_pkt_len(mtu: int, symbol_size: int, symbol_offset: int):
+    """ref: get_video_pkt_len, transmit.c:573-586."""
+    if symbol_size > mtu:
+        if symbol_size - symbol_offset <= mtu:
+            return symbol_size - symbol_offset, 0
+        return mtu, symbol_offset + mtu
+    return mtu // symbol_size * symbol_size, symbol_offset
+
+
+def get_packet_sizes(
+    data_len: int, codec: Codec, width: int, fec: Optional[FecDesc], mtu: int
+) -> List[int]:
+    """ref: get_packet_sizes, transmit.c:589-623 (mtu = netto payload len)."""
+    symbol_size = 1
+    symbol_offset = 0
+    if fec is None and not is_codec_opaque(codec):
+        symbol_size = vc_get_linesize(width, codec)
+        info = get_codec_info(codec)
+        pf_block = PIX_BLOCK_LCM // info.block_size_pixels * info.block_size_bytes
+        assert pf_block <= mtu
+        mtu = mtu // pf_block * pf_block
+    elif fec is not None:
+        symbol_size = fec.symbol_size
+    sizes: List[int] = []
+    pos = 0
+    while True:
+        if symbol_size == 1:
+            length = mtu
+        else:
+            length, symbol_offset = get_video_pkt_len(mtu, symbol_size, symbol_offset)
+        pos += length
+        sizes.append(length)
+        if pos >= data_len:
+            break
+    if pos > data_len:
+        sizes[-1] -= pos - data_len
+    return sizes
+
+
+def host_bytes(tile) -> np.ndarray:
+    """A tile's bytes as a flat host array: a tensor on the card is copied to
+    the host here (one copy of the whole tile)."""
+    if isinstance(tile, torch.Tensor):
+        tile = tile.cpu().numpy()
+    return np.asarray(tile, dtype=np.uint8).reshape(-1)
+
+
+class Tx:
+    """Sender packetizer state (ref: struct tx + tx_init, transmit.c).
+
+    ``device`` is where the RS parity product runs (the card unless the
+    caller names another); the LDGM encode is host C."""
+
+    def __init__(
+        self,
+        mtu: int = 1500,
+        fec_spec: str = "none",
+        bitrate: int = RATE_AUTO,
+        mult_count: int = 1,
+        bitrate_fixed: bool = False,
+        device="cuda",
+    ):
+        self.mtu = mtu
+        self.bitrate = bitrate
+        self.bitrate_fixed = bitrate_fixed
+        self.device = device
+        self._dyn_avg_frame = 0.0  # RATE_DYNAMIC state (ref: transmit.c:672-680)
+        self._dyn_last_excess = _EXCESS_GAP + 1
+        self.mult_count = mult_count
+        self.buffer = 0  # 22-bit buffer id
+        if fec_spec.startswith("mult:"):
+            self.mult_count = int(fec_spec.split(":")[1])
+            fec_spec = "none"
+        self.fec_spec = fec_spec
+        self._fec = None
+
+    def _get_fec(self, frame_size: int):
+        if self.fec_spec in ("", "none"):
+            return None
+        if self._fec is None:
+            self._fec = fec_from_spec(self.fec_spec, frame_size, self.mtu)
+        return self._fec
+
+    def send_video(self, session: RtpSession, frame: VideoFrame) -> int:
+        """FEC-encode (optionally) + packetize + send one frame.
+
+        Multi-tile frames send each tile as its own RTP substream with the
+        same timestamp; only the very last packet carries the M bit
+        (ref: tx_send, transmit.c:440-478).  Each tile is fetched to the host
+        once, here.
+        """
+        ts = get_local_mediatime() if frame.timestamp < 0 else int(frame.timestamp * 90000) & 0xFFFFFFFF
+        tiles = [host_bytes(t) for t in frame.tiles]
+        sent = 0
+        for ti, data in enumerate(tiles):
+            sent += self._send_tile(session, frame, data, ts, substream=ti,
+                                    send_m=(ti == len(tiles) - 1))
+        self.buffer = (self.buffer + 1) & 0x3FFFFF
+        return sent
+
+    def _send_tile(self, session: RtpSession, frame: VideoFrame, data: np.ndarray, ts: int,
+                   substream: int, send_m: bool) -> int:
+        """ref: tx_send_base, transmit.c:698-827."""
+        desc = frame.desc
+        fec = self._get_fec(data.size)
+        fec_desc = None
+        if fec is not None:
+            # the reference prepends the video payload header to the protected
+            # payload (encode_hdr_frame, ldgm.cpp:455-460)
+            video_hdr = rt.pack_video_header(desc, self.buffer, 0, data.size, substream)
+            if isinstance(fec, RsSession):
+                data, fec_desc = fec.encode(data, hdr=video_hdr, device=self.device)
+            else:
+                data, fec_desc = fec.encode(np.concatenate([np.frombuffer(video_hdr, np.uint8), data]))
+
+        netto = self.mtu - (IPV4_HDR_LEN + UDP_HDR_LEN + rt.RTP_HDR_LEN)
+        if fec_desc is not None:
+            netto -= rt.FEC_PAYLOAD_HDR_LEN
+            pt = rt.fec_pt(fec_desc.type)
+        else:
+            netto -= rt.VIDEO_PAYLOAD_HDR_LEN
+            pt = rt.PT_VIDEO
+
+        sizes = get_packet_sizes(data.size, desc.color_spec, desc.width, fec_desc, netto)
+        npkt = len(sizes) * self.mult_count
+        packet_rate = self._packet_rate(desc.fps, npkt, data.size)
+
+        # vectorized headers + the C sendmmsg batch sender (native/udp_tx.c,
+        # the reference's native transmit loop role)
+        offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+        szs = np.asarray(sizes, np.int32)
+        if fec_desc is not None:
+            proto = rt.pack_fec_header(
+                self.buffer, 0, data.size,
+                fec_desc.k, fec_desc.m, fec_desc.c, fec_desc.seed, substream,
+            )
+        else:
+            proto = rt.pack_video_header(desc, self.buffer, 0, data.size, substream)
+        hdrs = np.tile(np.frombuffer(proto, np.uint8), (len(sizes), 1))
+        # word 1 (bytes 4..8) is the per-packet frame offset, big-endian
+        hdrs[:, 4:8] = offsets.astype(">u4").view(np.uint8).reshape(-1, 4)
+        total = 0
+        for m_iter in range(self.mult_count):
+            last_round = m_iter == self.mult_count - 1
+            total += session.send_batch(
+                ts, pt, hdrs, data, offsets, szs,
+                m_last=send_m and last_round,
+                pace_ns=int(packet_rate * 1e9),
+            )
+        return total
+
+    def send_audio(self, *args, **kwargs) -> int:
+        raise NotImplementedError("audio transmission needs the audio modules "
+                                  "(ultragrid_tpu/audio/, net/audio_rx.py), not ported yet")
+
+    def _packet_rate(self, fps: float, packet_count: int, data_len: int) -> float:
+        """Inter-packet interval in seconds (ref: get_packet_rate,
+        transmit.c:653-689)."""
+        if self.bitrate == RATE_UNLIMITED:
+            return 0.0
+        time_for_frame = 1.0 / max(fps, 1e-6)
+        interval = time_for_frame / max(packet_count, 1) * 0.75
+        interval = min(interval, self.mtu / 1e6)  # >= 1 Mbps floor
+        if self.bitrate == RATE_AUTO:
+            return interval
+        if self.bitrate == RATE_DYNAMIC:
+            # like auto, but an occasional oversized frame (>2x running
+            # average) may double its packet rate (ref: transmit.c:671-680)
+            if (data_len > 2 * self._dyn_avg_frame
+                    and self._dyn_last_excess > _EXCESS_GAP):
+                interval /= 2
+                self._dyn_last_excess = 0
+            else:
+                self._dyn_last_excess += 1
+            self._dyn_avg_frame = (9 * self._dyn_avg_frame + data_len) / 10
+            return interval
+        avg_pkt = data_len / max(packet_count, 1)
+        fixed = avg_pkt * 8 / self.bitrate
+        if self.bitrate_fixed:
+            return fixed  # nominal rate even when auto would be slower
+        return max(fixed, interval)

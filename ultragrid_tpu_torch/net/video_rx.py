@@ -1,0 +1,307 @@
+"""Receiver-side frame reassembly + FEC recovery.
+
+The port's copy of ``ultragrid_tpu/net/video_rx.py``.  Analogue of the
+reference's decode_video_frame (src/rtp/video_decoders.cpp:1528-1843):
+reassemble packets into the frame buffer by payload-header offsets, zero-fill
+holes, run LDGM/RS recovery for FEC payload types.  Reassembly is host work
+into host buffers; ``--param ldgm-device=device`` sends the LDGM peel to the
+port's :meth:`LdgmSession.decode_device` (kernel K2 on the card).  A
+display-owned framebuffer on the card is filled by one upload per frame.
+Not in the port yet, and dropped with a warning that names the missing
+module: encrypted payloads (``utils/crypto.py``) and the RFC 2435 / RFC 6184
+standards payloads (``net/rtpdec_jpeg.py``, ``net/rtpdec_h264.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ultragrid_tpu_torch.net import rtp_types as rt
+from ultragrid_tpu_torch.net.pbuf import PbufNode
+from ultragrid_tpu_torch.ops.fec import LdgmSession, RsSession
+from ultragrid_tpu_torch.types import VideoDesc, VideoFrame, codec_is_planar, is_codec_opaque
+from ultragrid_tpu_torch.utils.log import Logger
+from ultragrid_tpu_torch.utils.params import add_to_param, get_commandline_param
+
+add_to_param("ldgm-device",
+             "* ldgm-device={host|device}\n"
+             "  where to run the LDGM erasure solve (default host)")
+
+
+def _ldgm_on_device() -> bool:
+    """--param ldgm-device={host|device}; host is the default (the device
+    path pays a host->device round trip that only wins on wide erasures)."""
+    return (get_commandline_param("ldgm-device") or "host") == "device"
+
+
+def host_view(tile) -> Optional[np.ndarray]:
+    """A writable flat uint8 numpy view of a tile's own memory (an array or
+    a CPU tensor), or None for a tile on the card."""
+    if isinstance(tile, torch.Tensor):
+        if tile.device.type != "cpu" or tile.dtype != torch.uint8 or not tile.is_contiguous():
+            return None
+        return tile.numpy().reshape(-1)
+    if (not isinstance(tile, np.ndarray) or tile.dtype != np.uint8
+            or not tile.flags.c_contiguous or not tile.flags.writeable):
+        return None
+    return tile.reshape(-1)
+
+
+def tile_nbytes(tile) -> int:
+    return tile.numel() if isinstance(tile, torch.Tensor) else np.asarray(tile).size
+
+
+def fill_tile(tile: torch.Tensor, buf: np.ndarray) -> None:
+    """Copy host bytes into the start of a tile on the card: the frame's one
+    upload."""
+    tile.view(-1)[: buf.size].copy_(torch.from_numpy(np.ascontiguousarray(buf)))
+
+log = Logger("video_rx")
+
+# Upper bound on the untrusted frame_len payload-header field: a spoofed
+# packet must not drive a multi-GiB allocation.  256 MiB covers 8K RG48
+# (7680*4320*6 ≈ 199 MB), the largest raw frame any supported mode produces
+# (the reference likewise validates buffer lengths before allocating).
+MAX_FRAME_LEN = 1 << 28
+
+
+# payload types whose decoder module is not in the port yet
+_NOT_PORTED_PTS = {
+    rt.PT_ENCRYPT_VIDEO: "utils/crypto.py (-e)",
+    rt.PT_ENCRYPT_VIDEO_LDGM: "utils/crypto.py (-e)",
+    rt.PT_ENCRYPT_VIDEO_RS: "utils/crypto.py (-e)",
+    rt.PT_JPEG: "net/rtpdec_jpeg.py (RFC 2435)",
+    rt.PT_H264: "net/rtpdec_h264.py (RFC 6184)",
+}
+
+
+class FecJob:
+    """Reassembled-but-undecoded FEC frame: the rx thread only copies
+    packet payloads; the actual LDGM/RS solve runs on the fec thread
+    (ref: fec_thread, video_decoders.cpp:423)."""
+
+    __slots__ = ("kind", "buf", "got", "params", "ssrc", "rtp_ts")
+
+    def __init__(self, kind, buf, got, params, ssrc=0, rtp_ts=-1):
+        self.kind = kind
+        self.buf = buf
+        self.got = got
+        self.params = params
+        self.ssrc = ssrc
+        self.rtp_ts = rtp_ts
+
+
+class VideoRxState:
+    """``device``: where ``--param ldgm-device=device`` runs the peel (the
+    card unless the caller names another)."""
+
+    def __init__(self, device="cuda") -> None:
+        self._fec_cache: Dict[Tuple, object] = {}
+        self.device = device
+        self.frames_ok = 0
+        self.frames_missing_data = 0
+        self.fec_jobs = 0
+        self.fec_recovered = 0  # FEC jobs with lost symbols whose frame came back
+        # optional display-owned framebuffer provider: desc -> VideoFrame
+        # whose buffer the reassembly writes into (the reference's
+        # LINE_DECODER path, video_decoders.cpp:1707-1796)
+        self.framebuffer_provider = None
+        self._warned: set = set()
+
+    def _get_fec(self, kind: str, k: int, m: int, c: int, seed: int):
+        key = (kind, k, m, c, seed)
+        sess = self._fec_cache.get(key)
+        if sess is None:
+            if kind == "ldgm":
+                sess = LdgmSession(k, m, c, seed)
+            else:
+                sess = RsSession(k, k + m)
+            self._fec_cache[key] = sess
+        return sess
+
+    def decode_frame(self, node: PbufNode) -> Optional[VideoFrame]:
+        """Reassemble one pbuf node into a VideoFrame (compressed or raw).
+        Single-stage convenience: reassemble + any FEC solve inline."""
+        out = self.reassemble(node)
+        if out is None:
+            return None
+        if isinstance(out, FecJob):
+            return self.decode_fec_job(out)
+        return out
+
+    def reassemble(self, node: PbufNode):
+        """Stage-1 work only (the rx thread's share of decode_video_frame,
+        video_decoders.cpp:1528-1843): copy packet payloads into the frame
+        buffer.  Returns a VideoFrame, a FecJob for the fec thread, or
+        None."""
+        if not node.packets:
+            return None
+        pt = node.packets[0].pt
+        if pt in _NOT_PORTED_PTS:
+            if pt not in self._warned:
+                self._warned.add(pt)
+                log.warning(f"payload type {pt} needs {_NOT_PORTED_PTS[pt]}, "
+                            "not ported yet; dropping its frames")
+            return None
+        if pt == rt.PT_VIDEO:
+            frame = self._decode_plain(node)
+        elif pt in (rt.PT_VIDEO_LDGM, rt.PT_VIDEO_RS):
+            job = self._reassemble_fec(node, "ldgm" if pt == rt.PT_VIDEO_LDGM else "rs")
+            if job is not None:
+                job.ssrc = node.packets[0].ssrc
+                job.rtp_ts = node.ts
+            return job
+        else:
+            log.warning(f"unsupported payload type {pt}")
+            return None
+        if frame is not None:
+            frame.callbacks["ssrc"] = node.packets[0].ssrc
+            # RTP TS (90 kHz) = the sender's capture instant; kept in
+            # seconds so capture->display latency is measurable downstream
+            frame.timestamp = (node.ts & 0xFFFFFFFF) / 90000.0
+        return frame
+
+    def _decode_plain(self, node: PbufNode) -> Optional[VideoFrame]:
+        # per-substream reassembly (multi-tile frames arrive as several
+        # substreams with the same RTP TS; ref: tile_idx in the payload
+        # header word 0, transmit.c:490)
+        bufs: Dict[int, np.ndarray] = {}
+        descs: Dict[int, VideoDesc] = {}
+        fb_frame = None  # display-owned frame (LINE_DECODER path)
+        received = 0
+        total = 0
+        for pkt in node.packets:
+            if len(pkt.payload) < rt.VIDEO_PAYLOAD_HDR_LEN:
+                continue
+            substream, buffer_idx, offset, frame_len, desc = rt.parse_video_header(
+                pkt.payload
+            )
+            if frame_len > MAX_FRAME_LEN or frame_len <= 0:
+                log.warning(f"bogus frame length {frame_len}; dropping packet")
+                continue
+            data = pkt.payload[rt.VIDEO_PAYLOAD_HDR_LEN :]
+            if substream not in bufs:
+                buf = None
+                if (substream == 0 and not bufs
+                        and self.framebuffer_provider is not None):
+                    # uncompressed single-substream stream: write packet
+                    # payloads STRAIGHT into the display's framebuffer —
+                    # zero intermediate copies (ref: LINE_DECODER via
+                    # vc_copyline into display_get_frame() buffers,
+                    # video_decoders.cpp:1707-1796)
+                    # On the card the framebuffer cannot take packets
+                    # directly: the frame is reassembled on the host and
+                    # uploaded once, below (holes are then zero-filled, as
+                    # on the buffered path).
+                    fb_frame = self.framebuffer_provider(desc)
+                    if fb_frame is not None:
+                        if tile_nbytes(fb_frame.tiles[0]) >= frame_len:
+                            buf = host_view(fb_frame.tiles[0])
+                        else:
+                            fb_frame = None
+                if buf is None:
+                    buf = np.zeros(frame_len, dtype=np.uint8)
+                bufs[substream] = buf
+                descs[substream] = desc
+                total += frame_len
+            end = min(offset + len(data), frame_len)
+            bufs[substream][offset:end] = np.frombuffer(data[: end - offset], np.uint8)
+            received += end - offset
+        if not bufs:
+            return None
+        if received < total:
+            self.frames_missing_data += 1
+            # the reference zero-fills and passes incomplete frames on
+            # (video_decoders.cpp:1828-1843); we do the same
+        self.frames_ok += 1
+        if len(bufs) == 1:
+            (buf,) = bufs.values()
+            (desc,) = descs.values()
+            if fb_frame is not None:
+                if host_view(fb_frame.tiles[0]) is None:
+                    fill_tile(fb_frame.tiles[0], buf)
+                fb_frame.callbacks["display_owned"] = True
+                return fb_frame
+            return self._wrap(buf, desc)
+        # multi-tile: wrap each substream as a tile
+        desc0 = descs[min(descs)]
+        frame = self._wrap(bufs[min(bufs)], desc0)
+        tiles = []
+        for idx in sorted(bufs):
+            tiles.append(self._wrap(bufs[idx], descs[idx]).data)
+        out = VideoFrame(desc0.with_(tile_count=len(tiles)), tiles)
+        return out
+
+    def _reassemble_fec(self, node: PbufNode, kind: str) -> Optional[FecJob]:
+        frame_len = 0
+        params = None
+        buf = None
+        got = None
+        for pkt in node.packets:
+            if len(pkt.payload) < rt.FEC_PAYLOAD_HDR_LEN:
+                continue
+            substream, buffer_idx, offset, frame_len, k, m, c, seed = rt.parse_fec_header(
+                pkt.payload
+            )
+            if frame_len > MAX_FRAME_LEN or frame_len <= 0:
+                log.warning(f"bogus FEC frame length {frame_len}; dropping packet")
+                continue
+            params = (k, m, c, seed)
+            data = pkt.payload[rt.FEC_PAYLOAD_HDR_LEN :]
+            if buf is None:
+                buf = np.zeros(frame_len, dtype=np.uint8)
+                got = np.zeros(frame_len, dtype=bool)
+            end = min(offset + len(data), frame_len)
+            buf[offset:end] = np.frombuffer(data[: end - offset], np.uint8)
+            got[offset:end] = True
+        if buf is None or params is None:
+            return None
+        return FecJob(kind, buf, got, (frame_len, *params))
+
+    def decode_fec_job(self, job: FecJob) -> Optional[VideoFrame]:
+        """Stage-2 work: the actual LDGM/RS erasure solve
+        (ref: fec::decode in fec_thread, video_decoders.cpp:450)."""
+        frame_len, k, m, c, seed = job.params
+        sess = self._get_fec(job.kind, k, m, c, seed)
+        ss = frame_len // (k + m)
+        symbols = job.buf[: (k + m) * ss].reshape(k + m, ss)
+        present = job.got[: (k + m) * ss].reshape(k + m, ss).all(axis=1)
+        # --param ldgm-device=device routes the erasure solve through the
+        # accelerator (iterative XOR-matmul peel; bit-identical), mirroring
+        # the reference's ldgm-device={CPU|GPU} switch (src/rtp/ldgm.cpp:211)
+        self.fec_jobs += 1
+        lost = not bool(present.all())
+        if job.kind == "ldgm" and lost and _ldgm_on_device():
+            payload = sess.decode_device(symbols, present, device=self.device)
+        else:
+            payload = sess.decode(symbols, present)
+        if payload is None:
+            self.frames_missing_data += 1
+            return None
+        self.fec_recovered += lost
+        # payload = [24B video payload header][frame data]
+        if payload.size < rt.VIDEO_PAYLOAD_HDR_LEN:
+            return None
+        _, _, _, inner_len, desc = rt.parse_video_header(payload[: rt.VIDEO_PAYLOAD_HDR_LEN].tobytes())
+        frame_data = payload[rt.VIDEO_PAYLOAD_HDR_LEN : rt.VIDEO_PAYLOAD_HDR_LEN + inner_len]
+        self.frames_ok += 1
+        frame = self._wrap(frame_data, desc)
+        frame.callbacks["ssrc"] = job.ssrc
+        if job.rtp_ts >= 0:
+            frame.timestamp = (job.rtp_ts & 0xFFFFFFFF) / 90000.0
+        return frame
+
+    @staticmethod
+    def _wrap(buf: np.ndarray, desc: VideoDesc) -> VideoFrame:
+        if is_codec_opaque(desc.color_spec) or codec_is_planar(desc.color_spec):
+            frame = VideoFrame(desc, [buf])
+        else:
+            ls = desc.linesize()
+            h = desc.height
+            if buf.size < h * ls:
+                buf = np.pad(buf, (0, h * ls - buf.size))
+            frame = VideoFrame(desc, [buf[: h * ls].reshape(h, ls)])
+        return frame

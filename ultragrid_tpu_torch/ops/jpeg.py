@@ -303,6 +303,28 @@ _LAYOUTS = {
     ("444", Codec.RGB): 2, ("444", Codec.RGBA): 3,
 }
 
+# the geometries without a mega matrix: the per-plane front end
+# (JpegEncoder.plane_coefficients), then K1's coefficient entry
+_PER_PLANE = {("444", Codec.UYVY), ("444", Codec.YUYV), ("422", Codec.RGB), ("422", Codec.RGBA)}
+
+_BYTES_PER_PIXEL = {Codec.UYVY: 2, Codec.YUYV: 2, Codec.RGB: 3, Codec.RGBA: 4}
+
+
+def _fma_chain(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """x [n, 64] @ m [64, 64] in float32 as one multiply-add per k in
+    ascending k: the order of XLA's CPU dot for 64 or more rows."""
+    f = torch.zeros(x.shape[0], m.shape[1], dtype=torch.float32, device=x.device)
+    for k in range(x.shape[1]):
+        f = torch.addcmul(f, x[:, k: k + 1], m[k])
+    return f
+
+
+def _blockify(plane: torch.Tensor) -> torch.Tensor:
+    """[H, W] -> [H/8 * W/8, 64] row-major 8x8 blocks (reference
+    ``_blockify_plane``)."""
+    h, w = plane.shape
+    return plane.reshape(h // 8, 8, w // 8, 8).permute(0, 2, 1, 3).reshape(-1, 64)
+
 _STATE_KEYS = ("W", "const", "dc_luma", "dc_chroma", "ac_luma", "ac_chroma",
                "quant_luma", "quant_chroma")
 
@@ -355,20 +377,21 @@ class JpegEncoder:
         self.restart_interval = restart_interval
         self.nseg = (self.nmcu + restart_interval - 1) // restart_interval
         self.nblocks = self.nmcu * self.blocks_per_mcu
-        if (subsampling, in_codec) not in _LAYOUTS:
-            raise NotImplementedError(
-                f"JPEG {subsampling} from {in_codec.name} has no mega-matrix "
-                "front end; see ROADMAP.md 'non-mega JPEG geometries'")
-        self.layout = _LAYOUTS[(subsampling, in_codec)]
-        self.bpr = jpeg_cuda.GEOMETRY[self.layout][4]
+        self.per_plane = (subsampling, in_codec) in _PER_PLANE
+        if not self.per_plane and (subsampling, in_codec) not in _LAYOUTS:
+            raise ValueError(f"JPEG encoder: no {subsampling} encode from {in_codec.name}")
+        # the mega layout's id in csrc/jpeg_encode.cu; None for per-plane
+        self.layout = None if self.per_plane else _LAYOUTS[(subsampling, in_codec)]
+        self.bpr = self.mcu_w * _BYTES_PER_PIXEL[in_codec]  # bytes per MCU row
 
         if state is None:
             state = self._build_state()
         self.state = {k: state[k] for k in _STATE_KEYS}
-        if np.asarray(self.state["W"]).shape != jpeg_cuda.GEOMETRY[self.layout][:2]:
-            raise ValueError(f"mega matrix {np.asarray(self.state['W']).shape} does not fit "
-                             f"layout {self.layout}")
-        self.plan = support_plan(self.state["W"])
+        want = (64, 128) if self.per_plane else jpeg_cuda.GEOMETRY[self.layout][:2]
+        if np.asarray(self.state["W"]).shape != want:
+            raise ValueError(f"front-end matrix {np.asarray(self.state['W']).shape} does not "
+                             f"fit {subsampling} from {in_codec.name}")
+        self.plan = None if self.per_plane else support_plan(self.state["W"])
         self.qtab_luma = np.asarray(self.state["quant_luma"], np.int32)
         self.qtab_chroma = np.asarray(self.state["quant_chroma"], np.int32)
         self._header = self._build_header()
@@ -381,7 +404,8 @@ class JpegEncoder:
     def _build_state(self) -> dict:
         qy = scale_quant_table(QUANT_LUMA, self.quality)
         qc = scale_quant_table(QUANT_CHROMA, self.quality)
-        W, const = self._build_mega_matrix(qy, qc)
+        build = self._build_plane_matrices if self.per_plane else self._build_mega_matrix
+        W, const = build(qy, qc)
         return {
             "W": W, "const": const,
             "dc_luma": build_huffman(DC_LUMA_BITS, DC_LUMA_VALS),
@@ -408,6 +432,25 @@ class JpegEncoder:
                 packed(*st["dc_luma"], 16), packed(*st["dc_chroma"], 16),
                 packed(*st["ac_luma"], 256), packed(*st["ac_chroma"], 256),
             ]).astype(np.int32)
+            tables = {
+                "const": torch.as_tensor(np.ascontiguousarray(st["const"], np.float32), device=device),
+                "huff": torch.as_tensor(huff, device=device),
+                **{name: (i64(st[name][0]), i64(st[name][1]))
+                   for name in ("dc_luma", "dc_chroma")},
+                # AC tables with their EOB and ZRL (code, length) as ints
+                **{name: (i64(st[name][0]), i64(st[name][1]),
+                          (int(st[name][0][0]), int(st[name][1][0])),
+                          (int(st[name][0][0xF0]), int(st[name][1][0xF0])))
+                   for name in ("ac_luma", "ac_chroma")},
+            }
+            if self.per_plane:
+                W = np.ascontiguousarray(st["W"], np.float32)
+                t = self._dev_tables[device] = {
+                    **tables,
+                    "my": torch.as_tensor(W[:, :64].copy(), device=device),
+                    "mc": torch.as_tensor(W[:, 64:].copy(), device=device),
+                }
+                return t
             rows, groups, wc = self.plan
             # the plain chain, batched over groups: S_g padded at its end
             # with row 0 at weight 0 (fma(x, 0, acc) == acc)
@@ -418,20 +461,12 @@ class JpegEncoder:
                 idx[g, :n] = rows[ro: ro + n]
                 wpad[:n, g] = wc[wo: wo + n]
             t = {
-                "const": torch.as_tensor(np.ascontiguousarray(st["const"], np.float32), device=device),
-                "huff": torch.as_tensor(huff, device=device),
+                **tables,
                 "rows": torch.as_tensor(rows, device=device),
                 "groups": torch.as_tensor(groups, device=device),
                 "wc": torch.as_tensor(wc, device=device),
                 "plain_idx": torch.as_tensor(idx, device=device),
                 "plain_w": torch.as_tensor(wpad, device=device),
-                **{name: (i64(st[name][0]), i64(st[name][1]))
-                   for name in ("dc_luma", "dc_chroma")},
-                # AC tables with their EOB and ZRL (code, length) as ints
-                **{name: (i64(st[name][0]), i64(st[name][1]),
-                          (int(st[name][0][0]), int(st[name][1][0])),
-                          (int(st[name][0][0xF0]), int(st[name][1][0xF0])))
-                   for name in ("ac_luma", "ac_chroma")},
             }
             self._dev_tables[device] = t
         return t
@@ -538,6 +573,89 @@ class JpegEncoder:
         const = np.concatenate([cy, np.zeros(64, np.float32), np.zeros(64, np.float32)])
         return W, const.astype(np.float32)
 
+    def _build_plane_matrices(self, qtab_luma: np.ndarray, qtab_chroma: np.ndarray):
+        """The per-plane front end's tables (reference ops/jpeg.py:664-673):
+        W = [my | mc] f32 [64, 128], the fused DCT + zigzag + quantisation
+        matrix of a luma and of a chroma block, and const = [cy | cc] f32
+        [128], the folded -128 level shift of YCbCr planes (0 for RGB, whose
+        planes are shifted before the product).  As the reference, in
+        float32; each column sum is summed as XLA's CPU reduce sums it: rows
+        0-31 and rows 32-63 each in ascending order, then the two halves
+        added (found against the reference at ten qualities)."""
+        m_zz = dct_matrix_64()[ZIGZAG, :]
+        my = (m_zz / qtab_luma[ZIGZAG].astype(np.float32)[:, None]).T
+        mc = (m_zz / qtab_chroma[ZIGZAG].astype(np.float32)[:, None]).T
+        if self.in_codec in (Codec.RGB, Codec.RGBA):
+            const = np.zeros(128, np.float32)
+        else:
+            def colsum(m):
+                halves = []
+                for part in (m[:32], m[32:]):
+                    acc = np.zeros(64, np.float32)
+                    for row in part:
+                        acc = (acc + row).astype(np.float32)
+                    halves.append(acc)
+                return (halves[0] + halves[1]).astype(np.float32)
+
+            const = np.concatenate([np.float32(128.0) * colsum(my), np.float32(128.0) * colsum(mc)])
+        return np.concatenate([my, mc], axis=1).astype(np.float32), const.astype(np.float32)
+
+    def planes(self, frame: torch.Tensor):
+        """Y, Cb, Cr planes at the coded resolution, as float32 (reference
+        ``_planes_from_input``, ops/jpeg.py:483-514, plus the chroma
+        resampling that the reference's per-plane path lacks: its
+        half-width UYVY chroma cannot fill 4:4:4 blocks, nor its full-width
+        RGB chroma 4:2:2 ones, and it raises on both).
+
+        UYVY/YUYV to 4:4:4: each chroma byte is repeated for the two pixels
+        it covers; the planes stay unshifted (the level shift is folded into
+        ``const``).  RGB/RGBA to 4:2:2: the JFIF colour conversion rounded as
+        XLA's CPU compile of the reference rounds it (the middle product
+        first, the first and the third fused in, in that order; the Cb/Cr
+        +128 bias and the -128 shift cancel, as XLA folds them), then each
+        chroma pair is averaged, (a + b) * 0.5.
+        """
+        w, h = self.width, self.height
+        if self.in_codec in (Codec.UYVY, Codec.YUYV):
+            g = frame[:, : 2 * w].reshape(h, w // 2, 4)
+            if self.in_codec == Codec.UYVY:
+                u, y0, v, y1 = g.unbind(-1)
+            else:
+                y0, u, y1, v = g.unbind(-1)
+            y = torch.stack([y0, y1], dim=-1).reshape(h, w)
+            u, v = (torch.repeat_interleave(c, 2, dim=1) for c in (u, v))
+            return tuple(p.to(torch.float32) for p in (y, u, v))
+        ncomp = _BYTES_PER_PIXEL[self.in_codec]
+        px = frame[:, : ncomp * w].reshape(h, w, ncomp).to(torch.float32)
+        r, g, b = px[..., 0], px[..., 1], px[..., 2]
+
+        def f32(v):
+            return torch.tensor(v, dtype=torch.float32, device=frame.device)
+
+        y = torch.addcmul(torch.addcmul(f32(0.587) * g, f32(0.299), r), f32(0.114), b) + f32(-128.0)
+        cb = torch.addcmul(torch.addcmul(-(f32(0.331264108) * g), f32(-0.168735892), r), f32(0.5), b)
+        cr = torch.addcmul(torch.addcmul(-(f32(0.418687589) * g), f32(0.5), r), f32(-0.081312411), b)
+        cb, cr = ((c[:, 0::2] + c[:, 1::2]) * f32(0.5) for c in (cb, cr))
+        return y, cb, cr
+
+    def plane_coefficients(self, frame: torch.Tensor) -> torch.Tensor:
+        """The per-plane front end: zigzag-quantised coefficients [nmcu,
+        64 * blocks_per_mcu] int64 in MCU order (luma blocks, Cb, Cr), each
+        block round(block @ m - c) with the product as :func:`_fma_chain`
+        (reference ops/jpeg.py:652-681)."""
+        self._check_frame(frame)
+        t = self.tables(frame.device)
+        y, u, v = self.planes(frame)
+        if self.subsampling == "422":
+            yb = y.reshape(self.nmcuy, 8, self.nmcux, 2, 8).permute(0, 2, 3, 1, 4).reshape(-1, 64)
+        else:
+            yb = _blockify(y)
+        const = t["const"]
+        qy = torch.round(_fma_chain(yb, t["my"]) - const[:64])
+        quv = torch.round(_fma_chain(torch.cat([_blockify(u), _blockify(v)]), t["mc"]) - const[64:])
+        qu, qv = quv.split(self.nmcu)
+        return torch.cat([qy.reshape(self.nmcu, -1), qu, qv], dim=1).to(torch.int64)
+
     # -- device half ----------------------------------------------------
 
     def _check_frame(self, frame: torch.Tensor) -> None:
@@ -596,21 +714,30 @@ class JpegEncoder:
             qv, *t["dc_chroma"], *t["ac_chroma"], seg_start), wwords)
         return ys, ybits, us, ubits, vs, vbits, yovf | uovf | vovf
 
+    def coefficients(self, frame: torch.Tensor) -> torch.Tensor:
+        """The front end of this geometry: int64 [nmcu, 64 * blocks]."""
+        return self.plane_coefficients(frame) if self.per_plane else self.front_end(frame)
+
     def encode_plain(self, frame: torch.Tensor):
         """Plain PyTorch device half on any device (reference ``_make_encode``,
         ops/jpeg.py:604), at the current slot width.  frame: uint8 [H,
         linesize].  Returns (ys, ybits, us, ubits, vs, vbits, overflow):
         slots int32 [nb, wwords] (uint32 bits), bit counts int32 [nb],
         overflow 0-d bool."""
-        return self.symbols_and_pack(self.front_end(frame), self.wwords)
+        return self.symbols_and_pack(self.coefficients(frame), self.wwords)
 
     def _encode(self, frame: torch.Tensor):
         """Device half at the current slot width: kernel K1 for a CUDA
-        tensor, the plain path for a CPU tensor.  The overflow flag stays a
-        tensor; callers check it when they fetch results."""
+        tensor (for a per-plane geometry, the PyTorch front end and K1's
+        coefficient entry), the plain path for a CPU tensor.  The overflow
+        flag stays a tensor; callers check it when they fetch results."""
         if frame.is_cuda:
             self._check_frame(frame)
             t = self.tables(frame.device)
+            if self.per_plane:
+                return jpeg_cuda.encode_coefficients(
+                    self.plane_coefficients(frame).to(torch.int32), t["huff"], ny=self.ky,
+                    restart_interval=self.restart_interval, wwords=self.wwords)
             return jpeg_cuda.fused_encode(
                 frame, t["wc"], t["rows"], t["groups"], t["const"], t["huff"], layout=self.layout,
                 nmcux=self.nmcux, nmcuy=self.nmcuy,

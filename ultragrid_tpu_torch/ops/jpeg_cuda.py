@@ -1,8 +1,11 @@
-"""Wrapper of kernel K1 (``csrc/jpeg_encode.cu``): the fused JPEG encode.
+"""Wrappers of kernel K1 (``csrc/jpeg_encode.cu``): the fused JPEG encode,
+and its coefficient entry (symbols and pack of coefficients computed by a
+front end outside the kernel).
 
 Counterpart of ``ultragrid_tpu/ops/jpeg_pallas.py::make_fused_encode``.  The
-plain version is :meth:`ultragrid_tpu_torch.ops.jpeg.JpegEncoder.encode_plain`;
-:meth:`JpegEncoder._encode` calls this wrapper for CUDA tensors only.
+plain version of both is :meth:`ultragrid_tpu_torch.ops.jpeg.JpegEncoder.encode_plain`
+(of the coefficient entry, :meth:`JpegEncoder.symbols_and_pack`);
+:meth:`JpegEncoder._encode` calls these wrappers for CUDA tensors only.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import torch
 from ultragrid_tpu_torch import _build
 
 LAUNCHES = _build.LaunchCounter("jpeg_encode")
+COEFF_LAUNCHES = _build.LaunchCounter("jpeg_pack_coeffs")
 
 # layout id -> (bytes per MCU K, columns NC, luma blocks per MCU, MCU rows, bytes per MCU row)
 GEOMETRY = {
@@ -27,6 +31,18 @@ def _expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> No
         raise ValueError(
             f"{name}: expected contiguous {dtype} {tuple(shape)} on {device}, got "
             f"{t.dtype} {tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})")
+
+
+def _outputs(nmcu: int, ny: int, wwords: int, dev: torch.device):
+    """(ys, ybits, us, ubits, vs, vbits, overflow byte) of a K1 launch."""
+    def slots(n):
+        return torch.empty(n, wwords, dtype=torch.int32, device=dev)
+
+    def bits(n):
+        return torch.empty(n, dtype=torch.int32, device=dev)
+
+    return (slots(nmcu * ny), bits(nmcu * ny), slots(nmcu), bits(nmcu), slots(nmcu), bits(nmcu),
+            torch.zeros(1, dtype=torch.bool, device=dev))
 
 
 def fused_encode(frame: torch.Tensor, wc: torch.Tensor, rows: torch.Tensor,
@@ -61,13 +77,7 @@ def fused_encode(frame: torch.Tensor, wc: torch.Tensor, rows: torch.Tensor,
         raise ValueError(f"bad wwords {wwords} / restart interval {restart_interval}")
 
     nmcu = nmcux * nmcuy
-    ys = torch.empty(nmcu * ny, wwords, dtype=torch.int32, device=dev)
-    ybits = torch.empty(nmcu * ny, dtype=torch.int32, device=dev)
-    us = torch.empty(nmcu, wwords, dtype=torch.int32, device=dev)
-    ubits = torch.empty(nmcu, dtype=torch.int32, device=dev)
-    vs = torch.empty(nmcu, wwords, dtype=torch.int32, device=dev)
-    vbits = torch.empty(nmcu, dtype=torch.int32, device=dev)
-    ovf = torch.zeros(1, dtype=torch.bool, device=dev)
+    ys, ybits, us, ubits, vs, vbits, ovf = _outputs(nmcu, ny, wwords, dev)
     lib = _build.kernels_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -79,4 +89,38 @@ def fused_encode(frame: torch.Tensor, wc: torch.Tensor, rows: torch.Tensor,
             layout, nmcux, nmcu, restart_interval, wwords, stream)
     _build.check(err, "jpeg_encode launch")
     LAUNCHES.count += 1
+    return ys, ybits, us, ubits, vs, vbits, ovf[0]
+
+
+def encode_coefficients(q: torch.Tensor, huff: torch.Tensor, *, ny: int,
+                        restart_interval: int, wwords: int):
+    """One launch of K1's coefficient entry: symbols and pack of q.
+
+    q: int32 [nmcu, 64 * (ny + 2)] on a CUDA device, each MCU's blocks in
+    stream order (ny luma blocks, Cb, Cr); ny = 1 (4:4:4) or 2 (4:2:2);
+    huff as :func:`fused_encode`.  Returns (ys, ybits, us, ubits, vs, vbits,
+    overflow) with the plain path's shapes and dtypes.
+    """
+    if not q.is_cuda:
+        raise ValueError("encode_coefficients needs a CUDA tensor; the CPU uses JpegEncoder.symbols_and_pack")
+    if ny not in (1, 2):
+        raise ValueError(f"the coefficient entry takes 1 or 2 luma blocks per MCU, not {ny}")
+    dev = q.device
+    nc = 64 * (ny + 2)
+    if q.dtype != torch.int32 or q.dim() != 2 or q.shape[1] != nc or not q.is_contiguous():
+        raise ValueError(f"q: expected contiguous int32 [nmcu, {nc}], got {q.dtype} {tuple(q.shape)}")
+    _expect(huff, "huff", torch.int32, (544,), dev)
+    if not 1 <= wwords <= 64 or restart_interval < 1:
+        raise ValueError(f"bad wwords {wwords} / restart interval {restart_interval}")
+    nmcu = q.shape[0]
+    ys, ybits, us, ubits, vs, vbits, ovf = _outputs(nmcu, ny, wwords, dev)
+    lib = _build.kernels_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ug_jpeg_pack_coeffs(
+            q.data_ptr(), huff.data_ptr(), ys.data_ptr(), ybits.data_ptr(), us.data_ptr(),
+            ubits.data_ptr(), vs.data_ptr(), vbits.data_ptr(), ovf.data_ptr(),
+            ny, nmcu, restart_interval, wwords, stream)
+    _build.check(err, "jpeg_pack_coeffs launch")
+    COEFF_LAUNCHES.count += 1
     return ys, ybits, us, ubits, vs, vbits, ovf[0]

@@ -6,9 +6,10 @@ display via queues).  Frames stay on the capture's device from the testcard
 ring to the display; only a display that writes files fetches to the host.
 
 On the card both threads enqueue their work on one CUDA stream, the stream
-current where the pipeline was built: the display thread's conversion is
-ordered after the capture thread's filters by the stream itself, so a frame
-taken from the queue is never read before it is written.  The queue holds at
+current where the pipeline was built (``device.pipeline_stream``), whichever
+stream the thread that calls ``run()`` has: the display thread's conversion
+is ordered after the capture thread's filters by the stream itself, so a
+frame taken from the queue is never read before it is written.  The queue holds at
 most 2 frames, which bounds the memory of a 4K loop.
 """
 
@@ -19,8 +20,7 @@ import queue
 import threading
 from typing import Optional
 
-import torch
-
+from ultragrid_tpu_torch.device import pipeline_stream, stream_context
 from ultragrid_tpu_torch.modules.filters import FilterChain
 from ultragrid_tpu_torch.modules.video_capture import VideoCapture, initialize_video_capture
 from ultragrid_tpu_torch.modules.video_display import VideoDisplay, initialize_video_display
@@ -56,8 +56,7 @@ class CaptureToDisplayPipeline:
         self._out_codec: Optional[Codec] = None
         self._error: Optional[BaseException] = None
         self.frames_captured = 0
-        dev = capture.device
-        self.stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        self.stream = pipeline_stream(capture.device)
 
     def _setup_conversion(self, frame: VideoFrame) -> bool:
         codecs = self.display.get_property_codecs()
@@ -72,9 +71,8 @@ class CaptureToDisplayPipeline:
         return True
 
     def _capture_thread(self) -> None:
-        on_stream = torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext()
         try:
-            with on_stream:
+            with stream_context(self.stream):
                 while not self.should_exit.is_set():
                     if self.frame_limit is not None and self.frames_captured >= self.frame_limit:
                         break
@@ -100,20 +98,21 @@ class CaptureToDisplayPipeline:
         return out
 
     def _display_loop(self) -> None:
-        while True:
-            item = self.queue.get()
-            if item is _POISON:
-                break
-            result = self.postprocess_chain.apply(item)
-            if result is None:
-                continue
-            # postprocess may fan one frame out into several (double_framerate)
-            for frame in result if isinstance(result, list) else [result]:
-                if self._decoder is None and not self._setup_conversion(frame):
-                    self.should_exit.set()
+        with stream_context(self.stream):
+            while True:
+                item = self.queue.get()
+                if item is _POISON:
                     break
-                self.display.put_frame(self.convert(frame))
-        self.display.put_frame(None)
+                result = self.postprocess_chain.apply(item)
+                if result is None:
+                    continue
+                # postprocess may fan one frame out into several (double_framerate)
+                for frame in result if isinstance(result, list) else [result]:
+                    if self._decoder is None and not self._setup_conversion(frame):
+                        self.should_exit.set()
+                        break
+                    self.display.put_frame(self.convert(frame))
+            self.display.put_frame(None)
 
     def run(self) -> int:
         t = threading.Thread(target=self._capture_thread, name="capture", daemon=True)

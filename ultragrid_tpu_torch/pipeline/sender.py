@@ -1,0 +1,317 @@
+"""Sender pipeline: capture -> compress -> FEC -> RTP/UDP.
+
+The port of ``ultragrid_tpu/pipeline/sender.py``, video only.  Thread per
+stage like the reference (capture thread src/main.cpp:347-397 -> compress
+worker src/video_compress.cpp -> sender loop src/rxtx.cpp:259-287).
+
+Threads and the card: the capture ring and the capture filters run on the
+card, ``-c jpeg`` encodes there (kernel K1) and hands the send loop a host
+file, ``-c none`` hands it the frame on the card and :meth:`Tx.send_video`
+copies it to the host once.  Every thread that enqueues device work enters
+the pipeline's one CUDA stream, the stream current where the sender was
+built, so work handed from one thread to the next is ordered by the stream
+itself (``device.pipeline_stream``, the rule of ``pipeline/loop.py``).
+
+Not in the port yet, and refused by name: audio (``-s``), encryption
+(``-e``), export (``-E``), RTSP and the RFC 2435 standards mode.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Optional
+
+from ultragrid_tpu_torch.device import get_device, pipeline_stream, stream_context
+from ultragrid_tpu_torch.modules.filters import FilterChain
+from ultragrid_tpu_torch.modules.messaging import (
+    Module,
+    MsgChangeFec,
+    MsgSender,
+    RESPONSE_BAD_REQUEST,
+    RESPONSE_OK,
+    Response,
+)
+from ultragrid_tpu_torch.modules.video_capture import initialize_video_capture
+from ultragrid_tpu_torch.modules.video_compress import CompressDriver
+from ultragrid_tpu_torch.net.rtp import RtpSession
+from ultragrid_tpu_torch.net.transmit import RATE_AUTO, Tx, parse_bitrate
+from ultragrid_tpu_torch.ops.fec import fec_from_spec
+from ultragrid_tpu_torch.utils import profiler
+from ultragrid_tpu_torch.utils.control_socket import ControlServer
+from ultragrid_tpu_torch.utils.crash import arm_exit_watchdog
+from ultragrid_tpu_torch.utils.keyboard import KeyboardControl
+from ultragrid_tpu_torch.utils.log import Logger
+from ultragrid_tpu_torch.utils.params import add_to_param, get_commandline_param, param_is_set
+from ultragrid_tpu_torch.utils.tiling import VideoMode, vf_split
+
+add_to_param("fec-adaptive",
+             "[=max_pct] adapt LDGM protection to RTCP-RR receiver loss "
+             "(2x worst loss, decay when clean; sender-side, beyond the "
+             "reference's display-only RR use, rtp.c:160-201)")
+
+log = Logger("sender")
+
+
+class VideoSender:
+    def __init__(
+        self,
+        capture_spec: str,
+        host: str,
+        compress_spec: str = "none",
+        fec_spec: str = "none",
+        tx_port: int = 5004,
+        rx_port: int = 0,
+        mtu: int = 1500,
+        frame_limit: Optional[int] = None,
+        capture_filter: str = "",
+        mode: str = "normal",
+        control_port: Optional[int] = None,
+        start_paused: bool = False,
+        bitrate: int = RATE_AUTO,
+        bitrate_fixed: bool = False,
+        ttl: int = 255,
+        force_ip_version: int = 0,
+        mcast_if=None,
+        device="cuda",
+    ):
+        self.device = get_device(device)
+        self.stream = pipeline_stream(self.device)
+        self.mode = VideoMode.from_str(mode)
+        self.capture_chain = FilterChain(capture_filter)
+        self.capture = initialize_video_capture(capture_spec, device=self.device)
+        self.root = Module("root")
+        # live-reconfigurable sender module (ref: the "sender" message
+        # target, rxtx/rtp_common.c:216-241 + msg_sender handling)
+        self.sender_module = Module("sender", self.root)
+        self.sender_module.msg_callback = self._on_sender_message
+        self.paused = threading.Event()
+        if start_paused:
+            self.paused.set()
+        self.compress = CompressDriver(compress_spec, self.sender_module, self.device, self.stream)
+        if bitrate > 0:
+            # a fixed -l rate also constrains the own-codec paths (the
+            # reference reaches rate-targeted video only through its lavc
+            # wrapper, src/video_compress/libavcodec.cpp:943-1003)
+            impl = self.compress.impl
+            if hasattr(impl, "set_target_bitrate"):
+                impl.set_target_bitrate(bitrate)
+        # RTCP always on like the reference (rtp_init starts RTCP on the
+        # odd port; RR feedback feeds stats + adaptive FEC)
+        self.session = RtpSession(addr=host, rx_port=rx_port, tx_port=tx_port,
+                                  mtu=mtu, ttl=ttl, rtcp=True,
+                                  force_ip_version=force_ip_version,
+                                  mcast_if=mcast_if)
+        self.tx = self._new_tx(fec_spec, mtu, bitrate, bitrate_fixed)
+        self.frame_limit = frame_limit
+        self.should_exit = threading.Event()
+        self.frames_sent = 0
+        # runtime control socket — live sessions always get one like the
+        # reference (ref: control_init, main.cpp:1288-1306)
+        self.control = None
+        if control_port is not None:
+            try:
+                self.control = ControlServer(self.root, control_port)
+                log.notice(f"control socket on 127.0.0.1:{self.control.port}")
+            except OSError as e:
+                log.warning(f"control socket unavailable: {e}")
+        self._bytes_since_report = 0
+        self._last_report = time.monotonic()
+        self._adaptive_pct = 0.0
+        self._applied_pct = 0.0
+
+    def _new_tx(self, fec_spec: str, mtu: int, bitrate: int, bitrate_fixed: bool) -> Tx:
+        return Tx(mtu=mtu, fec_spec=fec_spec, bitrate=bitrate, bitrate_fixed=bitrate_fixed,
+                  device=self.device)
+
+    def _swap_tx(self, fec_spec: str) -> None:
+        """Single-reference swap: the next frame uses the new Tx."""
+        self.tx = self._new_tx(fec_spec, self.tx.mtu, self.tx.bitrate, self.tx.bitrate_fixed)
+
+    def _maybe_adapt_fec(self) -> None:
+        """Loss-adaptive LDGM protection driven by RTCP RR feedback
+        (opt-in via ``--param fec-adaptive[=max_pct]``).  The reference only
+        *displays* RR loss (rtp.c:160-201); here the sender raises the LDGM
+        percentage toward 2x the worst receiver-reported loss and decays it
+        slowly when the path recovers, swapping Tx atomically like a
+        control-socket ``fec`` command."""
+        if not param_is_set("fec-adaptive"):
+            return
+        max_pct = float(get_commandline_param("fec-adaptive") or 50.0)
+        worst = 0.0
+        for rr in self.session.rtcp.remote_reports.values():
+            if rr.get("type") == "RR":
+                worst = max(worst, rr.get("fraction_lost", 0.0))
+        cur = self._adaptive_pct
+        target = min(worst * 100.0 * 2.0, max_pct)
+        if target > cur:
+            new = target  # raise immediately on observed loss
+        else:
+            new = max(target, cur * 0.9)  # decay ~10%/s when clean
+        if new < 1.0:
+            new = 0.0
+        self._adaptive_pct = new
+        applied = self._applied_pct
+        # reswap Tx only on meaningful change (>=2 points or on/off flip)
+        if abs(new - applied) < 2.0 and (new > 0.0) == (applied > 0.0):
+            return
+        self._applied_pct = new
+        spec = f"ldgm:{max(new, 1.0):.0f}%" if new >= 1.0 else "none"
+        self._swap_tx(spec)
+        log.notice(f"adaptive FEC -> {spec} "
+                   f"(worst receiver loss {worst * 100:.1f}%)")
+        if self.control is not None:
+            self.control.report_stats(f"fec_adapt {spec} loss {worst:.4f}")
+
+    def _on_sender_message(self, msg) -> Response:
+        """Runtime reconfig from the control socket / keyboard
+        (ref: fec change rtp_common.c:216-241; msg_sender receiver/port/
+        pause, src/video_rxtx/ultragrid_rtp.cpp message handling)."""
+        if isinstance(msg, MsgChangeFec):
+            spec = msg.fec.strip()
+            # strip an optional V: medium prefix (ref: main.cpp:824-839)
+            if spec[:2].upper() == "V:":
+                spec = spec[2:]
+            try:
+                if spec not in ("", "none") and not spec.startswith("mult:"):
+                    fec_from_spec(spec, 65536, self.tx.mtu)  # validate
+            except Exception as e:  # noqa: BLE001 - reported to the sender of the message
+                return Response(RESPONSE_BAD_REQUEST, f"bad fec {spec!r}: {e}")
+            self._swap_tx(spec)
+            log.notice(f"FEC changed to {spec or 'none'}")
+            return Response(RESPONSE_OK)
+        if isinstance(msg, MsgSender):
+            if msg.receiver is not None:
+                try:
+                    self.session.set_receiver(msg.receiver)
+                except (ValueError, OSError) as e:
+                    return Response(RESPONSE_BAD_REQUEST, str(e))
+                log.notice(f"receiver changed to {msg.receiver}")
+            if msg.port is not None:
+                addr = self.session._dest[0] if self.session._dest else None
+                if addr is None:
+                    return Response(RESPONSE_BAD_REQUEST, "no receiver set")
+                self.session.set_receiver(addr, msg.port)
+                log.notice(f"TX port changed to {msg.port}")
+            if msg.paused is not None:
+                if msg.paused:
+                    self.paused.set()
+                else:
+                    self.paused.clear()
+                log.notice("paused" if msg.paused else "playing")
+            return Response(RESPONSE_OK)
+        return Response(RESPONSE_BAD_REQUEST, "unsupported message")
+
+    def _capture_thread(self) -> None:
+        count = 0
+        fps_t0 = time.monotonic()
+        fps_n = 0
+        try:
+            with stream_context(self.stream):
+                while not self.should_exit.is_set():
+                    if self.frame_limit is not None and count >= self.frame_limit:
+                        break
+                    with profiler.zone("capture.grab"):
+                        frame, _audio = self.capture.grab()
+                    # stamp the capture instant (ref: main.cpp captures carry
+                    # a timestamp into the RTP TS via tv_to_rtp); transmit
+                    # maps this to the 90 kHz RTP clock, so a same-host
+                    # receiver can measure capture->display latency against
+                    # time.monotonic()
+                    if frame is not None and frame.timestamp < 0:
+                        frame.timestamp = time.monotonic()
+                    if frame is not None:
+                        with profiler.zone("capture.filter"):
+                            frame = self.capture_chain.apply(frame)
+                    if frame is None:
+                        continue
+                    if self.paused.is_set():
+                        continue  # drop while paused (ref: paused sender state)
+                    # periodic per-stage FPS line (ref: print_fps, main.cpp:307-332)
+                    fps_n += 1
+                    now = time.monotonic()
+                    if now - fps_t0 >= 5.0:
+                        log.notice(f"[capture] {fps_n} frames in {now - fps_t0:.2f} s "
+                                   f"({fps_n / (now - fps_t0):.2f} fps)")
+                        fps_t0, fps_n = now, 0
+                    if self.mode.x * self.mode.y > 1:
+                        frame = vf_split(frame, self.mode.x, self.mode.y)
+                    count += 1
+                    self.compress.enqueue(frame)
+        finally:
+            self.compress.enqueue(None)
+
+    def _report(self, sent_bytes: int) -> None:
+        """Periodic bandwidth and RTCP lines on the control socket (ref:
+        report_stats, transmit.c:625-648; RR consumption rtp.c:160-201)."""
+        self._bytes_since_report += sent_bytes
+        now = time.monotonic()
+        if now - self._last_report < 1.0:
+            return
+        self.control.report_stats(f"tx_send {self.session.ssrc:x} video {self._bytes_since_report}")
+        for ssrc, rr in self.session.rtcp.remote_reports.items():
+            if rr.get("type") != "RR":
+                continue
+            self.control.report_stats(
+                f"rtcp_rr {ssrc:x} lost {rr.get('lost', 0)} "
+                f"fraction {rr.get('fraction_lost', 0.0):.4f} "
+                f"jitter {rr.get('jitter', 0)}")
+            log.info(f"receiver {ssrc:x} reports {rr.get('lost', 0)} lost "
+                     f"({rr.get('fraction_lost', 0.0) * 100:.1f}%)")
+        self._maybe_adapt_fec()
+        self._last_report = now
+        self._bytes_since_report = 0
+
+    def run(self) -> int:
+        kb = KeyboardControl(self.root, on_exit=self.should_exit.set)
+        kb.start()  # no-op unless stdin is a tty
+        t = threading.Thread(target=self._capture_thread, name="capture", daemon=True)
+        t.start()
+        with stream_context(self.stream):
+            while True:
+                frame = self.compress.pop()
+                if frame is None:
+                    break
+                with profiler.zone("fec+tx.send"):
+                    before = self.session.bytes_sent
+                    self.tx.send_video(self.session, frame)
+                self.frames_sent += 1
+                if self.control is not None:
+                    self._report(self.session.bytes_sent - before)
+        self.should_exit.set()
+        # force-exit if a stuck device/capture thread wedges the shutdown
+        # (ref: main.cpp:1438 exit watchdog)
+        wd = arm_exit_watchdog()
+        if self.control is not None:
+            self.control.close()
+        self.session.close()
+        t.join(timeout=5)
+        self.capture.done()
+        wd.cancel()
+        return self.frames_sent
+
+
+def run_sender(args) -> int:
+    bitrate, bitrate_fixed = parse_bitrate(args.limit_bitrate)
+    sender = VideoSender(
+        capture_spec=args.capture,
+        host=args.host,
+        compress_spec=args.compress,
+        fec_spec=args.fec,
+        tx_port=int(str(args.ports).split(":")[0]),
+        mtu=args.mtu,
+        frame_limit=args.frames,
+        capture_filter=args.capture_filter,
+        mode=args.mode,
+        control_port=args.control_port,
+        start_paused=args.start_paused,
+        bitrate=bitrate,
+        bitrate_fixed=bitrate_fixed,
+        ttl=args.ttl if args.ttl >= 0 else 255,
+        force_ip_version=args.force_ip_version,
+        mcast_if=args.mcast_if,
+        device=args.device,
+    )
+    n = sender.run()
+    log.notice(f"sent {n} frames")
+    return 0

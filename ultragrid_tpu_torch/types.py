@@ -121,6 +121,10 @@ class CodecInfo:
         return self.subsampling == Subsampling.OPAQUE
 
 
+# Least common multiple of pixel-block sizes; the packetizer aligns split
+# points of uncompressed video to this many pixels (ref: src/video_codec.h:64).
+PIX_BLOCK_LCM = 24
+
 _C, _S, _f = Codec, Subsampling, to_fourcc
 
 CODEC_INFO: Dict[Codec, CodecInfo] = {
@@ -177,6 +181,25 @@ def get_bits_per_component(codec: Codec) -> int:
 
 def codec_is_a_rgb(codec: Codec) -> bool:
     return get_codec_info(codec).rgb
+
+
+def is_codec_opaque(codec: Codec) -> bool:
+    return get_codec_info(codec).opaque
+
+
+def codec_is_planar(codec: Codec) -> bool:
+    return Codec(codec) in _PLANES
+
+
+def get_fourcc(codec: Codec) -> int:
+    return get_codec_info(codec).fcc
+
+
+def get_codec_from_fourcc(fcc: int) -> Codec:
+    for c, info in CODEC_INFO.items():
+        if info.fcc == fcc and c != Codec.NONE:
+            return c
+    return Codec.NONE
 
 
 def get_codec_from_name(name: str) -> Codec:
