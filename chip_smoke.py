@@ -19,10 +19,15 @@ at 1080p and 4K, every filter name at 1080p, and ``run_local_pipeline``
 (4K60 testcard -> deinterlace:blend,mirror,border -> scale:1920x1080 ->
 display, 120 frames) with stitch and conference, each against the CPU plain
 path; K1's coefficient entry (the JPEG geometries without a mega matrix)
-against its plain version; then the live session through the port's entry
+against its plain version; the own H.264 encoders at 1080p on the card
+against the same modules on the CPU (byte-equal access units, every decoded
+frame equal to the encoder's reference picture, the all-tie case) with their
+timing rows; then the live session through the port's entry
 points: sender -> 127.0.0.1 UDP -> receiver at 1080p60, JPEG + LDGM with
 seeded packet loss (the receiver's peel on the card) and uncompressed + LDGM,
-``--protocol loopback`` with JPEG 4:4:4, JPEG rate control against its CPU
+``--protocol loopback`` with JPEG 4:4:4, the H.264 inter + LDGM session with
+seeded loss (every displayed frame equal to the sender's reference picture)
+and H.264 loopbacks, JPEG rate control against its CPU
 quality sequence, and a 4K timing row; and times kernels, steps, the receive step, the 4K batch in frames/s,
 4K latency, conversions, DXT, the postprocess functions and the loop's
 chain.  Every phase prints one JSON line; any failed
@@ -202,6 +207,28 @@ def k2_peel_work(par):
     once, the m raw rows written once, the member lists read once."""
     nbytes = 4 * (par.rows * par.psw + par.m * par.psw) + par.row_ptr.nbytes + par.cols.nbytes
     return nbytes, len(par.cols) * par.psw
+
+
+def k2_peel_case(sess, block, what: str):
+    """K2 without the staircase (the peel's row XORs over the full check
+    matrix) and with it (``LdgmSession.encode_device``) on one symbol block
+    on the card against their plain versions, bit for bit: (max abs error,
+    the case's row)."""
+    from ultragrid_tpu_torch.ops.fec import Gf2Parity, symbol_words
+
+    words = symbol_words(block)
+    par, _ = sess.peel_parity(words.shape[1], block.device)
+    got, want = par(words), par.plain(words)
+    err = max_abs_err([got], [want])
+    if not torch.equal(got, want):
+        raise RuntimeError(f"K2 without staircase, {what}: differs from its plain version")
+    data = block[: sess.k]
+    enc_got = sess.encode_device(data)
+    enc_want = Gf2Parity(sess.matrix, words.shape[1]).plain(symbol_words(data))
+    if not torch.equal(enc_got, enc_want.view(torch.uint8)[:, : block.shape[1]]):
+        raise RuntimeError(f"K2 with staircase (encode_device), {what}: differs from its plain version")
+    return err, {"case": what, "rows": par.rows, "m": par.m, "psw": par.psw, "members": len(par.cols),
+                 "bit_equal": True}
 
 
 def lose(buf, ps, nloss, seed):
@@ -618,12 +645,13 @@ def drop_data_packets(session, per_frame: int, seed: int, k: int, m: int):
 
 
 def live_run(dev, capture: str, compress: str, fec: str, frames: int, mtu: int = 1500, loss: int = 0,
-             keep_every: int = 0, profile_it: bool = False):
+             keep_every: int = 0, profile_it: bool = False, tap=None):
     """One session on 127.0.0.1 through the port's entry points: VideoSender
     and VideoReceiver on the card (``--param ldgm-device=device``), a dummy
     display.  The kernels' launch counts are set to 0 just before the
-    sender runs and read just after the receiver stops.  Returns the
-    session's numbers and the frames kept (every ``keep_every``-th shown)."""
+    sender runs and read just after the receiver stops.  ``tap(sender)``
+    runs before the sender does.  Returns the session's numbers and the
+    frames kept (every ``keep_every``-th shown, from the first)."""
     from ultragrid_tpu_torch.ops import fec as fec_ops
     from ultragrid_tpu_torch.ops import jpeg_cuda
     from ultragrid_tpu_torch.pipeline.receiver import VideoReceiver
@@ -643,7 +671,7 @@ def live_run(dev, capture: str, compress: str, fec: str, frames: int, mtu: int =
             shown.append(time.perf_counter())
             if not frame.data.is_cuda:
                 off_card[0] += 1
-            if keep_every and len(shown) % keep_every == 1:
+            if keep_every and (len(shown) - 1) % keep_every == 0:
                 kept.append(frame.data.clone())
         orig(frame, blocking)
 
@@ -656,6 +684,8 @@ def live_run(dev, capture: str, compress: str, fec: str, frames: int, mtu: int =
     if loss:
         k, m = (int(x) for x in fec.split(":")[1:3])
         dropped = drop_data_packets(sender.session, loss, 17, k, m)
+    if tap is not None:
+        tap(sender)
     torch.cuda.synchronize()
     for c in (jpeg_cuda.LAUNCHES, jpeg_cuda.COEFF_LAUNCHES, fec_ops.LAUNCHES):
         c.reset()
@@ -794,6 +824,7 @@ def phase_live_session(dev):
         raise RuntimeError(f"loopback jpeg:80:0:444: {n_lb} shown, launches {lb_launches}")
     out["loopback_jpeg_444"] = {"frames_shown": n_lb, "frames_per_s": n_lb / lb_s, "all_on_card": True,
                                 "launches": lb_launches}
+    out.update(h264_live_rows(dev))
     # jpeg rate control on the card against the CPU's quality sequence
     w_r, h_r = 640, 360
     frames_r = [torch.as_tensor(content(h_r, 2 * w_r, 60 + i)) for i in range(24)]
@@ -817,6 +848,329 @@ def phase_live_session(dev):
     # the 4K timing row
     out["jpeg_ldgm_4k"] = live_run(dev, LIVE_CAPTURE_4K, jpeg, FEC, LIVE_FRAMES)[0]
     out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---- slice 7: the H.264 codec (no hand kernel in the encoders: the
+# reference's device stages are XLA graphs; K2 runs in the session's peel) ----
+
+LIVE_H264 = "h264:mode=inter:accel=device:gop=30"
+# LDGM 256:26:5 recovers one lost packet only while the packet holds few of
+# the 256 data symbols.  The testcard's 1080p IDR is about 17.5 KB: 72-byte
+# symbols, 20 to a packet at the session's default MTU of 1500, where the
+# loss of any one of its packets is beyond the code and the GOP is lost
+# (ROADMAP F6, an open fault; the 40-frame row at 1500 asserts that reading,
+# so that a change shows).  MTU 600 is no deployment's value: it is where a
+# packet holds few enough symbols (7 of the IDR's) for every packet's loss
+# to be recoverable, and ``ldgm_packet_recovery`` asserts that for the
+# session's own frames before the session is taken as the H.264 row.
+LIVE_H264_MTU = 600
+LIVE_H264_MTU1500_FRAMES = 40
+
+
+def symbols_per_packet(ps: int, mtu: int) -> int:
+    """Whole LDGM symbols of ``ps`` bytes in one packet at ``mtu``
+    (transmit.py's get_video_pkt_len)."""
+    from ultragrid_tpu_torch.net import rtp_types as rt
+    from ultragrid_tpu_torch.net.transmit import IPV4_HDR_LEN, UDP_HDR_LEN
+
+    return max(1, (mtu - (IPV4_HDR_LEN + UDP_HDR_LEN + rt.RTP_HDR_LEN + rt.FEC_PAYLOAD_HDR_LEN)) // ps)
+
+
+def ldgm_packet_recovery(frame: np.ndarray, mtu: int):
+    """For one access unit under LDGM 256:26:5 at ``mtu``: (symbol bytes,
+    symbols a packet holds, data packets whose loss alone the host peel
+    recovers, data packets)."""
+    from ultragrid_tpu_torch.ops.fec import fec_from_spec
+
+    sess = fec_from_spec(FEC, frame.size, mtu)
+    buf, desc = sess.encode(frame)
+    ps = desc.symbol_size
+    per = symbols_per_packet(ps, mtu)
+    sym = buf.reshape(-1, ps)
+    ok = n = 0
+    for start in range(0, sess.k, per):
+        present = np.ones(sym.shape[0], bool)
+        present[start:start + per] = False
+        ok += sess.decode(np.where(present[:, None], sym, 0), present) is not None
+        n += 1
+    return {"symbol_bytes": ps, "symbols_per_packet": per, "packets_recoverable": ok, "data_packets": n}
+
+
+def h264_k2_peel(dev, aus, mtu: int):
+    """K2 at the H.264 session's container shapes: for its first IDR and its
+    median P frame, LDGM 256:26:5 with the symbols of one seeded data packet
+    at ``mtu`` lost; K2 with and without the staircase on that block against
+    its plain version, and the peel on the card giving the access unit
+    back."""
+    from ultragrid_tpu_torch.ops.fec import fec_from_spec
+
+    p_frames = sorted((a for i, a in enumerate(aus) if i % 30), key=len)
+    rng = np.random.default_rng(29)
+    err, cases = 0, []
+    for what, au in (("IDR", aus[0]), ("median P", p_frames[len(p_frames) // 2])):
+        sess = fec_from_spec(FEC, au.size, mtu)
+        buf, desc = sess.encode(au)
+        ps = desc.symbol_size
+        per = symbols_per_packet(ps, mtu)
+        start = per * int(rng.integers(0, -(-sess.k // per)))
+        present = np.ones(sess.k + sess.m, bool)
+        present[start:min(start + per, sess.k)] = False
+        sym = np.where(present[:, None], buf.reshape(-1, ps), 0).astype(np.uint8)
+        block = torch.as_tensor(sym).to(dev)
+        e, case = k2_peel_case(sess, block, f"h264 {what} {au.size} B, 256:26:5 ps={ps}, "
+                                            f"{int((~present).sum())} symbols of one packet at MTU {mtu} lost")
+        got = sess.decode_device(block, present)
+        if got is None or not np.array_equal(np.asarray(got).reshape(-1), au):
+            raise RuntimeError(f"h264 {what}: the peel on the card did not give the access unit back")
+        err = max(err, e)
+        cases.append({**case, "recovered_on_card": True})
+    return {"max_abs_err": err, "cases": cases}
+
+
+H264_QP = 26
+H264_FRAMES = 12
+H264_GOP = 6  # one IDR mid-run
+
+
+def h264_sequence(n: int, seed: int = 70):
+    """n 1080p UYVY frames of a seeded picture (two waves and sensor-like
+    noise, limited range) panned 2 samples right and 1 down a frame."""
+    rng = np.random.default_rng(seed)
+    hh, ww = H1080 + n, 2 * W1080 + 4 * n
+    yy, xx = np.mgrid[0:hh, 0:ww].astype(np.float32)
+    base = 120 + 50 * np.sin(xx * 0.011 + yy * 0.017) + 30 * np.sin(xx * 0.003 - yy * 0.02)
+    base = (base + rng.normal(0, 3, (hh, ww))).clip(16, 235).astype(np.uint8)
+    return [np.ascontiguousarray(base[i:i + H1080, 4 * i:4 * i + 2 * W1080]) for i in range(n)]
+
+
+def all_skip_au(frame_num: int, nmb: int) -> bytes:
+    """The P access unit whose every macroblock is P_Skip: the slice header
+    and one skip run."""
+    from ultragrid_tpu_torch.ops import h264 as h264_ops
+
+    bw = h264_ops.BitWriter()
+    h264_ops._p_slice_header(bw, 0, frame_num)
+    bw.ue(nmb)
+    bw.rbsp_trailing()
+    return h264_ops.nal(3, 1, bw.rbsp())
+
+
+def phase_h264(dev):
+    """The own H.264 encoders at 1920x1080 on the card against the same
+    modules on the CPU (byte-equal access units), every decoded frame
+    against the encoder's reference picture, the all-tie case, and the
+    timing rows: IDR and P frames per frame (launches, device and host ms,
+    idle share, the C assembly's share), H264Compress i16 and inter as a
+    user names them (on the card by default), and the CABAC transcode."""
+    from ultragrid_tpu_torch.modules.video_compress import H264Compress, SessionTranscoder
+    from ultragrid_tpu_torch.ops import h264_device as hdev
+    from ultragrid_tpu_torch.ops.h264_device import InterEncoderDevice, Intra16EncoderDevice
+    from ultragrid_tpu_torch.ops.h264_fast import FastStreamDecoder
+    from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame
+
+    t_phase = time.perf_counter()
+    out = {"phase": "h264", "geometry": f"{W1080}x{H1080} UYVY", "qp": H264_QP}
+    frames = h264_sequence(H264_FRAMES)
+    frames_d = [torch.as_tensor(f).to(dev) for f in frames]
+    nmb = ((W1080 + 15) // 16) * ((H1080 + 15) // 16)
+
+    def planes_equal(got, ref_planes):
+        return all(np.array_equal(g, r.cpu().numpy()[:g.shape[0], :g.shape[1]]) for g, r in zip(got, ref_planes))
+
+    # intra: the card against the CPU, and its decode
+    card = Intra16EncoderDevice(W1080, H1080, qp=H264_QP, device=dev)
+    idr = card.encode_uyvy(frames_d[0])
+    if idr != Intra16EncoderDevice(W1080, H1080, qp=H264_QP, device="cpu").encode_uyvy(frames[0]):
+        raise RuntimeError("h264 intra: the card's access unit differs from the CPU's")
+    y, _, _ = FastStreamDecoder().decode_au(idr)
+    if y.shape != (H1080, W1080):
+        raise RuntimeError(f"h264 intra: decoded {y.shape}")
+    out["intra"] = {"bytes": len(idr), "wwords": card.wwords, "equal_to_cpu": True}
+    # P frames: two configurations over the moving sequence, IDRs at 0 and 6
+    card_aus = {}
+    for label, kw in (("search8_half", {"search": 8}), ("search4_quarter", {"search": 4, "subpel": "quarter"})):
+        card = InterEncoderDevice(W1080, H1080, qp=H264_QP, gop=H264_GOP, device=dev, **kw)
+        cpu = InterEncoderDevice(W1080, H1080, qp=H264_QP, gop=H264_GOP, device="cpu", **kw)
+        dec = FastStreamDecoder()
+        sizes, aus_l = [], []
+        for i, (f, fd) in enumerate(zip(frames, frames_d)):
+            au = card.encode_uyvy(fd)
+            aus_l.append(au)
+            if au != cpu.encode_uyvy(f):
+                raise RuntimeError(f"h264 {label}: frame {i}'s access unit differs from the CPU's")
+            if not all(p.is_cuda for p in card.ref):
+                raise RuntimeError(f"h264 {label}: the reference picture left the card")
+            if not planes_equal(dec.decode_au(au), card.ref):
+                raise RuntimeError(f"h264 {label}: frame {i} decodes to another picture than the encoder's")
+            sizes.append(len(au))
+        card_aus[label] = aus_l
+        out[label] = {"frames": len(sizes), "gop": H264_GOP, "au_bytes": sizes, "wwords": card.wwords,
+                      "equal_to_cpu": True, "decoded_equal_to_ref": True}
+    # every candidate ties on flat content: zero vectors, all P_Skip, on
+    # the card as on the CPU (both start from the flat picture mid-GOP)
+    flat = np.full((H1080, 2 * W1080), 128, np.uint8)
+    flat[:, 1::2] = 90
+    ties = []
+    for where in (dev, "cpu"):
+        e = InterEncoderDevice(W1080, H1080, qp=H264_QP, search=8, device=where)
+        e.ref = hdev.uyvy_to_planes(torch.as_tensor(flat).to(where), W1080, H1080)
+        e._frame_idx = e._frame_num = 1
+        ties.append([e.encode_uyvy(torch.as_tensor(flat).to(where)) for _ in range(2)])
+    if ties[0] != ties[1] or ties[0] != [all_skip_au(1, nmb), all_skip_au(2, nmb)]:
+        raise RuntimeError("h264: flat content did not give all-skip P frames on the card")
+    out["ties"] = {"frames": 2, "all_skip": True, "au_bytes": [len(a) for a in ties[0]]}
+
+    # ---- timing rows ----
+    rows = []
+    planes = hdev.uyvy_to_planes(frames_d[1], W1080, H1080)
+    intra = Intra16EncoderDevice(W1080, H1080, qp=H264_QP, device=dev)
+    intra.encode_uyvy(frames_d[1])  # settles the window width
+    graph = intra._fn()
+    rows.append(eager_row("h264 IDR graph 1080p qp26 (device part of Intra16EncoderDevice)",
+                          lambda: graph(*planes), runs=10))
+    words, bits, _ = graph(*planes)
+    wn = np.concatenate([hdev._bit_window(intra._hdr_val, intra._hdr_bits, words.shape[1]),
+                         hdev._words_to_host(words)])
+    bn = np.concatenate([[intra._hdr_bits], bits.cpu().numpy()])
+    total = host_ms(lambda: intra.encode_uyvy(frames_d[1]), runs=10)
+    asm = host_ms(lambda: hdev._assemble(wn, bn), runs=10)
+    rows[-1].update(frame_ms=total, assembly_ms=asm, assembly_share=asm / total, wwords=intra.wwords)
+    for label, kw in (("search 8 half-pel", {"search": 8}), ("search 4 quarter-pel", {"search": 4, "subpel": "quarter"})):
+        enc = InterEncoderDevice(W1080, H1080, qp=H264_QP, gop=1000, device=dev, **kw)
+        enc.encode_uyvy(frames_d[0])
+        idr_ms = host_ms(lambda: enc._encode_idr(*hdev.uyvy_to_planes(frames_d[0], W1080, H1080)), runs=5)
+        enc.encode_uyvy(frames_d[1])  # settles the window width
+        ref0 = enc.ref
+        cur = hdev.uyvy_to_planes(frames_d[2], W1080, H1080)
+        graph_p = enc._fn()
+        rows.append(eager_row(f"h264 P graph 1080p qp26 {label} (device part of InterEncoderDevice)",
+                              lambda: graph_p(*cur, *ref0), runs=10))
+        words, bits = graph_p(*cur, *ref0)[:2]
+        wn_p, bn_p = hdev._words_to_host(words), bits.cpu().numpy()
+
+        def p_frame():
+            enc._encode_p(*cur)
+            enc.ref = ref0
+
+        total = host_ms(p_frame, runs=10)
+        asm = host_ms(lambda: enc._assemble(wn_p, bn_p), runs=10)
+        rows[-1].update(frame_ms=total, assembly_ms=asm, assembly_share=asm / total, wwords=enc.wwords,
+                        idr_frame_ms=idr_ms, p_bytes=len(enc._assemble(wn_p, bn_p)))
+    # the compress modules as a user names them (-c h264, -c h264:mode=inter:
+    # gop=6): the device encoders on the card by default, the 12-frame
+    # sequence per frame, the access units those of the encoders above
+    desc = VideoDesc(W1080, H1080, Codec.UYVY, 60.0)
+    for spec, cls, want in (("", Intra16EncoderDevice, [idr]),
+                            (f"mode=inter:gop={H264_GOP}", InterEncoderDevice, card_aus["search8_half"])):
+        comp = H264Compress(spec, device=dev)
+        per, got_aus = [], []
+        for fd in frames_d:
+            t0 = time.perf_counter()
+            got = comp.compress(VideoFrame(desc, [fd]))
+            per.append((time.perf_counter() - t0) * 1e3)
+            if got is None or got.desc.color_spec != Codec.H264:
+                raise RuntimeError(f"H264Compress {spec!r}: no access unit")
+            got_aus.append(got.data.tobytes())
+        if not isinstance(comp._enc, cls) or comp.accel != "device":
+            raise RuntimeError(f"-c h264:{spec}: built {type(comp._enc).__name__}, not the card's {cls.__name__}")
+        if got_aus[:len(want)] != list(want):
+            raise RuntimeError(f"-c h264:{spec}: its access units differ from {cls.__name__}'s on the card")
+        comp.done()
+        rows.append({"what": f"H264Compress {spec!r} (accel: {comp.accel}) 1080p, {len(per)} frames",
+                     "ms_per_frame": per, "mean_ms": sum(per) / len(per), "equal_to_encoder": len(want)})
+    # the CABAC transcode of an IDR and a P access unit
+    cabac = SessionTranscoder()
+    try:
+        enc = InterEncoderDevice(W1080, H1080, qp=H264_QP, gop=1000, device=dev)
+        aus = [enc.encode_uyvy(fd) for fd in frames_d[:2]]
+        cabac.transcode_au(aus[0])
+        rows.append({"what": "entropy=cabac transcode 1080p (host C)", "idr_bytes": len(aus[0]),
+                     "idr_ms": host_ms(lambda: SessionTranscoder().transcode_au(aus[0]), runs=5),
+                     "p_bytes": len(aus[1]), "p_ms": host_ms(lambda: cabac.transcode_au(aus[1]), runs=10)})
+    finally:
+        cabac.close()
+    out["timing"] = {"card": nvidia_smi_line(), "rows": rows}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def h264_live_rows(dev):
+    """The H.264 live session: 1080p60 testcard, h264 inter on the card, LDGM
+    256:26:5 at MTU 600 with one seeded data packet dropped per frame, the
+    peel on the card; every displayed frame's luma equal to the sender's
+    reference picture of that frame; K2 at the session's IDR and P container
+    shapes against its plain version.  The same at MTU 1500 for 40 frames,
+    held to ROADMAP F6's reading: nothing shown, every IDR lost.  Then
+    --protocol loopback with h264 i16 (30 frames) and inter with CABAC (10
+    frames)."""
+    from ultragrid_tpu_torch.ops import fec as fec_ops
+    from ultragrid_tpu_torch.pipeline.loopback import LoopbackRxTx
+
+    recon, aus = [], []
+
+    def tap(sender):
+        impl = sender.compress.impl
+        compress = impl.compress
+
+        def compress_and_keep(frame):
+            got = compress(frame)
+            recon.append(impl._enc.ref[0][:H1080, :W1080].clone())
+            aus.append(np.asarray(got.data))
+            return got
+
+        impl.compress = compress_and_keep
+
+    run, kept, _ = live_run(dev, LIVE_CAPTURE, LIVE_H264, FEC, LIVE_FRAMES, mtu=LIVE_H264_MTU, loss=LIVE_LOSS,
+                            keep_every=1, tap=tap)
+    if run["frames_sent"] != LIVE_FRAMES or run["frames_displayed"] != LIVE_FRAMES or run["frames_off_card"]:
+        raise RuntimeError(f"live session 1080p h264: {run}")
+    if run["launches"]["gf2_parity"] < 1 or run["packets_dropped"] < 1 or run["frames_missing_data"]:
+        raise RuntimeError(f"live session 1080p h264: the peel did not recover every frame: {run}")
+    same = sum(torch.equal(f[:, 1::2], r) for f, r in zip(kept, recon))
+    if len(recon) != LIVE_FRAMES or same != LIVE_FRAMES:
+        raise RuntimeError(f"live session 1080p h264: {same} of {len(recon)} displayed frames equal the sender's")
+    sizes = [a.size for a in aus]
+    p_aus = sorted((a for i, a in enumerate(aus) if i % 30), key=len)
+    recovery = {f"{what} at MTU {mtu}": ldgm_packet_recovery(au, mtu)
+                for what, au in (("IDR", aus[0]), ("median P", p_aus[len(p_aus) // 2]))
+                for mtu in (1500, LIVE_H264_MTU)}
+    for what in ("IDR", "median P"):
+        r = recovery[f"{what} at MTU {LIVE_H264_MTU}"]
+        if r["packets_recoverable"] != r["data_packets"]:
+            raise RuntimeError(f"h264 at MTU {LIVE_H264_MTU}: not every lost packet of the {what} is recoverable: {r}")
+    if recovery["IDR at MTU 1500"]["packets_recoverable"]:
+        raise RuntimeError(f"h264 at MTU 1500: ROADMAP F6 reads no lost IDR packet recoverable; now "
+                           f"{recovery['IDR at MTU 1500']}: update F6 and this check")
+    run.update(displayed_frames_checked=len(kept), luma_equal_to_sender_ref=same,
+               k2_launches_per_frame=run["launches"]["gf2_parity"] / LIVE_FRAMES,
+               au_bytes_idr=sizes[::30], au_bytes_p_min_median_max=[p_aus[0].size, p_aus[len(p_aus) // 2].size,
+                                                                   p_aus[-1].size],
+               ldgm_packet_recovery=recovery)
+    k2_h264 = h264_k2_peel(dev, aus, LIVE_H264_MTU)
+    out = {"h264_inter_ldgm_1080p": run, "h264_k2_peel": k2_h264}
+    del kept, recon, aus
+    # ROADMAP F6: at the default MTU every IDR is lost, so nothing is shown
+    run1500 = live_run(dev, LIVE_CAPTURE, LIVE_H264, FEC, LIVE_H264_MTU1500_FRAMES, loss=LIVE_LOSS)[0]
+    if run1500["frames_sent"] != LIVE_H264_MTU1500_FRAMES or run1500["frames_displayed"]:
+        raise RuntimeError(f"live session 1080p h264 at MTU 1500: ROADMAP F6 reads 0 shown (every IDR lost); "
+                           f"now {run1500}: update F6 and this check")
+    out["h264_inter_ldgm_1080p_mtu1500"] = run1500
+    for spec, n in (("h264:accel=device", 30), ("h264:mode=inter:accel=device:entropy=cabac", 10)):
+        shown = []
+        lb = LoopbackRxTx(LIVE_CAPTURE, "dummy", compress_spec=spec, frame_limit=n, device=dev)
+        orig = lb.display.put_frame
+        lb.display.put_frame = lambda f, blocking=True, orig=orig: (
+            shown.append(f is None or f.data.is_cuda), orig(f, blocking))
+        torch.cuda.synchronize()
+        fec_ops.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        got = lb.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if got != n or not all(shown):
+            raise RuntimeError(f"loopback {spec}: {got} of {n} shown, all on the card: {all(shown)}")
+        out[f"loopback_{spec}"] = {"frames_shown": got, "frames_per_s": got / secs, "all_on_card": True}
     return out
 
 
@@ -864,7 +1218,7 @@ def main() -> int:
     from ultragrid_tpu_torch.ops import fec as fec_ops
     from ultragrid_tpu_torch.ops import jpeg_cuda
     from ultragrid_tpu_torch.modules.video_decompress import JpegDecompress
-    from ultragrid_tpu_torch.ops.fec import _LDGM_SUGGESTED, Gf2Parity, LdgmSession, symbol_words
+    from ultragrid_tpu_torch.ops.fec import _LDGM_SUGGESTED, LdgmSession, symbol_words
     from ultragrid_tpu_torch.ops.jpeg import (JpegDecoder, JpegEncoder, entropy_decode_422_packed,
                                               packed_coefficients)
     from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame, vc_get_linesize
@@ -1072,19 +1426,9 @@ def main() -> int:
 
     def check_k2(sess, block, what):
         nonlocal k2_peel_err
-        words = symbol_words(block)
-        par, _ = sess.peel_parity(words.shape[1], dev)
-        got, want = par(words), par.plain(words)
-        k2_peel_err = max(k2_peel_err, max_abs_err([got], [want]))
-        if not torch.equal(got, want):
-            raise RuntimeError(f"K2 without staircase, {what}: differs from its plain version")
-        data = block[: sess.k]
-        enc_got = sess.encode_device(data)
-        enc_want = Gf2Parity(sess.matrix, words.shape[1]).plain(symbol_words(data))
-        if not torch.equal(enc_got, enc_want.view(torch.uint8)[:, : block.shape[1]]):
-            raise RuntimeError(f"K2 with staircase (encode_device), {what}: differs from its plain version")
-        peel_cases.append({"case": what, "rows": par.rows, "m": par.m, "psw": par.psw,
-                           "members": len(par.cols), "bit_equal": True})
+        err, case = k2_peel_case(sess, block, what)
+        k2_peel_err = max(k2_peel_err, err)
+        peel_cases.append(case)
 
     sess256 = LdgmSession(256, 26, 5)
     for label in ("1080p", "8K"):
@@ -1329,6 +1673,7 @@ def main() -> int:
     emit(phase_postprocess(dev))
     emit(phase_filters(dev))
     emit(phase_local_loop(dev))
+    emit(phase_h264(dev))
     live = phase_live_session(dev)
     emit(live)
 
@@ -1509,7 +1854,10 @@ def main() -> int:
          "tolerance": "bit-equal (integer symbols and pack)"},
         {"name": "gf2_parity", "route": "cuda", "source": "ultragrid_tpu_torch/csrc/gf2_parity.cu",
          "replaces": "ultragrid_tpu/ops/fec.py:141", "launches": live_l["gf2_parity"],
-         "launches_on": "live session 1080p jpeg + LDGM with loss (the receiver's peel)",
+         "launches_on": "live session 1080p jpeg + LDGM with loss (the receiver's peel); "
+                        "launches_h264_live: the 1080p h264 inter + LDGM session with loss",
+         "launches_h264_live": live["h264_inter_ldgm_1080p"]["launches"]["gf2_parity"],
+         "peel_h264_max_abs_err": live["h264_k2_peel"]["max_abs_err"],
          "launches_sender_step": launches["gf2_parity"],
          "max_abs_err": k2_err, **{key: k2_t["1080p"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "device_ms": k2_t["1080p"]["device_ms"], "library_ms": None, "library": one_call,

@@ -1,6 +1,7 @@
 """Kernels K1 and K2 on the card against their plain PyTorch twins, the
 receive path, the batched sender, the pixel formats, DXT, postprocess, the
-filters, the local loop and the stitcher on the card against the CPU.
+filters, the local loop, the stitcher and the H.264 device encoders on the
+card against the CPU.
 
 Needs a CUDA card and nvcc; skips without a card.  On the card's machine
 (which has no jax, so the JAX conftest must stay out):
@@ -15,7 +16,9 @@ float32 product on the card is ``torch.matmul``: at most 0.1% of the output
 bytes may differ from the CPU's chain, each by at most 1; and DXT, at most
 0.1% of the blocks (the port fixes one order and one rounding per fused
 multiply-add on both devices, so 0 is expected).  Postprocess, filters and
-the loop: byte-equal (the same float32 roundings on both devices).
+the loop: byte-equal (the same float32 roundings on both devices); H.264:
+byte-equal access units (integer code, and the Exp-Golomb bit length's
+float step is fixed up to the exact integer).
 """
 
 import numpy as np
@@ -506,3 +509,60 @@ def test_live_session_1080p_on_card(cuda, compress, fec):
         d = (g.cpu().long() - want.long()).abs()
         whole += int(d.max()) <= 1 and int((d != 0).sum()) <= 0.001 * d.numel()
     assert whole >= max(1, len(shown) - recv.rx_state.frames_missing_data)
+
+
+# ---- the H.264 device encoders at 1080p: the card against the CPU ----
+
+def _h264_frames(n):
+    """1080p UYVY frames of a seeded picture panned 2 samples right and 1
+    down a frame: chip_smoke.py's sequence."""
+    from chip_smoke import h264_sequence
+
+    return h264_sequence(n)
+
+
+def test_h264_intra_1080p_on_card_equals_cpu(cuda):
+    from ultragrid_tpu_torch.ops.h264_device import Intra16EncoderDevice
+
+    f = _h264_frames(1)[0]
+    for qp in (20, 34):
+        card = Intra16EncoderDevice(1920, 1080, qp=qp, device=cuda).encode_uyvy(torch.as_tensor(f).to(cuda))
+        assert card == Intra16EncoderDevice(1920, 1080, qp=qp, device="cpu").encode_uyvy(f)
+
+
+@pytest.mark.parametrize("kw", [{"search": 8}, {"search": 4, "subpel": "quarter"}], ids=["half-s8", "quarter-s4"])
+def test_h264_p_1080p_on_card_equals_cpu_and_decodes(cuda, kw):
+    """I P P I: byte-equal access units, the reference picture stays on the
+    card, and the C decoder reads every frame back to it."""
+    from ultragrid_tpu_torch.ops.h264_device import InterEncoderDevice
+    from ultragrid_tpu_torch.ops.h264_fast import FastStreamDecoder
+
+    card = InterEncoderDevice(1920, 1080, qp=26, gop=3, device=cuda, **kw)
+    cpu = InterEncoderDevice(1920, 1080, qp=26, gop=3, device="cpu", **kw)
+    dec = FastStreamDecoder()
+    for i, f in enumerate(_h264_frames(4)):
+        au = card.encode_uyvy(torch.as_tensor(f).to(cuda))
+        assert au == cpu.encode_uyvy(f), f"frame {i}"
+        assert all(p.is_cuda for p in card.ref)
+        for got, ref in zip(dec.decode_au(au), card.ref):
+            assert np.array_equal(got, ref.cpu().numpy()[:got.shape[0], :got.shape[1]]), f"frame {i}"
+
+
+def test_h264_p_ties_on_card_give_zero_vectors(cuda):
+    """Flat content: every candidate of every search stage ties, the first
+    (the zero vector) wins on the card as in the reference, and every
+    macroblock is P_Skip."""
+    from ultragrid_tpu_torch.ops import h264
+    from ultragrid_tpu_torch.ops.h264_device import InterEncoderDevice, uyvy_to_planes
+
+    flat = torch.full((1080, 3840), 128, dtype=torch.uint8, device=cuda)
+    flat[:, 1::2] = 90
+    enc = InterEncoderDevice(1920, 1080, qp=26, search=8, device=cuda)
+    enc.ref = uyvy_to_planes(flat, 1920, 1080)
+    enc._frame_idx = enc._frame_num = 1
+    for frame_num in (1, 2):
+        bw = h264.BitWriter()
+        h264._p_slice_header(bw, 0, frame_num)
+        bw.ue(120 * 68)
+        bw.rbsp_trailing()
+        assert enc.encode_uyvy(flat) == h264.nal(3, 1, bw.rbsp())

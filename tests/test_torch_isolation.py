@@ -2,7 +2,7 @@
 
 A subprocess blocks ``jax`` and ``ultragrid_tpu`` in ``sys.modules`` (so any
 import of either, direct or indirect, fails) and drives the port with its own
-types, down to a live session over 127.0.0.1 on the CPU.  A source scan
+types, down to a live session over 127.0.0.1 and the H.264 codec on the CPU.  A source scan
 rejects any ``import`` of either in the port,
 ``chip_smoke.py``, ``chip_profile.py`` and ``chip_phases.py``.
 """
@@ -39,6 +39,10 @@ from ultragrid_tpu_torch.modules import extra_displays, filters, registry, stitc
 from ultragrid_tpu_torch.modules.video_capture import TestcardCapture, initialize_video_capture
 from ultragrid_tpu_torch.pipeline.loop import run_local_pipeline
 from ultragrid_tpu_torch.utils import capabilities, log, pattern, tiling
+from ultragrid_tpu_torch.ops import (h264, h264_8x8, h264_bslice, h264_cabac, h264_cabac_tables, h264_deblock,
+                                     h264_dec, h264_device, h264_fast, h264_transcode)
+from ultragrid_tpu_torch.modules.video_compress import H264Compress, SessionTranscoder
+from ultragrid_tpu_torch.modules.video_decompress import OwnH264Decompress
 
 assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
 if not torch.cuda.is_available():
@@ -67,7 +71,10 @@ if not torch.cuda.is_available():
                  lambda: BatchedJpegLdgmPipeline(desc, 2),
                  lambda: JpegBatchEncoder(64, 32, 2).encode(np.stack([frame, frame])),
                  lambda: TestcardCapture("s=64x32"), lambda: initialize_video_capture("testcard:s=64x32"),
-                 lambda: run_local_pipeline("testcard:s=64x32:f=1000", "dummy", 1)):
+                 lambda: run_local_pipeline("testcard:s=64x32:f=1000", "dummy", 1),
+                 lambda: h264_device.Intra16EncoderDevice(64, 32), lambda: h264_device.InterEncoderDevice(64, 32),
+                 lambda: H264Compress("accel=device").compress(VideoFrame(desc, [frame])),
+                 lambda: OwnH264Decompress()):
         try:
             make()
         except RuntimeError:
@@ -161,6 +168,20 @@ sender.VideoSender("testcard:s=64x32:f=60:c=UYVY:still=1", "127.0.0.1", compress
 t.join(timeout=20)
 assert rx.frames_displayed >= 2 and rx.rx_state.fec_jobs >= 2, (rx.frames_displayed, rx.rx_state.fec_jobs)
 assert jpeg_cuda.LAUNCHES.count == 0 and jpeg_cuda.COEFF_LAUNCHES.count == 0 and fec.LAUNCHES.count == 0
+# the H.264 codec on the CPU: the device encoders, the compress module with
+# CABAC, the own decoder, and a loopback of the inter codec
+enc = h264_device.InterEncoderDevice(64, 32, gop=2, device="cpu")
+dec = OwnH264Decompress(device="cpu")
+for _ in range(3):
+    au = enc.encode_uyvy(frame)
+    shown = dec.decompress(VideoFrame(desc.with_(color_spec=Codec.H264), [np.frombuffer(au, np.uint8)]), Codec.UYVY)
+    assert torch.equal(shown.data[:, 1::2], enc.ref[0][:32, :64])
+cabac = H264Compress("mode=inter:accel=device:entropy=cabac", device="cpu")
+assert cabac.compress(VideoFrame(desc, [frame])).desc.color_spec == Codec.H264
+cabac.done()
+assert h264_device.Intra16EncoderDevice(64, 32, device="cpu").encode_uyvy(frame)[:4] == b"\x00\x00\x00\x01"
+assert cli.main(["-t", "testcard:s=64x32:f=1000:c=UYVY", "-d", "dummy", "-x", "loopback", "-c",
+                 "h264:mode=inter:accel=device", "--frames", "2", "--device", "cpu"]) == 0
 loaded = [m for m, mod in sys.modules.items()
           if m.split(".")[0] in ("jax", "ultragrid_tpu") and mod is not None]
 assert not loaded, loaded

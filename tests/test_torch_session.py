@@ -259,16 +259,19 @@ def test_compress_driver_runtime_swap_equals_reference():
 
 
 def test_compress_init_refuses_unknown_names():
-    with pytest.raises(ValueError, match="unknown compression 'h264'"):
-        compress_init("h264:qp=26", device="cpu")
+    with pytest.raises(ValueError, match="unknown compression 'jpegxs'"):
+        compress_init("jpegxs:bpp=3", device="cpu")
     assert isinstance(compress_init("GPUJPEG:70", device="cpu"), JpegCompress)
+    assert type(compress_init("h264:qp=26", device="cpu")).__name__ == "H264Compress"
 
 
 def test_decompress_init_selects_and_refuses_by_name():
     dec, out = decompress_init(Codec.JPEG, [Codec.RGB, Codec.UYVY], device="cpu")
     assert isinstance(dec, JpegDecompress) and out == Codec.RGB
     assert decompress_init(Codec.DXT1, [Codec.UYVY], device="cpu") == (None, None)
-    for codec, name in ((Codec.H264, "h264"), (Codec.JPEG_XS, "jpegxs"), (Codec.CFHD, "cineform"),
+    dec, out = decompress_init(Codec.H264, [Codec.UYVY], device="cpu")
+    assert type(dec).__name__ == "OwnH264Decompress" and out == Codec.UYVY
+    for codec, name in ((Codec.JPEG_XS, "jpegxs"), (Codec.CFHD, "cineform"),
                         (Codec.APV, "openapv"), (Codec.J2KR, "cmpto_j2k"), (Codec.VP9, "libavcodec")):
         with pytest.raises(NotImplementedError, match=name):
             decompress_init(codec, [Codec.UYVY], device="cpu")

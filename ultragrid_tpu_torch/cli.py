@@ -5,7 +5,7 @@ port holds (src/main.cpp:690-740):
 
   -t DEVICE[:cfg]    capture device (testcard, testcard2, noise)
   -d DISPLAY[:cfg]   display (dummy, null, dump, file, conference, ...)
-  -c COMPRESS[:opts] video compression (none, uyvy, dxt, jpeg[:rate=])
+  -c COMPRESS[:opts] video compression (none, uyvy, dxt, jpeg[:rate=], h264[:opts])
   -f FEC             forward error correction (none|mult:N|ldgm:...|rs:k:n)
   -x PROTOCOL        ultragrid_rtp (default) or loopback
   --device DEV       where frames live and kernels run: cuda (default) or cpu
@@ -65,7 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-t", "--capture", default=None, help="capture device spec")
     p.add_argument("-d", "--display", default=None, help="display spec")
     p.add_argument("-c", "--compress", default="none",
-                   help="video compression: none|uyvy|dxt|jpeg[:q][:ri][:sub][:rate=<bps>]")
+                   help="video compression: none|uyvy|dxt|jpeg[:q][:ri][:sub][:rate=<bps>]|"
+                        "h264[:qp=N][:mode=i16|i4|pcm|inter][:gop=N][:search=N][:accel=host|device]"
+                        "[:entropy=cavlc|cabac][:subpel=half|quarter][:rate=<bps>] (h264:help lists them)")
     p.add_argument("-f", "--fec", action="append", default=None,
                    help="FEC: [V:]{none|mult:N|ldgm:k:m:c|ldgm:P%%|rs:k:n} "
                         "(A: is audio, not ported; ref: main.cpp:824-839)")
@@ -149,6 +151,10 @@ def refusal(args) -> str:
     for spec in args.fec or []:
         if len(spec) > 2 and spec[1] == ":" and spec[0].upper() == "A":
             return "not in the port yet: -f A:... needs the audio modules (ultragrid_tpu/audio/)"
+    for kv in args.param:
+        key, _, val = kv.partition("=")
+        if key == "h264-decoder" and val == "lavc":
+            return "not in the port yet: --param h264-decoder=lavc needs libavcodec (ultragrid_tpu/modules/lavc.py)"
     if args.protocol in _PROTOCOLS_NOT_PORTED:
         return f"not in the port yet: --protocol {args.protocol} needs {_PROTOCOLS_NOT_PORTED[args.protocol]}"
     if args.protocol not in ("ultragrid_rtp", "loopback"):

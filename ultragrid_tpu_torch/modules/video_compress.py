@@ -1,9 +1,10 @@
 """Video compression modules of the port, and the compress driver.
 
-Counterparts of ``NoneCompress``, ``UyvyCompress``, ``DxtCompress`` and
-``JpegCompress`` in ``ultragrid_tpu/modules/video_compress.py`` (reference
-lines 49-196), registered in the port's registry under the reference's names
-(reference lines 568-580), and of ``compress_init`` and ``CompressDriver``
+Counterparts of ``NoneCompress``, ``UyvyCompress``, ``DxtCompress``,
+``JpegCompress`` and ``H264Compress`` in
+``ultragrid_tpu/modules/video_compress.py`` (reference lines 49-379),
+registered in the port's registry under the reference's names (reference
+lines 568-580), and of ``compress_init`` and ``CompressDriver``
 (reference lines 583-679).  Each module runs on ``device``, the card unless
 the caller names another: an array frame is copied there, a tensor frame
 must already be there.
@@ -16,6 +17,7 @@ import threading
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ultragrid_tpu_torch.device import get_device, on_device, stream_context
@@ -29,12 +31,16 @@ from ultragrid_tpu_torch.modules.messaging import (
 )
 from ultragrid_tpu_torch.modules.registry import LibraryClass, list_modules, load_library, register_module
 from ultragrid_tpu_torch.ops import dxt as dxt_ops
+from ultragrid_tpu_torch.ops import h264 as h264_ops
 from ultragrid_tpu_torch.ops import pixfmt
+from ultragrid_tpu_torch.ops.h264_dec import IntraDecoder, UnsupportedStream
+from ultragrid_tpu_torch.ops.h264_device import InterEncoderDevice, Intra16EncoderDevice
+from ultragrid_tpu_torch.ops.h264_transcode import Transcoder, _handle
 from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
 from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame
 from ultragrid_tpu_torch.utils import profiler
 from ultragrid_tpu_torch.utils.log import Logger
-from ultragrid_tpu_torch.utils.ratectl import jpeg_controller, parse_rate
+from ultragrid_tpu_torch.utils.ratectl import GopRateController, h264_intra_controller, jpeg_controller, parse_rate
 
 log = Logger("compress")
 
@@ -167,12 +173,203 @@ class JpegCompress(VideoCompress):
         self._encoders.clear()
 
 
+class SessionTranscoder(Transcoder):
+    """The CABAC transcoder on a C handle of its own.  The copied module's
+    handle (``ops/h264_transcode._handle``) is one per process and not
+    reentrant (ROADMAP F2, ref ``h264_transcode.py:40``); each
+    :class:`H264Compress` owns one of these instead and destroys its handle
+    in :meth:`close`."""
+
+    def __init__(self) -> None:
+        self._lh = None
+        lh = _handle.__wrapped__()  # a fresh handle, not the module's shared one
+        if lh is None:
+            raise UnsupportedStream("native transcoder init failed")
+        self._lh = lh
+        self._sps = None
+        self._pps = None
+        self._dec = IntraDecoder()
+
+    def close(self) -> None:
+        if self._lh is not None:
+            lib, h = self._lh
+            lib.h264fast_destroy(h)
+            self._lh = None
+
+    def __del__(self):  # a module dropped without done(), as FastStreamDecoder's
+        self.close()
+
+
+class H264Compress(VideoCompress):
+    """The own H.264 encoder (ref: ``H264Compress``, reference lines 201-379;
+    no FFmpeg).
+
+    ``h264[:qp=<0-51>][:mode=i16|i4|pcm|inter][:gop=N][:search=N]
+    [:accel=host|device][:deblock=1][:entropy=cavlc|cabac]
+    [:subpel=half|quarter][:rate=<bps>][:help]`` -- Annex-B access units
+    that any AVC decoder reads.  ``mode=pcm`` is lossless I_PCM;
+    ``mode=inter`` runs the IDR + P GOP encoder.  The i16 and inter modes
+    run the encoders of ``ops/h264_device.py`` on the module's device unless
+    ``accel=host`` (or ``accel=scalar`` for inter) asks for the copies in
+    ``ops/h264.py``; ``mode=i4``, ``mode=pcm`` and the in-loop filter signal
+    of ``deblock=1`` have no device encoder and run there.  ``entropy=cabac``
+    re-encodes each access unit's entropy layer with CABAC on the host
+    (``native/h264_entropy.c``), on a handle owned by this module.
+    """
+
+    def __init__(self, cfg: str = "", device="cuda"):
+        super().__init__(cfg, device)
+        self.qp = 26
+        self.mode = "i16"
+        self.accel = None  # the module's device where the mode has an encoder there
+        self.gop = 30
+        self.search = 8
+        self.deblock = False
+        self.entropy = "cavlc"
+        self.subpel = "half"
+        self._rate_bps = 0
+        for tok in [t for t in cfg.split(":") if t]:
+            key, _, val = tok.partition("=")
+            if key == "qp":
+                self.qp = max(0, min(51, int(val)))
+            elif key == "mode":
+                self.mode = val
+            elif key == "gop":
+                self.gop = max(1, int(val))
+            elif key == "search":
+                self.search = max(0, int(val))
+            elif key == "accel":
+                self.accel = val  # host | device
+            elif key == "deblock":
+                # signal the in-loop filter (idc=0): intra modes only --
+                # P references must match decoder-side filtered pictures
+                self.deblock = val not in ("0", "off", "")
+            elif key == "entropy":
+                if val not in ("cavlc", "cabac"):
+                    log.error(f"h264: unknown entropy {val!r}")
+                else:
+                    self.entropy = val
+            elif key == "subpel":
+                if val not in ("half", "quarter"):
+                    log.error(f"h264: unknown subpel {val!r}")
+                else:
+                    self.subpel = val
+            elif key == "rate":
+                self._rate_bps = parse_rate(val)
+            elif key == "help":
+                print("h264 (own encoder): h264[:qp=<0-51>]"
+                      "[:mode=i16|i4|pcm|inter][:gop=N][:search=N]"
+                      "[:accel=host|device (i16 and inter: device by default)]"
+                      "[:deblock=1 (intra host modes)]"
+                      "[:entropy=cavlc|cabac]"
+                      "[:rate=<bps> (closed-loop QP adaptation)]")
+        if self.accel is None:
+            self.accel = "host" if self.mode in ("i4", "pcm") or (self.deblock and self.mode != "inter") else "device"
+        self._enc = None
+        self._geom = None
+        self._rc = None
+        self._transcoder = None
+
+    def set_target_bitrate(self, bps: int) -> None:
+        """Sender hook for a fixed ``-l`` rate; an explicit ``rate=`` wins."""
+        if not self._rate_bps:
+            self._rate_bps = int(bps)
+            self._rc = None
+
+    def _build(self, desc: VideoDesc, deblock: bool):
+        if self.mode == "pcm":
+            return h264_ops.PcmEncoder(desc.width, desc.height)
+        if self.mode == "inter":
+            if self.accel == "device":
+                return InterEncoderDevice(desc.width, desc.height, qp=self.qp, gop=self.gop, search=self.search,
+                                          subpel=self.subpel, device=self.device)
+            if self.subpel == "quarter":
+                log.warning("h264: subpel=quarter needs accel=device; using half-pel")
+            cls = h264_ops.InterEncoder if self.accel == "scalar" else h264_ops.InterEncoderV
+            return cls(desc.width, desc.height, qp=self.qp, gop=self.gop, search=self.search)
+        if self.mode == "i4":
+            # per-4x4 directional prediction: better compression, host path
+            return h264_ops.Intra4x4Encoder(desc.width, desc.height, qp=self.qp, deblock=deblock)
+        if self.accel == "device":
+            return Intra16EncoderDevice(desc.width, desc.height, qp=self.qp, device=self.device)
+        return h264_ops.Intra16EncoderV(desc.width, desc.height, qp=self.qp, deblock=deblock)
+
+    def compress(self, frame: VideoFrame) -> Optional[VideoFrame]:
+        """Uncompressed frame -> VideoFrame whose data is one Annex-B access
+        unit (np.uint8, 1-D)."""
+        desc = frame.desc
+        src = desc.color_spec
+        data = on_device(frame.data, self.device)
+        if src != Codec.UYVY:
+            if pixfmt.get_decoder_from_to(src, Codec.UYVY) is None:
+                log.error(f"h264: unsupported input {src.name}")
+                return None
+            data = pixfmt.convert_frame(data, desc.width, src, Codec.UYVY)
+        deblock = self.deblock and self.mode in ("i16", "i4") and self.accel != "device"
+        if self.deblock and not deblock:
+            log.warning("h264: deblock=1 only on intra host paths; ignored")
+        if self._rate_bps and self._rc is None and self.mode != "pcm":
+            fps = desc.fps or 30.0
+            if self.mode == "inter":
+                self._rc = GopRateController(self._rate_bps, fps, self.gop, self.qp)
+            else:
+                self._rc = h264_intra_controller(self._rate_bps, fps, self.qp)
+            self._rc_pos = 0
+        geom = (desc.width, desc.height, self.qp, self.mode, self.accel, deblock)
+        if self._geom != geom:
+            self._enc = self._build(desc, deblock)
+            self._geom = geom
+        if isinstance(self._enc, (Intra16EncoderDevice, InterEncoderDevice)):
+            bs = self._enc.encode_uyvy(data)
+        else:
+            bs = self._enc.encode_uyvy(data.cpu().numpy())
+        if self.entropy == "cabac":
+            if self.mode == "pcm":
+                log.warning("h264: entropy=cabac unsupported for I_PCM; keeping CAVLC")
+                self.entropy = "cavlc"
+            else:
+                if self._transcoder is None:
+                    try:
+                        self._transcoder = SessionTranscoder()
+                    except UnsupportedStream as e:
+                        log.warning(f"h264: CABAC transcoder unavailable ({e}); keeping CAVLC")
+                        self.entropy = "cavlc"
+                if self._transcoder is not None:
+                    bs = self._transcoder.transcode_au(bytes(bs))
+        if self._rc is not None:
+            nbytes = len(bs)
+            if self.mode == "inter":
+                self._rc_pos += 1
+                nqp = self._rc.frame(nbytes, self._rc_pos % self.gop == 0)
+            else:
+                nqp = self._rc.update(nbytes)
+            if nqp != self.qp:
+                # rebuilt at the next frame for intra; the next GOP opens
+                # with an IDR for inter, so the reference chain holds
+                self.qp = nqp
+                self._geom = None
+        out = VideoFrame(desc.with_(color_spec=Codec.H264), [np.frombuffer(bytes(bs), np.uint8)], frame.timestamp)
+        out.callbacks.update(frame.callbacks)
+        if self.mode == "inter":
+            # P frames depend on the previous picture; receivers use this
+            # to gate display on intact references (ref: interframe flag)
+            out.callbacks["frame_type"] = (
+                "I" if getattr(self._enc, "_frame_idx", 1) % self.gop == 1 or self.gop == 1 else "P")
+        return out
+
+    def done(self) -> None:
+        if self._transcoder is not None:
+            self._transcoder.close()
+            self._transcoder = None
+
+
 register_module("none", LibraryClass.VIDEO_COMPRESS, NoneCompress)
 register_module("uyvy", LibraryClass.VIDEO_COMPRESS, UyvyCompress)
 register_module("dxt", LibraryClass.VIDEO_COMPRESS, DxtCompress)
 register_module("cuda_dxt", LibraryClass.VIDEO_COMPRESS, DxtCompress)  # alias
 register_module("jpeg", LibraryClass.VIDEO_COMPRESS, JpegCompress)
 register_module("gpujpeg", LibraryClass.VIDEO_COMPRESS, JpegCompress)  # alias
+register_module("h264", LibraryClass.VIDEO_COMPRESS, H264Compress)
 
 
 def compress_init(spec: str, device="cuda") -> VideoCompress:

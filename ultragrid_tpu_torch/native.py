@@ -4,8 +4,11 @@
 ``native/jpeg_scan_decode.c`` (the receiver's entropy decode, restart
 segments across host threads), ``native/ldgm_xor.c`` (the host LDGM
 staircase encoder), ``native/udp_tx.c`` (the sender's sendmmsg batches),
-``native/udp_rx.c`` (recvmmsg batches) and ``native/video_rx_fast.c`` (the
-receiver's C depacketizer) are plain C shared with the JAX package.  ``cc`` builds
+``native/udp_rx.c`` (recvmmsg batches), ``native/video_rx_fast.c`` (the
+receiver's C depacketizer), ``native/h264_assemble.c`` (per-macroblock
+H.264 slot windows -> emulation-prevented slice payload) and
+``native/h264_entropy.c`` (the own H.264 decoder and the CABAC transcoder)
+are plain C shared with the JAX package.  ``cc`` builds
 each into ``build/`` (gitignored) under a content hash of the source and the
 flags; a failed build raises, since the port has no Python fallback for any
 of them.
@@ -129,4 +132,37 @@ def video_rx_fast_lib() -> ctypes.CDLL:
     lib.vrx_ssrc_stats.restype = ctypes.c_long
     lib.vrx_ssrc_stats.argtypes = [_P, ctypes.c_int, _P]
     lib.vrx_totals.argtypes = [_P, _P, _P]
+    return lib
+
+
+@lru_cache(maxsize=None)
+def h264_assemble_lib() -> ctypes.CDLL:
+    """H.264 slot-window assembler (reference loader ``native.py:123``)."""
+    lib = ctypes.CDLL(_build("h264_assemble"))
+    lib.h264_assemble.restype = ctypes.c_long
+    # words, bit counts, rows, words per row, out, capacity
+    lib.h264_assemble.argtypes = [_P, _P, ctypes.c_long, ctypes.c_long, _P, ctypes.c_long]
+    return lib
+
+
+@lru_cache(maxsize=None)
+def h264_fast_lib() -> ctypes.CDLL:
+    """The own H.264 decoder's C entropy and reconstruction stage, and the
+    CAVLC -> CABAC transcoder (reference loader ``native.py:306``, the same
+    argtypes)."""
+    lib = ctypes.CDLL(_build("h264_entropy"))
+    lib.h264fast_create.restype = _P
+    # VLC table blob, its size, CABAC context init, rangeTabLPS,
+    # transIdxLPS, 8x8 significance and last increments
+    lib.h264fast_create.argtypes = [_P, ctypes.c_long, _P, _P, _P, _P, _P]
+    lib.h264fast_flush_frame.restype = ctypes.c_int
+    lib.h264fast_flush_frame.argtypes = [_P]
+    lib.h264fast_decode_au.restype = ctypes.c_int
+    lib.h264fast_decode_au.argtypes = [_P, _P, ctypes.c_long]
+    lib.h264fast_dims.restype = ctypes.c_int
+    lib.h264fast_dims.argtypes = [_P, _P, _P]
+    lib.h264fast_get_planes.argtypes = [_P, _P, _P, _P]
+    lib.h264fast_error.restype = ctypes.c_char_p
+    lib.h264fast_error.argtypes = [_P]
+    lib.h264fast_destroy.argtypes = [_P]
     return lib
