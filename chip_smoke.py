@@ -27,8 +27,11 @@ points: sender -> 127.0.0.1 UDP -> receiver at 1080p60, JPEG + LDGM with
 seeded packet loss (the receiver's peel on the card) and uncompressed + LDGM,
 ``--protocol loopback`` with JPEG 4:4:4, the H.264 inter + LDGM session with
 seeded loss (every displayed frame equal to the sender's reference picture)
-and H.264 loopbacks, JPEG rate control against its CPU
-quality sequence, and a 4K timing row; and times kernels, steps, the receive step, the 4K batch in frames/s,
+and H.264 loopbacks, the wavelet and intra codecs (JPEG XS, CineForm CFHD
+and UCF1, APV, JPEG 2000: phase ``codecs``, card against CPU byte for byte
+with the reference tests' golden digests; ``-c jpegxs`` and ``-c openapv``
++ LDGM sessions with seeded loss, and loopbacks), JPEG rate control against
+its CPU quality sequence, and a 4K timing row; and times kernels, steps, the receive step, the 4K batch in frames/s,
 4K latency, conversions, DXT, the postprocess functions and the loop's
 chain.  Every phase prints one JSON line; any failed
 check raises, so the exit code is non-zero.  The last lines are the kernel
@@ -126,15 +129,16 @@ def cuda_ms(fn, runs: int = TIMING_RUNS, warmup: int = 3) -> float:
     return start.elapsed_time(end) / runs
 
 
-def device_kernels(fn, runs: int = 20, attempts: int = 3):
+def device_kernels(fn, runs: int = 20, attempts: int = 3, warmup: bool = True):
     """{kernel name: (launches per call, device ms per call)} of fn() from
-    torch.profiler's device-side events, after one warm-up call.  The
-    profiler may drop events of some calls (:func:`per_step` corrects for
-    it) and, now and then, returns no device events at all; such a
-    profile is taken again, up to ``attempts`` times."""
+    torch.profiler's device-side events, after one warm-up call (unless
+    ``warmup`` is False).  The profiler may drop events of some calls
+    (:func:`per_step` corrects for it) and, now and then, returns no device
+    events at all; such a profile is taken again, up to ``attempts`` times."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     out = {}
     for _ in range(attempts):
@@ -253,9 +257,11 @@ def byte_diff(a, b):
     return int((d != 0).sum()), int(d.max()) if d.numel() else 0
 
 
-def host_ms(fn, runs: int) -> float:
-    """Mean host milliseconds per call of fn() (which synchronises)."""
-    fn()
+def host_ms(fn, runs: int, warmup: bool = True) -> float:
+    """Mean host milliseconds per call of fn() (which synchronises), after
+    one warm-up call unless ``warmup`` is False."""
+    if warmup:
+        fn()
     t0 = time.perf_counter()
     for _ in range(runs):
         fn()
@@ -645,13 +651,16 @@ def drop_data_packets(session, per_frame: int, seed: int, k: int, m: int):
 
 
 def live_run(dev, capture: str, compress: str, fec: str, frames: int, mtu: int = 1500, loss: int = 0,
-             keep_every: int = 0, profile_it: bool = False, tap=None):
+             keep_every: int = 0, profile_it: bool = False, tap=None, grace_s: float = LIVE_GRACE_S,
+             idle_s: float = LIVE_GRACE_S):
     """One session on 127.0.0.1 through the port's entry points: VideoSender
     and VideoReceiver on the card (``--param ldgm-device=device``), a dummy
     display.  The kernels' launch counts are set to 0 just before the
     sender runs and read just after the receiver stops.  ``tap(sender)``
-    runs before the sender does.  Returns the session's numbers and the
-    frames kept (every ``keep_every``-th shown, from the first)."""
+    runs before the sender does.  After the sender's last frame the
+    receiver gets ``grace_s`` to catch up, less where it shows nothing new
+    for ``idle_s``.  Returns the session's numbers and the frames kept
+    (every ``keep_every``-th shown, from the first)."""
     from ultragrid_tpu_torch.ops import fec as fec_ops
     from ultragrid_tpu_torch.ops import jpeg_cuda
     from ultragrid_tpu_torch.pipeline.receiver import VideoReceiver
@@ -697,9 +706,14 @@ def live_run(dev, capture: str, compress: str, fec: str, frames: int, mtu: int =
         prof.__enter__()
     t0 = time.perf_counter()
     sent = sender.run()
-    deadline = time.perf_counter() + LIVE_GRACE_S
+    deadline = time.perf_counter() + grace_s
+    last, last_t = len(shown), time.perf_counter()
     while len(shown) < sent and time.perf_counter() < deadline:
         time.sleep(0.01)
+        if len(shown) != last:
+            last, last_t = len(shown), time.perf_counter()
+        elif time.perf_counter() - last_t > idle_s:  # the receiver has dropped the rest
+            break
     recv.should_exit = True
     rt.join(timeout=30)
     torch.cuda.synchronize()
@@ -825,6 +839,7 @@ def phase_live_session(dev):
     out["loopback_jpeg_444"] = {"frames_shown": n_lb, "frames_per_s": n_lb / lb_s, "all_on_card": True,
                                 "launches": lb_launches}
     out.update(h264_live_rows(dev))
+    out.update(codec_live_rows(dev))
     # jpeg rate control on the card against the CPU's quality sequence
     w_r, h_r = 640, 360
     frames_r = [torch.as_tensor(content(h_r, 2 * w_r, 60 + i)) for i in range(24)]
@@ -897,18 +912,16 @@ def ldgm_packet_recovery(frame: np.ndarray, mtu: int):
     return {"symbol_bytes": ps, "symbols_per_packet": per, "packets_recoverable": ok, "data_packets": n}
 
 
-def h264_k2_peel(dev, aus, mtu: int):
-    """K2 at the H.264 session's container shapes: for its first IDR and its
-    median P frame, LDGM 256:26:5 with the symbols of one seeded data packet
-    at ``mtu`` lost; K2 with and without the staircase on that block against
-    its plain version, and the peel on the card giving the access unit
-    back."""
+def k2_peel_rows(dev, items, mtu: int, seed: int):
+    """K2 at a session's container shapes: for each (what, frame bytes),
+    LDGM 256:26:5 with the symbols of one seeded data packet at ``mtu``
+    lost; K2 with and without the staircase on that block against its plain
+    version, and the peel on the card giving the frame back."""
     from ultragrid_tpu_torch.ops.fec import fec_from_spec
 
-    p_frames = sorted((a for i, a in enumerate(aus) if i % 30), key=len)
-    rng = np.random.default_rng(29)
+    rng = np.random.default_rng(seed)
     err, cases = 0, []
-    for what, au in (("IDR", aus[0]), ("median P", p_frames[len(p_frames) // 2])):
+    for what, au in items:
         sess = fec_from_spec(FEC, au.size, mtu)
         buf, desc = sess.encode(au)
         ps = desc.symbol_size
@@ -918,14 +931,21 @@ def h264_k2_peel(dev, aus, mtu: int):
         present[start:min(start + per, sess.k)] = False
         sym = np.where(present[:, None], buf.reshape(-1, ps), 0).astype(np.uint8)
         block = torch.as_tensor(sym).to(dev)
-        e, case = k2_peel_case(sess, block, f"h264 {what} {au.size} B, 256:26:5 ps={ps}, "
+        e, case = k2_peel_case(sess, block, f"{what} {au.size} B, 256:26:5 ps={ps}, "
                                             f"{int((~present).sum())} symbols of one packet at MTU {mtu} lost")
         got = sess.decode_device(block, present)
         if got is None or not np.array_equal(np.asarray(got).reshape(-1), au):
-            raise RuntimeError(f"h264 {what}: the peel on the card did not give the access unit back")
+            raise RuntimeError(f"{what}: the peel on the card did not give the frame back")
         err = max(err, e)
         cases.append({**case, "recovered_on_card": True})
     return {"max_abs_err": err, "cases": cases}
+
+
+def h264_k2_peel(dev, aus, mtu: int):
+    """K2 at the H.264 session's container shapes: its first IDR and its
+    median P frame (:func:`k2_peel_rows`)."""
+    p_frames = sorted((a for i, a in enumerate(aus) if i % 30), key=len)
+    return k2_peel_rows(dev, (("h264 IDR", aus[0]), ("h264 median P", p_frames[len(p_frames) // 2])), mtu, 29)
 
 
 H264_QP = 26
@@ -1171,6 +1191,259 @@ def h264_live_rows(dev):
         if got != n or not all(shown):
             raise RuntimeError(f"loopback {spec}: {got} of {n} shown, all on the card: {all(shown)}")
         out[f"loopback_{spec}"] = {"frames_shown": got, "frames_per_s": got / secs, "all_on_card": True}
+    return out
+
+
+# ---- the wavelet and intra codecs (no hand kernel on their device
+# stages: the reference's are jnp ops; K2 runs in the sessions' peel) ----
+
+CODEC_SPECS = ["jpegxs", "jpegxs:100", "cineform", "cineform:100", "openapv", "openapv:0", "j2k:90"]
+CODEC_LOSSLESS = ("jpegxs:100", "cineform:100")
+# the streams of the reference tests' fixed inputs (tests/test_jpegxs.py:88,
+# tests/test_cineform.py:92, tests/test_apv.py:138, tests/test_j2k.py:132)
+CODEC_GOLDEN = {
+    "jpegxs": "20621eebdd37a4bb2b2d684f181ea0440a63541f3fd0d5412e8db1c3b1cc1d55",
+    "cineform": "6ecbfc71735be76a97dd97bb9d97aaf248c07f18cea7dedd63eba13d135b459d",
+    "openapv": "9e62674295f42d8f4b784b1af9331b7301be2e40fca22141e3db08bb1391f8c0",
+    "j2k": "9be527f808147fff25561db1aec492f000c36eb5f84c19af10f63c538b165350",
+}
+# the live rows: (spec, frames sent); the host entropy stages take tenths of
+# a second a 1080p frame, so few frames
+CODEC_LIVE = (("jpegxs", 24), ("openapv", 40))
+CODEC_LOOPBACK = (("cineform", 4), ("cineform:100", 2), ("j2k:90", 4))
+CODEC_GRACE_S = 20.0  # the receiver's host decode trails the sender by seconds
+CODEC_IDLE_S = 5.0  # ... and drops frames it cannot keep up with
+
+
+def golden_streams(dev):
+    """{codec: (stream, decode ok)} of the reference tests' fixed inputs, the
+    device stages on ``dev``."""
+    import hashlib
+
+    from ultragrid_tpu_torch.ops import apv, cineform, j2k, jpegxs
+
+    plane = torch.as_tensor((np.arange(32 * 48).reshape(32, 48) % 251).astype(np.int32)).to(dev)
+    apv_plane = torch.as_tensor((np.arange(48 * 64).reshape(48, 64) * 13 % 1021).astype(np.int32)).to(dev)
+    cases = {"jpegxs": (jpegxs.JpegXsCodec(3, 1, 90, device=dev), plane, 4),
+             "cineform": (cineform.CineformCodec(3, 90, device=dev), plane, 16),
+             "openapv": (apv.ApvCodec(qp=18, device=dev), apv_plane, 16)}
+    out = {}
+    for name, (codec, p, bound) in cases.items():
+        stream = codec.encode_planes([p])
+        back = codec.decode_planes(stream)[0]
+        if back.device != p.device or int((back - p).abs().max()) > bound:
+            raise RuntimeError(f"golden {name}: the decode on the card is off its bound {bound}")
+        out[name] = hashlib.sha256(stream).hexdigest()
+    gray = plane.cpu().numpy().astype(np.uint8)
+    cs = j2k.encode_gray(gray, levels=3, quality=100)
+    if not np.array_equal(j2k.J2KDecoder().decode(cs)[0], gray):
+        raise RuntimeError("golden j2k: the own decoder does not give the plane back")
+    out["j2k"] = hashlib.sha256(cs).hexdigest()
+    for name, digest in out.items():
+        if digest != CODEC_GOLDEN[name]:
+            raise RuntimeError(f"golden {name}: {digest} is not the reference's {CODEC_GOLDEN[name]}")
+    return out
+
+
+def codec_stages(spec, comp, src_dev, stream, dev):
+    """(the encoder's device stage, the decoder's device stage) of ``spec``
+    on a 1080p UYVY frame on the card, each a call that ends in the one copy
+    per plane (down, for the encoder; the decoder's starts with one up): the
+    split, the DWT or DCT and the copy down; the upload, the inverse and the
+    interleave."""
+    from ultragrid_tpu_torch.modules.video_compress import uyvy_planes
+    from ultragrid_tpu_torch.modules.video_decompress import cfhd_uyvy, uyvy_interleave
+    from ultragrid_tpu_torch.ops import pixfmt
+    from ultragrid_tpu_torch.ops.cfhd_bitstream import cfhd_decode
+    from ultragrid_tpu_torch.types import Codec
+
+    if spec.startswith("jpegxs") or spec == "cineform:100":
+        codec = comp.codec
+        bands = [codec.analyse(p) for p in uyvy_planes(src_dev, W1080)]
+        return (lambda: [codec.analyse(p) for p in uyvy_planes(src_dev, W1080)],
+                lambda: uyvy_interleave(*[codec.synthesise(b) for b in bands]))
+    if spec == "cineform":
+        planes = cfhd_decode(bytes(stream), W1080, H1080)
+        return lambda: src_dev[:, : 2 * W1080].cpu(), lambda: cfhd_uyvy(planes, dev)
+    if spec.startswith("openapv"):
+        codec = comp.codec
+        levels = [codec.analyse(p, ci, 2 if ci else 1) for ci, p in enumerate(uyvy_planes(src_dev, W1080, 2))]
+        return (lambda: [codec.analyse(p, ci, 2 if ci else 1) for ci, p in enumerate(uyvy_planes(src_dev, W1080, 2))],
+                lambda: uyvy_interleave(*[(codec.synthesise(lv, codec.qp, 10)[:H1080] + 2) >> 2 for lv in levels]))
+    rgb = pixfmt.convert_frame(src_dev, W1080, Codec.UYVY, Codec.RGB).cpu().numpy()
+    return (lambda: pixfmt.convert_frame(src_dev, W1080, Codec.UYVY, Codec.RGB).cpu(),
+            lambda: torch.from_numpy(rgb).to(dev))
+
+
+def copies_and_kernels(ks):
+    """(launches, device ms, DtoH copies, HtoD copies) per call from
+    device_kernels' result; launches and device ms are the kernels'."""
+    kern = {n: v for n, v in ks.items() if not n.lower().startswith(("memcpy", "memset"))}
+    return (sum(c for c, _ in kern.values()), sum(ms for _, ms in kern.values()),
+            sum(c for n, (c, _) in ks.items() if "dtoh" in n.lower()),
+            sum(c for n, (c, _) in ks.items() if "htod" in n.lower()))
+
+
+def phase_codecs(dev):
+    """The wavelet and intra codecs at 1920x1080 as a user names them
+    (``compress_init`` / ``decompress_init``): on the testcard's bars and a
+    seeded content frame, the stream of the module on the card is the CPU
+    module's byte for byte, the decode on the card stays there and is the
+    CPU's (for the lossless specs on the content frame: the input itself),
+    the lossless specs give the input back, and the reference tests' golden
+    digests come out of the card's device stages.  Timing rows
+    on the bars: encode and decode ms a frame by the host clock, the
+    profiler's launches, device ms and copies a frame, the device stage alone
+    (split, DWT or DCT, interleave, with its copy) and the host entropy
+    stage's share."""
+    from ultragrid_tpu_torch.modules.video_compress import compress_init
+    from ultragrid_tpu_torch.modules.video_decompress import decompress_init
+    from ultragrid_tpu_torch.ops import pixfmt
+    from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame
+    from ultragrid_tpu_torch.utils.pattern import generate_pattern
+
+    t_phase = time.perf_counter()
+    out = {"phase": "codecs", "geometry": f"{W1080}x{H1080} UYVY"}
+    desc = VideoDesc(W1080, H1080, Codec.UYVY, 60.0)
+    frames = {"bars": generate_pattern(W1080, H1080, Codec.UYVY, "bars", device="cpu").contiguous(),
+              "content": torch.as_tensor(content(H1080, 2 * W1080, 81))}
+    rows = []
+    for spec in CODEC_SPECS:
+        comp, comp_cpu = compress_init(spec, device=dev), compress_init(spec, device="cpu")
+        row = {"spec": spec}
+        for label, src in frames.items():
+            src_dev = src.to(dev)
+            got = comp.compress(VideoFrame(desc, [src_dev]))
+            want = comp_cpu.compress(VideoFrame(desc, [src]))
+            if bytes(np.asarray(got.data)) != bytes(np.asarray(want.data)):
+                raise RuntimeError(f"codec {spec} {label}: the stream on the card differs from the CPU's")
+            dec, out_codec = decompress_init(got.desc.color_spec, [Codec.UYVY, Codec.RGB], device=dev)
+            shown = dec.decompress(got, out_codec).data
+            if shown.device.type != torch.device(dev).type:
+                raise RuntimeError(f"codec {spec} {label}: the decode left the card")
+            if spec in CODEC_LOSSLESS and not torch.equal(shown.cpu(), src):
+                raise RuntimeError(f"codec {spec} {label}: lossless, but the decode on the card is not the input")
+            if spec in CODEC_LOSSLESS and label == "content":
+                shown_cpu = src  # the input itself: the CPU's UCF1 decode of it takes tens of seconds
+            else:
+                dec_cpu, _ = decompress_init(got.desc.color_spec, [Codec.UYVY, Codec.RGB], device="cpu")
+                shown_cpu = dec_cpu.decompress(want, out_codec).data
+                if not torch.equal(shown.cpu(), shown_cpu):
+                    raise RuntimeError(f"codec {spec} {label}: the decode on the card differs from the CPU's")
+            ref = src if out_codec == Codec.UYVY else pixfmt.convert_frame(src, W1080, Codec.UYVY, Codec.RGB,
+                                                                           device="cpu")
+            row[label] = {"bytes": int(np.asarray(got.data).size), "out": out_codec.name,
+                          "psnr_db": psnr(shown_cpu, ref), "card_equals_cpu": True}
+        # timing on the bars, the module warmed above
+        src_dev = frames["bars"].to(dev)
+        frame = VideoFrame(desc, [src_dev])
+        stream = comp.compress(frame)
+        runs = 1 if spec == "cineform:100" else 3
+        enc_stage, dec_stage = codec_stages(spec, comp, src_dev, np.asarray(stream.data), dev)
+        for what, fn, stage in (("encode", lambda: comp.compress(frame), enc_stage),
+                                ("decode", lambda: dec.decompress(stream, out_codec), dec_stage)):
+            ms = host_ms(lambda: (fn(), torch.cuda.synchronize()), runs, warmup=False)
+            stage_ms = host_ms(lambda: (stage(), torch.cuda.synchronize()), runs)
+            launches, dev_ms, d2h, h2d = copies_and_kernels(device_kernels(fn, runs=runs, warmup=False))
+            s_launches, s_dev_ms, _, _ = copies_and_kernels(device_kernels(stage, runs=runs, warmup=False))
+            row[what] = {"ms": ms, "launches": launches, "device_ms": dev_ms, "copies_dtoh": d2h,
+                         "copies_htod": h2d, "device_stage_ms": stage_ms, "device_stage_launches": s_launches,
+                         "device_stage_device_ms": s_dev_ms, "host_entropy_ms": ms - stage_ms,
+                         "idle_share": max(0.0, 1 - dev_ms / ms)}
+        planes = 1 if spec.startswith(("cineform", "j2k")) and spec != "cineform:100" else 3
+        if row["encode"]["copies_dtoh"] > planes or row["decode"]["copies_htod"] > planes:
+            raise RuntimeError(f"codec {spec}: more than one copy a plane: {row['encode']}, {row['decode']}")
+        rows.append(row)
+    out["rows"] = rows
+    out["golden"] = golden_streams(dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def codec_live_rows(dev):
+    """The wavelet and intra codecs in the live session at 1080p60 testcard:
+    ``-c jpegxs`` and ``-c openapv``, each with LDGM 256:26:5 at the default
+    MTU of 1500 and one seeded data packet dropped per frame, the peel on
+    the card.  Every displayed frame, in order, is the CPU decode of a
+    stream the sender sent; every packet's loss of the first stream is
+    recoverable at 1500 (``ldgm_packet_recovery``; a row where it is not
+    would read as ROADMAP F6 does); K2 at the session's container shape
+    against its plain version.  Then ``--protocol loopback`` rows for
+    cineform, cineform:100 and j2k:90: every frame shown, on the card, equal
+    to the CPU decode of the card's stream."""
+    from ultragrid_tpu_torch.modules.video_decompress import decompress_init
+    from ultragrid_tpu_torch.pipeline.loopback import LoopbackRxTx
+    from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame
+
+    out = {}
+
+    def keep_streams(impl, streams):
+        compress = impl.compress
+
+        def compress_and_keep(frame):
+            got = compress(frame)
+            streams.append(np.asarray(got.data).copy())
+            return got
+
+        impl.compress = compress_and_keep
+
+    def cpu_decodes(streams, codec):
+        dec, out_codec = decompress_init(codec, [Codec.UYVY, Codec.RGB], device="cpu")
+        cache = {}
+        for st in streams:
+            key = st.tobytes()
+            if key not in cache:
+                cache[key] = dec.decompress(VideoFrame(VideoDesc(W1080, H1080, codec, 60.0), [st]), out_codec).data
+        return [cache[st.tobytes()] for st in streams]
+
+    codecs = {"jpegxs": Codec.JPEG_XS, "openapv": Codec.APV, "cineform": Codec.CFHD, "j2k": Codec.J2KR}
+    for spec, n in CODEC_LIVE:
+        streams = []
+        run, kept, _ = live_run(dev, LIVE_CAPTURE, spec, FEC, n, loss=LIVE_LOSS, keep_every=1,
+                                tap=lambda sender, streams=streams: keep_streams(sender.compress.impl, streams),
+                                grace_s=CODEC_GRACE_S, idle_s=CODEC_IDLE_S)
+        want = cpu_decodes(streams, codecs[spec.split(":")[0]])
+        k = 0
+        for i, f in enumerate(kept):
+            while k < len(want) and not torch.equal(f.cpu(), want[k]):
+                k += 1
+            if k == len(want):
+                raise RuntimeError(f"live {spec}: displayed frame {i} is no CPU decode of a sent stream, in order")
+            k += 1
+        recovery = ldgm_packet_recovery(streams[0], 1500)
+        if recovery["packets_recoverable"] != recovery["data_packets"]:
+            raise RuntimeError(f"live {spec}: not every lost packet is recoverable at MTU 1500 ({recovery}); "
+                               "record it under ROADMAP F6 and assert that reading here")
+        if (run["frames_sent"] != n or not kept or run["frames_off_card"] or run["packets_dropped"] < 1
+                or run["fec_jobs_recovered"] < 1 or run["launches"]["gf2_parity"] < 1):
+            raise RuntimeError(f"live {spec}: {run}")
+        run.update(displayed_frames_checked=len(kept), displayed_equal_to_cpu_decode=len(kept),
+                   stream_bytes=[int(streams[0].size), int(max(x.size for x in streams))],
+                   k2_launches_per_frame=run["launches"]["gf2_parity"] / n, ldgm_packet_recovery=recovery,
+                   k2_peel=k2_peel_rows(dev, ((f"{spec} first frame", streams[0]),), 1500, 31))
+        out[f"{spec}_ldgm_1080p"] = run
+        del kept
+    for spec, n in CODEC_LOOPBACK:
+        streams, shown = [], []
+        lb = LoopbackRxTx(LIVE_CAPTURE, "dummy", compress_spec=spec, frame_limit=n, device=dev)
+        keep_streams(lb.compress.impl, streams)
+        orig = lb.display.put_frame
+        lb.display.put_frame = lambda f, blocking=True, orig=orig: (
+            shown.append(None if f is None else f.data.clone()), orig(f, blocking))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = lb.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        frames = [f for f in shown if f is not None]
+        want = cpu_decodes(streams, codecs[spec.split(":")[0]])
+        on_card = [f.device.type == torch.device(dev).type for f in frames]
+        if got != n or len(frames) != n or not all(on_card) or \
+                not all(torch.equal(f.cpu(), w) for f, w in zip(frames, want)):
+            raise RuntimeError(f"loopback {spec}: {got} of {n} shown, on the card and equal to the CPU decode: "
+                               f"{on_card}")
+        out[f"loopback_{spec}"] = {"frames_shown": got, "frames_per_s": got / secs, "all_on_card": True,
+                                   "equal_to_cpu_decode": n, "stream_bytes": int(streams[0].size)}
     return out
 
 
@@ -1674,6 +1947,7 @@ def main() -> int:
     emit(phase_filters(dev))
     emit(phase_local_loop(dev))
     emit(phase_h264(dev))
+    emit(phase_codecs(dev))
     live = phase_live_session(dev)
     emit(live)
 
@@ -1855,9 +2129,14 @@ def main() -> int:
         {"name": "gf2_parity", "route": "cuda", "source": "ultragrid_tpu_torch/csrc/gf2_parity.cu",
          "replaces": "ultragrid_tpu/ops/fec.py:141", "launches": live_l["gf2_parity"],
          "launches_on": "live session 1080p jpeg + LDGM with loss (the receiver's peel); "
-                        "launches_h264_live: the 1080p h264 inter + LDGM session with loss",
+                        "launches_h264_live: the 1080p h264 inter + LDGM session with loss; "
+                        "launches_codec_live: the 1080p jpegxs and openapv + LDGM sessions with loss",
          "launches_h264_live": live["h264_inter_ldgm_1080p"]["launches"]["gf2_parity"],
          "peel_h264_max_abs_err": live["h264_k2_peel"]["max_abs_err"],
+         "launches_codec_live": {spec: {"launches": live[f"{spec}_ldgm_1080p"]["launches"]["gf2_parity"],
+                                        "frames_sent": live[f"{spec}_ldgm_1080p"]["frames_sent"],
+                                        "peel_max_abs_err": live[f"{spec}_ldgm_1080p"]["k2_peel"]["max_abs_err"]}
+                                 for spec, _ in CODEC_LIVE},
          "launches_sender_step": launches["gf2_parity"],
          "max_abs_err": k2_err, **{key: k2_t["1080p"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "device_ms": k2_t["1080p"]["device_ms"], "library_ms": None, "library": one_call,

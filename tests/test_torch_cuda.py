@@ -566,3 +566,30 @@ def test_h264_p_ties_on_card_give_zero_vectors(cuda):
         bw.ue(120 * 68)
         bw.rbsp_trailing()
         assert enc.encode_uyvy(flat) == h264.nal(3, 1, bw.rbsp())
+
+
+# ---- the wavelet and intra codecs (PyTorch device stages, host entropy) ----
+
+CODEC_SPECS = ["jpegxs", "jpegxs:100", "cineform", "cineform:100", "openapv", "openapv:0", "j2k:90"]
+
+
+@pytest.mark.parametrize("spec", CODEC_SPECS)
+def test_codec_1080p_on_card_equals_cpu(cuda, spec):
+    """The stream of the module on the card is the CPU module's, byte for
+    byte (integer DWTs; the APV transform's fused multiply-add order is the
+    same on both), and its decode on the card is the CPU's and stays on the
+    card; the lossless specs give the input back."""
+    from ultragrid_tpu_torch.modules.video_compress import compress_init
+    from ultragrid_tpu_torch.modules.video_decompress import decompress_init
+
+    src = content(1920, 1080, Codec.UYVY, 31)
+    desc = VideoDesc(1920, 1080, Codec.UYVY, 60.0)
+    card = compress_init(spec, device=cuda).compress(VideoFrame(desc, [torch.as_tensor(src).to(cuda)]))
+    cpu = compress_init(spec, device="cpu").compress(VideoFrame(desc, [torch.as_tensor(src)]))
+    assert bytes(np.asarray(card.data)) == bytes(np.asarray(cpu.data))
+    dec_card, out = decompress_init(card.desc.color_spec, [Codec.UYVY, Codec.RGB], device=cuda)
+    dec_cpu, _ = decompress_init(card.desc.color_spec, [Codec.UYVY, Codec.RGB], device="cpu")
+    got, want = dec_card.decompress(card, out).data, dec_cpu.decompress(cpu, out).data
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    if spec in ("jpegxs:100", "cineform:100"):
+        assert np.array_equal(got.cpu().numpy(), src)

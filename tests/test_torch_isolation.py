@@ -1,9 +1,10 @@
-"""The port stands alone: it imports neither JAX nor the JAX package.
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+Pillow, which the reference's JPEG 2000 decoder falls back to).
 
 A subprocess blocks ``jax`` and ``ultragrid_tpu`` in ``sys.modules`` (so any
 import of either, direct or indirect, fails) and drives the port with its own
-types, down to a live session over 127.0.0.1 and the H.264 codec on the CPU.  A source scan
-rejects any ``import`` of either in the port,
+types, down to a live session over 127.0.0.1, the H.264 codec and the wavelet and
+intra codecs on the CPU.  A source scan rejects any ``import`` of any of them in the port,
 ``chip_smoke.py``, ``chip_profile.py`` and ``chip_phases.py``.
 """
 
@@ -182,8 +183,28 @@ cabac.done()
 assert h264_device.Intra16EncoderDevice(64, 32, device="cpu").encode_uyvy(frame)[:4] == b"\x00\x00\x00\x01"
 assert cli.main(["-t", "testcard:s=64x32:f=1000:c=UYVY", "-d", "dummy", "-x", "loopback", "-c",
                  "h264:mode=inter:accel=device", "--frames", "2", "--device", "cpu"]) == 0
+# the wavelet and intra codecs on the CPU; each module defaults to the card
+from ultragrid_tpu_torch.ops import apv, cfhd_bitstream, cfhd_tables, cineform, j2k, jpegxs
+from ultragrid_tpu_torch.modules.video_compress import ApvCompress, CineformCompress, J2kCompress, JpegXsCompress
+from ultragrid_tpu_torch.modules.video_decompress import (ApvDecompress, CineformDecompress, J2kDecompress,
+                                                          JpegXsDecompress)
+if not torch.cuda.is_available():
+    for make in (JpegXsCompress, CineformCompress, ApvCompress, JpegXsDecompress, CineformDecompress,
+                 ApvDecompress, J2kDecompress, lambda: J2kCompress().compress(VideoFrame(desc, [frame]))):
+        try:
+            make()
+        except RuntimeError:
+            pass
+        else:
+            raise SystemExit("a codec module ran without a card on its default device")
+for comp, dec, out in ((JpegXsCompress("100", device="cpu"), JpegXsDecompress(device="cpu"), Codec.UYVY),
+                       (CineformCompress("100", device="cpu"), CineformDecompress(device="cpu"), Codec.UYVY),
+                       (ApvCompress("0", device="cpu"), ApvDecompress(device="cpu"), Codec.UYVY),
+                       (J2kCompress("100", device="cpu"), J2kDecompress(device="cpu"), Codec.RGB)):
+    shown = dec.decompress(comp.compress(VideoFrame(desc, [frame])), out)
+    assert shown.data.dtype == torch.uint8 and shown.data.shape[0] == 32, type(comp).__name__
 loaded = [m for m, mod in sys.modules.items()
-          if m.split(".")[0] in ("jax", "ultragrid_tpu") and mod is not None]
+          if m.split(".")[0] in ("jax", "ultragrid_tpu", "PIL") and mod is not None]
 assert not loaded, loaded
 print("ISOLATED-OK")
 """
@@ -197,14 +218,30 @@ def test_port_imports_and_encodes_without_jax():
     assert "ISOLATED-OK" in res.stdout
 
 
+# Pillow may render text where the JAX package renders it with Pillow too,
+# each with its fallback where Pillow is absent (the card's machine has
+# none): the text filter's label and testcard2's banner, (file, function).
+# Nothing else of the port imports it.
+PIL_OPTIONAL = {("modules/filters.py", "_render_mask"), ("modules/video_capture.py", "_banner")}
+
+
 def test_port_sources_never_name_jax():
     pkg = ROOT / "ultragrid_tpu_torch"
     # build/ holds compiled kernels (and may hold an unpacked checkout)
     sources = [p for p in pkg.rglob("*.py") if "build" not in p.relative_to(pkg).parts]
     sources += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py", ROOT / "chip_phases.py"]
     assert sources
+    pil_at = set()
     for path in sources:
+        where = ""
         for line in path.read_text().splitlines():
             words = line.split()
+            if words[:1] in (["def"], ["class"]):
+                where = words[1].split("(")[0].rstrip(":")
             assert not (words[:1] in (["import"], ["from"]) and len(words) > 1
                         and words[1].split(".")[0] in ("jax", "ultragrid_tpu")), f"{path}: {line}"
+            if words[:1] in (["import"], ["from"]) and len(words) > 1 and words[1].split(".")[0] == "PIL":
+                rel = path.relative_to(pkg).as_posix() if pkg in path.parents else path.name
+                assert line.startswith(" "), f"{path}: Pillow imported at module level"
+                pil_at.add((rel, where))
+    assert pil_at <= PIL_OPTIONAL, pil_at

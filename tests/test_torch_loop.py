@@ -483,8 +483,10 @@ def test_registry_uses_the_reference_names():
     assert {c.value: v for c, v in registry.ABI_VERSIONS.items()} == \
         {c.value: v for c, v in ref_registry.ABI_VERSIONS.items()}
     expected = {
-        L.VIDEO_COMPRESS: ["cuda_dxt", "dxt", "gpujpeg", "h264", "jpeg", "none", "uyvy"],
-        L.VIDEO_DECOMPRESS: ["dxt", "h264_own", "i420", "jpeg", "jpeg_to_dxt"],
+        L.VIDEO_COMPRESS: ["apv", "cineform", "cmpto_j2k", "cuda_dxt", "dxt", "gpujpeg", "h264", "j2k", "jpeg",
+                           "jpegxs", "none", "openapv", "uyvy"],
+        L.VIDEO_DECOMPRESS: ["cineform", "cmpto_j2k", "dxt", "h264_own", "i420", "jpeg", "jpeg_to_dxt", "jpegxs",
+                             "openapv"],
         L.VIDEO_CAPTURE: ["gpustitch", "noise", "stitch", "testcard", "testcard2"],
         L.VIDEO_DISPLAY: ["aggregate", "blend", "caca", "conference", "dummy", "dump", "file",
                           "null", "pano", "pipe"],

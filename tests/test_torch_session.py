@@ -259,8 +259,8 @@ def test_compress_driver_runtime_swap_equals_reference():
 
 
 def test_compress_init_refuses_unknown_names():
-    with pytest.raises(ValueError, match="unknown compression 'jpegxs'"):
-        compress_init("jpegxs:bpp=3", device="cpu")
+    with pytest.raises(ValueError, match="unknown compression 'libavcodec'"):
+        compress_init("libavcodec:codec=H.265", device="cpu")
     assert isinstance(compress_init("GPUJPEG:70", device="cpu"), JpegCompress)
     assert type(compress_init("h264:qp=26", device="cpu")).__name__ == "H264Compress"
 
@@ -271,10 +271,14 @@ def test_decompress_init_selects_and_refuses_by_name():
     assert decompress_init(Codec.DXT1, [Codec.UYVY], device="cpu") == (None, None)
     dec, out = decompress_init(Codec.H264, [Codec.UYVY], device="cpu")
     assert type(dec).__name__ == "OwnH264Decompress" and out == Codec.UYVY
-    for codec, name in ((Codec.JPEG_XS, "jpegxs"), (Codec.CFHD, "cineform"),
-                        (Codec.APV, "openapv"), (Codec.J2KR, "cmpto_j2k"), (Codec.VP9, "libavcodec")):
-        with pytest.raises(NotImplementedError, match=name):
-            decompress_init(codec, [Codec.UYVY], device="cpu")
+    for codec, out_codec, name in ((Codec.JPEG_XS, Codec.UYVY, "JpegXsDecompress"),
+                                   (Codec.CFHD, Codec.UYVY, "CineformDecompress"),
+                                   (Codec.APV, Codec.UYVY, "ApvDecompress"), (Codec.J2KR, Codec.RGB, "J2kDecompress"),
+                                   (Codec.J2K, Codec.RGB, "J2kDecompress")):
+        dec, out = decompress_init(codec, [Codec.UYVY, Codec.RGB], device="cpu")
+        assert type(dec).__name__ == name and out == out_codec
+    with pytest.raises(NotImplementedError, match="libavcodec"):
+        decompress_init(Codec.VP9, [Codec.UYVY], device="cpu")
 
 
 @pytest.mark.parametrize("compress", ["none", "jpeg:80", "dxt"])

@@ -67,7 +67,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-c", "--compress", default="none",
                    help="video compression: none|uyvy|dxt|jpeg[:q][:ri][:sub][:rate=<bps>]|"
                         "h264[:qp=N][:mode=i16|i4|pcm|inter][:gop=N][:search=N][:accel=host|device]"
-                        "[:entropy=cavlc|cabac][:subpel=half|quarter][:rate=<bps>] (h264:help lists them)")
+                        "[:entropy=cavlc|cabac][:subpel=half|quarter][:rate=<bps>] (h264:help lists them)|"
+                        "jpegxs[:quality]|cineform[:quality]|openapv|apv[:qp=N][:tile_w=N][:tile_h=N]|"
+                        "j2k|cmpto_j2k[:quality]")
     p.add_argument("-f", "--fec", action="append", default=None,
                    help="FEC: [V:]{none|mult:N|ldgm:k:m:c|ldgm:P%%|rs:k:n} "
                         "(A: is audio, not ported; ref: main.cpp:824-839)")

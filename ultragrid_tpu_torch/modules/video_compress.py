@@ -1,8 +1,9 @@
 """Video compression modules of the port, and the compress driver.
 
 Counterparts of ``NoneCompress``, ``UyvyCompress``, ``DxtCompress``,
-``JpegCompress`` and ``H264Compress`` in
-``ultragrid_tpu/modules/video_compress.py`` (reference lines 49-379),
+``JpegCompress``, ``H264Compress``, ``JpegXsCompress``,
+``CineformCompress``, ``J2kCompress`` and ``ApvCompress`` in
+``ultragrid_tpu/modules/video_compress.py`` (reference lines 49-566),
 registered in the port's registry under the reference's names (reference
 lines 568-580), and of ``compress_init`` and ``CompressDriver``
 (reference lines 583-679).  Each module runs on ``device``, the card unless
@@ -33,10 +34,15 @@ from ultragrid_tpu_torch.modules.registry import LibraryClass, list_modules, loa
 from ultragrid_tpu_torch.ops import dxt as dxt_ops
 from ultragrid_tpu_torch.ops import h264 as h264_ops
 from ultragrid_tpu_torch.ops import pixfmt
+from ultragrid_tpu_torch.ops.apv import ApvCodec
+from ultragrid_tpu_torch.ops.cfhd_bitstream import CfhdEncoder
+from ultragrid_tpu_torch.ops.cineform import CineformCodec
 from ultragrid_tpu_torch.ops.h264_dec import IntraDecoder, UnsupportedStream
 from ultragrid_tpu_torch.ops.h264_device import InterEncoderDevice, Intra16EncoderDevice
 from ultragrid_tpu_torch.ops.h264_transcode import Transcoder, _handle
+from ultragrid_tpu_torch.ops.j2k import J2KEncoder
 from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
+from ultragrid_tpu_torch.ops.jpegxs import JpegXsCodec
 from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame
 from ultragrid_tpu_torch.utils import profiler
 from ultragrid_tpu_torch.utils.log import Logger
@@ -298,13 +304,9 @@ class H264Compress(VideoCompress):
         """Uncompressed frame -> VideoFrame whose data is one Annex-B access
         unit (np.uint8, 1-D)."""
         desc = frame.desc
-        src = desc.color_spec
-        data = on_device(frame.data, self.device)
-        if src != Codec.UYVY:
-            if pixfmt.get_decoder_from_to(src, Codec.UYVY) is None:
-                log.error(f"h264: unsupported input {src.name}")
-                return None
-            data = pixfmt.convert_frame(data, desc.width, src, Codec.UYVY)
+        data = convert_to(frame, Codec.UYVY, self.device, "h264")
+        if data is None:
+            return None
         deblock = self.deblock and self.mode in ("i16", "i4") and self.accel != "device"
         if self.deblock and not deblock:
             log.warning("h264: deblock=1 only on intra host paths; ignored")
@@ -363,13 +365,158 @@ class H264Compress(VideoCompress):
             self._transcoder = None
 
 
+def convert_to(frame: VideoFrame, codec: Codec, device, who: str) -> Optional[torch.Tensor]:
+    """The frame's data as ``codec`` on ``device``, [H, linesize]: converted
+    there when the frame has another codec (None, with an error, where no
+    conversion exists)."""
+    desc = frame.desc
+    data = on_device(frame.data, device)
+    if desc.color_spec != codec:
+        if pixfmt.get_decoder_from_to(desc.color_spec, codec) is None:
+            log.error(f"{who}: cannot convert from {desc.color_spec.name}")
+            return None
+        data = pixfmt.convert_frame(data, desc.width, desc.color_spec, codec)
+    return data.reshape(desc.height, -1)
+
+
+def uyvy_planes(data: torch.Tensor, width: int, shift: int = 0):
+    """A UYVY frame [H, >= 2 * width] -> its Y, Cb and Cr planes as int32
+    on its device, each shifted left by ``shift`` bits."""
+    a = data[:, : 2 * width].to(torch.int32)
+    return a[:, 1::2] << shift, a[:, 0::4] << shift, a[:, 2::4] << shift
+
+
+class JpegXsCompress(VideoCompress):
+    """JPEG XS-architecture wavelet compression (ref role:
+    src/video_compress/jpegxs.cpp over SVT-JPEG-XS; the reference package's
+    own 5/3-DWT codec, :mod:`ultragrid_tpu_torch.ops.jpegxs`).
+
+    Config: ``jpegxs[:quality]`` (default 90; 100 = lossless).  Takes UYVY
+    (4:2:2 planes, split on the module's device); other codecs are converted
+    to UYVY there.
+    """
+
+    def __init__(self, cfg: str = "", device="cuda"):
+        super().__init__(cfg, device)
+        self.quality = int(cfg) if cfg else 90
+        self.codec = JpegXsCodec(nlx=3, nly=1, quality=self.quality, device=self.device)
+
+    def compress(self, frame: VideoFrame) -> Optional[VideoFrame]:
+        data = convert_to(frame, Codec.UYVY, self.device, "jpegxs")
+        if data is None:
+            return None
+        stream = self.codec.encode_planes(uyvy_planes(data, frame.desc.width))
+        return self._out(frame, Codec.JPEG_XS, np.frombuffer(stream, np.uint8))
+
+
+class CineformCompress(VideoCompress):
+    """CineForm wavelet compression (ref role: src/video_compress/cineform.cpp
+    over the CineForm SDK).
+
+    As the reference: real CFHD samples (:mod:`ultragrid_tpu_torch.ops.
+    cfhd_bitstream`, host numpy; the frame comes down once) whenever the
+    geometry allows (width % 16 == 0, height % 8 == 0) and quality < 100;
+    otherwise the own lossless-capable UCF1 container
+    (:mod:`ultragrid_tpu_torch.ops.cineform`, its 2/6 wavelet on the module's
+    device).  Both decode through the ``cineform`` decompress module.
+
+    Config: ``cineform[:quality]`` (default 90; 100 = lossless UCF1).  Takes
+    UYVY; other codecs are converted to UYVY on the module's device.
+    """
+
+    def __init__(self, cfg: str = "", device="cuda"):
+        super().__init__(cfg, device)
+        self.quality = int(cfg) if cfg else 90
+        self.codec = CineformCodec(levels=3, quality=self.quality, device=self.device)
+        self._cfhd = None  # CfhdEncoder of the last geometry, built lazily
+
+    def compress(self, frame: VideoFrame) -> Optional[VideoFrame]:
+        desc = frame.desc
+        data = convert_to(frame, Codec.UYVY, self.device, "cineform")
+        if data is None:
+            return None
+        if self.quality < 100 and desc.width % 16 == 0 and desc.height % 8 == 0:
+            if self._cfhd is None or (self._cfhd.width, self._cfhd.height) != (desc.width, desc.height):
+                self._cfhd = CfhdEncoder(desc.width, desc.height, quality=self.quality)
+            stream = self._cfhd.encode_uyvy(data[:, : 2 * desc.width].cpu().numpy())
+        else:
+            stream = self.codec.encode_planes(uyvy_planes(data, desc.width))
+        return self._out(frame, Codec.CFHD, np.frombuffer(stream, np.uint8))
+
+
+class J2kCompress(VideoCompress):
+    """The own JPEG 2000 encoder (ref role: src/video_compress/cmpto_j2k.cpp
+    over the Comprimato SDK; the reference package's T.800 encoder,
+    :mod:`ultragrid_tpu_torch.ops.j2k`: numpy and ``native/j2k_t1.c`` on the
+    host, as in the reference).
+
+    Config: ``cmpto_j2k[:quality]`` / ``j2k[:quality]`` (default 100 =
+    lossless RCT + 5/3).  Takes RGB; other codecs are converted to RGB on
+    the module's device, and the RGB frame comes down once.
+    """
+
+    def __init__(self, cfg: str = "", device="cuda"):
+        super().__init__(cfg, device)
+        self.quality = int(cfg) if cfg else 100
+        self.enc = J2KEncoder(levels=5, quality=self.quality, mct=True)
+
+    def compress(self, frame: VideoFrame) -> Optional[VideoFrame]:
+        desc = frame.desc
+        data = convert_to(frame, Codec.RGB, self.device, "j2k")
+        if data is None:
+            return None
+        rgb = data[:, : 3 * desc.width].cpu().numpy().reshape(desc.height, desc.width, 3)
+        stream = self.enc.encode([rgb[:, :, i] for i in range(3)])
+        return self._out(frame, Codec.J2KR, np.frombuffer(stream, np.uint8))
+
+
+class ApvCompress(VideoCompress):
+    """APV-architecture compression (ref role: src/video_compress/openapv.cpp
+    over liboapv, ISO/IEC 23090-33; the reference package's tile / DCT /
+    Rice codec, :mod:`ultragrid_tpu_torch.ops.apv`, its transform on the
+    module's device).
+
+    Config: ``openapv[:qp=N][:tile_w=N][:tile_h=N]`` or ``openapv:N`` (qp,
+    default 18; 0 = near-lossless).  Takes UYVY, coded as 10-bit 4:2:2 (the
+    8 -> 10 bit widening on the module's device); other codecs are converted
+    to UYVY there.
+    """
+
+    def __init__(self, cfg: str = "", device="cuda"):
+        super().__init__(cfg, device)
+        qp, tw, th = 18, 1920, 1080
+        for tok in filter(None, cfg.split(":")):
+            if tok.isdigit():
+                qp = int(tok)
+            elif tok.startswith("qp="):
+                qp = int(tok[3:])
+            elif tok.startswith("tile_w="):
+                tw = int(tok[7:])
+            elif tok.startswith("tile_h="):
+                th = int(tok[7:])
+        self.codec = ApvCodec(qp=qp, bit_depth=10, tile_w=tw, tile_h=th, device=self.device)
+
+    def compress(self, frame: VideoFrame) -> Optional[VideoFrame]:
+        data = convert_to(frame, Codec.UYVY, self.device, "openapv")
+        if data is None:
+            return None
+        stream = self.codec.encode_planes(uyvy_planes(data, frame.desc.width, shift=2))  # 8 -> 10 bit
+        return self._out(frame, Codec.APV, np.frombuffer(stream, np.uint8))
+
+
 register_module("none", LibraryClass.VIDEO_COMPRESS, NoneCompress)
+register_module("cmpto_j2k", LibraryClass.VIDEO_COMPRESS, J2kCompress)
+register_module("j2k", LibraryClass.VIDEO_COMPRESS, J2kCompress)
+register_module("openapv", LibraryClass.VIDEO_COMPRESS, ApvCompress)
+register_module("apv", LibraryClass.VIDEO_COMPRESS, ApvCompress)  # alias
+register_module("jpegxs", LibraryClass.VIDEO_COMPRESS, JpegXsCompress)
+register_module("cineform", LibraryClass.VIDEO_COMPRESS, CineformCompress)
+register_module("h264", LibraryClass.VIDEO_COMPRESS, H264Compress)
 register_module("uyvy", LibraryClass.VIDEO_COMPRESS, UyvyCompress)
 register_module("dxt", LibraryClass.VIDEO_COMPRESS, DxtCompress)
 register_module("cuda_dxt", LibraryClass.VIDEO_COMPRESS, DxtCompress)  # alias
 register_module("jpeg", LibraryClass.VIDEO_COMPRESS, JpegCompress)
 register_module("gpujpeg", LibraryClass.VIDEO_COMPRESS, JpegCompress)  # alias
-register_module("h264", LibraryClass.VIDEO_COMPRESS, H264Compress)
 
 
 def compress_init(spec: str, device="cuda") -> VideoCompress:

@@ -1,17 +1,19 @@
-"""Video decompression modules of the port: DXT, I420, JPEG, JPEG -> DXT and
-the own H.264 decoder, on tensors.
+"""Video decompression modules of the port: DXT, I420, JPEG, JPEG -> DXT, the
+own H.264 decoder, JPEG XS, APV, CineForm and JPEG 2000, on tensors.
 
 Counterparts of ``VideoDecompress``, ``DxtDecompress``, ``I420Decompress``,
-``JpegDecompress``, ``JpegToDxtDecompress`` and ``OwnH264Decompress`` in
-``ultragrid_tpu/modules/video_decompress.py`` (reference lines 25-225; ref:
-src/video_decompress.h:90-199), registered in the port's registry under the
-reference's names (reference lines 228-238), and ``decompress_init``
+``JpegDecompress``, ``JpegToDxtDecompress``, ``OwnH264Decompress``,
+``JpegXsDecompress``, ``ApvDecompress``, ``CineformDecompress`` and
+``J2kDecompress`` in ``ultragrid_tpu/modules/video_decompress.py``
+(reference lines 25-414; ref: src/video_decompress.h:90-199), registered in
+the port's registry under the reference's names, and ``decompress_init``
 (reference lines 423-443).  Each runs on ``device``, the card unless the
 caller names another; the output frame's data is a uint8 tensor there.
 """
 
 from __future__ import annotations
 
+import struct
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -20,9 +22,15 @@ import torch
 from ultragrid_tpu_torch.device import get_device, on_device
 from ultragrid_tpu_torch.modules.registry import LibraryClass, register_module
 from ultragrid_tpu_torch.ops import dxt as dxt_ops
+from ultragrid_tpu_torch.ops.apv import ApvCodec
+from ultragrid_tpu_torch.ops.cfhd_bitstream import cfhd_decode
+from ultragrid_tpu_torch.ops.cineform import CineformCodec
 from ultragrid_tpu_torch.ops.h264_dec import StreamDecoder, UnsupportedStream
 from ultragrid_tpu_torch.ops.h264_fast import FastStreamDecoder
+from ultragrid_tpu_torch.ops.j2k import J2KDecoder
+from ultragrid_tpu_torch.ops.j2k import UnsupportedStream as J2kUnsupported
 from ultragrid_tpu_torch.ops.jpeg import JpegDecoder, decode_jpeg_to_frame
+from ultragrid_tpu_torch.ops.jpegxs import JpegXsCodec
 from ultragrid_tpu_torch.ops.planar import i420_8_to_uyvy
 from ultragrid_tpu_torch.types import Codec, VideoFrame, get_codec_info
 from ultragrid_tpu_torch.utils.log import Logger
@@ -33,6 +41,12 @@ log = Logger("decompress")
 add_to_param("h264-decoder",
              "H.264 decode path: own (default; the C entropy + reconstruction "
              "stage) | python (the Python decoder); lavc is not ported")
+
+
+def stream_bytes(data) -> bytes:
+    """A compressed frame's data (an array or a tensor anywhere) as bytes."""
+    return bytes(data.cpu().numpy().reshape(-1) if isinstance(data, torch.Tensor) else np.asarray(data, np.uint8)
+                 .reshape(-1))
 
 
 class VideoDecompress:
@@ -154,10 +168,8 @@ class OwnH264Decompress(VideoDecompress):
                 self._stream = FastStreamDecoder()
             except UnsupportedStream:
                 self._stream = StreamDecoder()
-        data = frame.data
-        au = bytes(data.cpu().numpy() if isinstance(data, torch.Tensor) else np.asarray(data))
         try:
-            got = self._stream.decode_au(au)
+            got = self._stream.decode_au(stream_bytes(frame.data))
         except (UnsupportedStream, IndexError, KeyError) as exc:
             log.error(f"own H.264 decoder: stream out of envelope ({exc}); libavcodec, which "
                       "the reference hands it to, is not ported")
@@ -173,25 +185,151 @@ class OwnH264Decompress(VideoDecompress):
         return VideoFrame(frame.desc.with_(width=w, height=h, color_spec=Codec.UYVY), [uyvy], frame.timestamp)
 
 
+def uyvy_interleave(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor) -> torch.Tensor:
+    """Integer Y [H, W], Cb and Cr [H, ~W/2] -> a UYVY frame [H, 2W] uint8 on
+    their device, each sample clipped to 0..255."""
+    h, w = y.shape
+    out = torch.empty((h, 2 * w), dtype=torch.uint8, device=y.device)
+    out[:, 1::2] = y.clamp(0, 255)
+    out[:, 0::4] = cb.clamp(0, 255)
+    out[:, 2::4] = cr.clamp(0, 255)
+    return out
+
+
+def cfhd_uyvy(planes: List[np.ndarray], device) -> torch.Tensor:
+    """The device stage of the CFHD decoder: its 10-bit Y, V and U host
+    planes uploaded in one copy, rounded to 8 bits (an exact inverse of the
+    encoder's << 2) and interleaved to UYVY on ``device``."""
+    flat = torch.from_numpy(np.concatenate([p.reshape(-1) for p in planes]).astype(np.int32)).to(device)
+    ends = np.cumsum([p.size for p in planes])
+    y, v, u = ((flat[e - p.size:e].view(p.shape) + 2) >> 2 for p, e in zip(planes, ends))
+    return uyvy_interleave(y, u, v)  # CFHD's channel order is Y, V, U
+
+
+class JpegXsDecompress(VideoDecompress):
+    """JPEG XS-architecture stream -> UYVY (ref role:
+    src/video_decompress/jpegxs.cpp; see ops/jpegxs.py): the bands decoded
+    on the host, the inverse DWT, clip and interleave on the module's
+    device."""
+
+    SUPPORTS = [(Codec.JPEG_XS, Codec.UYVY)]
+
+    def __init__(self, device="cuda"):
+        super().__init__(device)
+        self.codec = JpegXsCodec(device=self.device)
+
+    def decompress(self, frame: VideoFrame, out_codec: Codec) -> Optional[VideoFrame]:
+        if out_codec != Codec.UYVY:
+            return None
+        y, cb, cr = self.codec.decode_planes(stream_bytes(frame.data))
+        return self._out(frame, Codec.UYVY, uyvy_interleave(y, cb, cr))
+
+
+class ApvDecompress(VideoDecompress):
+    """APV-architecture stream -> UYVY (ref role:
+    src/video_decompress/openapv.cpp over liboapv; see ops/apv.py).  The
+    coded 10-bit planes are rounded back to 8 bits on the module's device; a
+    4:4:4 stream's chroma is decimated, a 4:0:0 stream refused."""
+
+    SUPPORTS = [(Codec.APV, Codec.UYVY)]
+
+    def __init__(self, device="cuda"):
+        super().__init__(device)
+        self.codec = ApvCodec(device=self.device)
+
+    def decompress(self, frame: VideoFrame, out_codec: Codec) -> Optional[VideoFrame]:
+        if out_codec != Codec.UYVY:
+            return None
+        planes = self.codec.decode_planes(stream_bytes(frame.data))
+        if len(planes) != 3:
+            log.error("openapv: only 4:2:2/4:4:4 streams map to UYVY")
+            return None
+        y, cb, cr = ((p + 2) >> 2 for p in planes)  # 10 -> 8 bit
+        if cb.shape[1] == y.shape[1]:  # 444 stream: decimate chroma
+            cb, cr = cb[:, ::2], cr[:, ::2]
+        return self._out(frame, Codec.UYVY, uyvy_interleave(y, cb, cr))
+
+
+class CineformDecompress(VideoDecompress):
+    """CineForm stream -> UYVY (ref role: src/video_decompress/cineform.cpp).
+    Real CFHD samples decode through ``ops/cfhd_bitstream.py`` on the host
+    (the planes go up in one copy; the 10 -> 8 bit rounding and the
+    interleave run on the module's device); UCF1 through ``ops/cineform.py``
+    (the inverse wavelet on the device).
+
+    The reference hands a stream that neither parses to libavcodec's cfhd
+    decoder; the port has no libavcodec, so such a frame decodes to None
+    with an error, as the reference does where libavcodec is absent."""
+
+    SUPPORTS = [(Codec.CFHD, Codec.UYVY)]
+
+    def __init__(self, device="cuda"):
+        super().__init__(device)
+        self.codec = CineformCodec(device=self.device)
+
+    def decompress(self, frame: VideoFrame, out_codec: Codec) -> Optional[VideoFrame]:
+        if out_codec != Codec.UYVY:
+            return None
+        stream = stream_bytes(frame.data)
+        if stream[:4] == b"UCF1":
+            y, cb, cr = self.codec.decode_planes(stream)
+            return self._out(frame, Codec.UYVY, uyvy_interleave(y, cb, cr))
+        try:
+            planes = cfhd_decode(stream, frame.desc.width, frame.desc.height)
+        except (ValueError, IndexError, struct.error, UnboundLocalError) as exc:  # what a foreign stream raises
+            planes, why = None, str(exc)
+        else:
+            why = "no complete Y, U and V channels"
+        if planes is None:
+            log.error(f"cineform: a CFHD stream the own decoder cannot parse ({why}); libavcodec, which the "
+                      "reference hands it to, is not ported")
+            return None
+        return self._out(frame, Codec.UYVY, cfhd_uyvy(planes, self.device))
+
+
+class J2kDecompress(VideoDecompress):
+    """JPEG 2000 -> RGB (ref role: src/video_decompress/cmpto_j2k.cpp): the
+    own T.800 decoder (``ops/j2k.py``: Tier-2 in numpy, Tier-1 in
+    ``native/j2k_t1.c``) on the host, the RGB frame uploaded to the module's
+    device once.
+
+    The reference hands a codestream outside the own profile, or one it
+    cannot read, to OpenJPEG through Pillow; neither is ported, so such a
+    frame decodes to None with an error."""
+
+    SUPPORTS = [(Codec.J2KR, Codec.RGB), (Codec.J2K, Codec.RGB)]
+
+    def decompress(self, frame: VideoFrame, out_codec: Codec) -> Optional[VideoFrame]:
+        if out_codec != Codec.RGB:
+            return None
+        try:
+            comps = J2KDecoder().decode(stream_bytes(frame.data))
+        except (J2kUnsupported, ValueError, IndexError, struct.error) as exc:  # outside the profile, or corrupt
+            log.error(f"j2k: the own decoder cannot read this codestream ({exc}); OpenJPEG, which the reference "
+                      "hands it to, is not ported")
+            return None
+        arr = comps[0] if len(comps) == 1 else np.stack(comps[:3], axis=-1)
+        if arr.ndim == 2:
+            arr = np.repeat(arr[:, :, None], 3, axis=2)
+        h, w = arr.shape[:2]
+        rgb = torch.from_numpy(np.ascontiguousarray(arr[:, :, :3]).reshape(h, w * 3)).to(self.device)
+        return self._out(frame, Codec.RGB, rgb)
+
+
 register_module("dxt", LibraryClass.VIDEO_DECOMPRESS, DxtDecompress)
 register_module("h264_own", LibraryClass.VIDEO_DECOMPRESS, OwnH264Decompress)
 register_module("i420", LibraryClass.VIDEO_DECOMPRESS, I420Decompress)
 register_module("jpeg", LibraryClass.VIDEO_DECOMPRESS, JpegDecompress)
 register_module("jpeg_to_dxt", LibraryClass.VIDEO_DECOMPRESS, JpegToDxtDecompress)
+register_module("jpegxs", LibraryClass.VIDEO_DECOMPRESS, JpegXsDecompress)
+register_module("openapv", LibraryClass.VIDEO_DECOMPRESS, ApvDecompress)
+register_module("cineform", LibraryClass.VIDEO_DECOMPRESS, CineformDecompress)
+register_module("cmpto_j2k", LibraryClass.VIDEO_DECOMPRESS, J2kDecompress)
 
 
-# the own H.264 decoder first, as the reference's probe order puts it
-_ALL = [OwnH264Decompress, DxtDecompress, I420Decompress, JpegDecompress, JpegToDxtDecompress]
-
-# streams only the reference's decoders read: the codec -> the reference
-# module a port of it would need (ROADMAP queue 1)
-_NOT_PORTED = {
-    Codec.JPEG_XS: "jpegxs (ref JpegXsDecompress)",
-    Codec.APV: "openapv (ref ApvDecompress)",
-    Codec.CFHD: "cineform (ref CineformDecompress)",
-    Codec.J2K: "cmpto_j2k (ref J2kDecompress)",
-    Codec.J2KR: "cmpto_j2k (ref J2kDecompress)",
-}
+# the reference's probe order, the own H.264 decoder first
+_ALL = [OwnH264Decompress, DxtDecompress, I420Decompress, JpegDecompress, JpegToDxtDecompress,
+        JpegXsDecompress, ApvDecompress, CineformDecompress, J2kDecompress]
 
 
 def decompress_init(in_codec: Codec, out_candidates: List[Codec], device="cuda"):
@@ -199,15 +337,14 @@ def decompress_init(in_codec: Codec, out_candidates: List[Codec], device="cuda")
     src/video_decompress.c selection by priority): the first output
     candidate that a port module supports.  Returns (module on ``device``,
     out codec), or (None, None) when no candidate fits.  A stream that only
-    a decoder outside the port reads is refused by name: nothing stands in
+    libavcodec reads in the reference is refused by name: nothing stands in
     for it."""
     for out_codec in out_candidates:
         for cls in _ALL:
             if (in_codec, out_codec) in cls.SUPPORTS:
                 return cls(device), out_codec
     if get_codec_info(in_codec).opaque and not any(in_codec == c for cls in _ALL for c, _ in cls.SUPPORTS):
-        need = _NOT_PORTED.get(in_codec, "libavcodec (ref LavcDecompress)")
         raise NotImplementedError(
-            f"no decompressor for {in_codec.name} in the port: it needs {need}, "
+            f"no decompressor for {in_codec.name} in the port: it needs libavcodec (ref LavcDecompress), "
             "which is not ported yet (ROADMAP queue 1)")
     return None, None

@@ -8,7 +8,8 @@ staircase encoder), ``native/udp_tx.c`` (the sender's sendmmsg batches),
 receiver's C depacketizer), ``native/h264_assemble.c`` (per-macroblock
 H.264 slot windows -> emulation-prevented slice payload) and
 ``native/h264_entropy.c`` (the own H.264 decoder and the CABAC transcoder)
-are plain C shared with the JAX package.  ``cc`` builds
+and ``native/j2k_t1.c`` (the JPEG 2000 Tier-1 block coder) are plain C
+shared with the JAX package.  ``cc`` builds
 each into ``build/`` (gitignored) under a content hash of the source and the
 flags; a failed build raises, since the port has no Python fallback for any
 of them.
@@ -165,4 +166,21 @@ def h264_fast_lib() -> ctypes.CDLL:
     lib.h264fast_error.restype = ctypes.c_char_p
     lib.h264fast_error.argtypes = [_P]
     lib.h264fast_destroy.argtypes = [_P]
+    return lib
+
+
+@lru_cache(maxsize=None)
+def j2k_t1_lib() -> ctypes.CDLL:
+    """EBCOT Tier-1 block coder (MQ coder and coding passes) of the own JPEG
+    2000 codec (reference loader ``native.py:217``, the same argtypes)."""
+    lib = ctypes.CDLL(_build("j2k_t1"))
+    lib.j2k_t1_encode_cblk.restype = ctypes.c_long
+    # block, width, height, orientation, dropped planes, out, capacity,
+    # state, (numbps, npasses)
+    lib.j2k_t1_encode_cblk.argtypes = [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, _P, ctypes.c_long, _P, _P]
+    lib.j2k_t1_decode_cblk.restype = ctypes.c_long
+    # data, length, width, height, orientation, numbps, npasses, out, state
+    lib.j2k_t1_decode_cblk.argtypes = [_P, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P]
     return lib
