@@ -31,7 +31,16 @@ and H.264 loopbacks, the wavelet and intra codecs (JPEG XS, CineForm CFHD
 and UCF1, APV, JPEG 2000: phase ``codecs``, card against CPU byte for byte
 with the reference tests' golden digests; ``-c jpegxs`` and ``-c openapv``
 + LDGM sessions with seeded loss, and loopbacks), JPEG rate control against
-its CPU quality sequence, and a 4K timing row; and times kernels, steps, the receive step, the 4K batch in frames/s,
+its CPU quality sequence, and a 4K timing row; audio in the live session
+(phase ``audio_session``: the 1080p60 JPEG + LDGM session with ``-s
+testcard:frequency=997 -f A:rs:16:24 -r wav``, one audio packet dropped a
+frame, every played audio frame equal to the one sent under its RTP
+timestamp; the same without audio and with the reference's
+``A:rs:200:240``; ``--audio-delay`` on the receiver the CLI builds; ``-E``
+on a 1080p60 sender, its frames through ``ImportCapture`` on the card and
+replayed as ``-I``'s capture with their embedded audio; the audio RS parity
+on the card against the CPU's; the CLI's receiver and sender in two
+processes); and times kernels, steps, the receive step, the 4K batch in frames/s,
 4K latency, conversions, DXT, the postprocess functions and the loop's
 chain.  Every phase prints one JSON line; any failed
 check raises, so the exit code is non-zero.  The last lines are the kernel
@@ -45,8 +54,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -610,23 +621,25 @@ LIVE_GRACE_S = 2.0  # how long the receiver may trail the sender's last frame
 P2_GEOMS = [("UYVY", "444", 80), ("YUYV", "444", 95), ("RGB", "422", 80), ("RGBA", "422", 90)]
 
 
-def free_port_pair() -> int:
-    """A UDP port p with p + 1 free too (RTP and RTCP), from the OS."""
+def free_port_pair(count: int = 2) -> int:
+    """A UDP port p with p + 1 .. p + count - 1 free too, from the OS: RTP
+    and RTCP, and with ``count=3`` the audio session at p + 2."""
     import socket
 
     for _ in range(64):
-        a, b = socket.socket(socket.AF_INET, socket.SOCK_DGRAM), socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-        a.bind(("", 0))
-        port = a.getsockname()[1]
+        socks = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM) for _ in range(count)]
         try:
-            b.bind(("", port + 1))
+            socks[0].bind(("", 0))
+            port = socks[0].getsockname()[1]
+            for i, s in enumerate(socks[1:], 1):
+                s.bind(("", port + i))
         except OSError:
             continue
         finally:
-            a.close()
-            b.close()
+            for s in socks:
+                s.close()
         return port
-    raise RuntimeError("no free UDP port pair")
+    raise RuntimeError("no free UDP port run")
 
 
 def drop_data_packets(session, per_frame: int, seed: int, k: int, m: int):
@@ -652,15 +665,18 @@ def drop_data_packets(session, per_frame: int, seed: int, k: int, m: int):
 
 def live_run(dev, capture: str, compress: str, fec: str, frames: int, mtu: int = 1500, loss: int = 0,
              keep_every: int = 0, profile_it: bool = False, tap=None, grace_s: float = LIVE_GRACE_S,
-             idle_s: float = LIVE_GRACE_S):
+             idle_s: float = LIVE_GRACE_S, audio_capture=None, audio_fec: str = "none", audio_loss: int = 0):
     """One session on 127.0.0.1 through the port's entry points: VideoSender
     and VideoReceiver on the card (``--param ldgm-device=device``), a dummy
     display.  The kernels' launch counts are set to 0 just before the
     sender runs and read just after the receiver stops.  ``tap(sender)``
     runs before the sender does.  After the sender's last frame the
     receiver gets ``grace_s`` to catch up, less where it shows nothing new
-    for ``idle_s``.  Returns the session's numbers and the frames kept
-    (every ``keep_every``-th shown, from the first)."""
+    for ``idle_s``.  With ``audio_capture`` the session carries audio too
+    (``-s``, ``-f A:<audio_fec>``, ``-r wav:<tmp>``), ``audio_loss`` packets
+    of every audio frame dropped: every audio frame played must equal the
+    one sent under its RTP timestamp.  Returns the session's numbers and the frames
+    kept (every ``keep_every``-th shown, from the first)."""
     from ultragrid_tpu_torch.ops import fec as fec_ops
     from ultragrid_tpu_torch.ops import jpeg_cuda
     from ultragrid_tpu_torch.pipeline.receiver import VideoReceiver
@@ -668,8 +684,10 @@ def live_run(dev, capture: str, compress: str, fec: str, frames: int, mtu: int =
     from ultragrid_tpu_torch.utils import params
 
     params.set_commandline_param("ldgm-device", "device")
-    port = free_port_pair()
-    recv = VideoReceiver("dummy", rx_port=port, device=dev)
+    port = free_port_pair(3)
+    wav_dir = tempfile.mkdtemp(prefix="chip_smoke_audio_") if audio_capture else None
+    recv = VideoReceiver("dummy", rx_port=port, device=dev,
+                         audio_playback=f"wav:{wav_dir}/played.wav" if audio_capture else None)
     shown, kept, lat, off_card = [], [], [], [0]
     orig = recv.display.put_frame
 
@@ -688,7 +706,8 @@ def live_run(dev, capture: str, compress: str, fec: str, frames: int, mtu: int =
     rt = threading.Thread(target=recv.run, name="receiver", daemon=True)
     rt.start()
     sender = VideoSender(capture, "127.0.0.1", compress_spec=compress, fec_spec=fec, tx_port=port, mtu=mtu,
-                         frame_limit=frames, device=dev)
+                         frame_limit=frames, audio_capture=audio_capture, audio_fec=audio_fec, device=dev)
+    audio = audio_taps(recv, sender, audio_loss) if audio_capture else None
     dropped = []
     if loss:
         k, m = (int(x) for x in fec.split(":")[1:3])
@@ -738,6 +757,9 @@ def live_run(dev, capture: str, compress: str, fec: str, frames: int, mtu: int =
            "latency_ms_p50": lat[len(lat) // 2] if lat else None,
            "latency_ms_p95": lat[min(len(lat) - 1, int(len(lat) * 0.95))] if lat else None,
            "latency_ms_p95_after_first_30": steady[min(len(steady) - 1, int(len(steady) * 0.95))] if steady else None}
+    if audio is not None:
+        out["audio"] = audio_result(audio, sender, audio_fec)
+        shutil.rmtree(wav_dir, ignore_errors=True)
     if prof is not None:
         per = {}
         n_launch = 0
@@ -751,6 +773,28 @@ def live_run(dev, capture: str, compress: str, fec: str, frames: int, mtu: int =
         out["profiler"] = {"device_events_per_frame_sent": {k_: v / sent for k_, v in per.items()},
                            "cuda_launch_calls_per_frame_sent": n_launch / sent}
     return out, kept, sender
+
+
+def jpeg_ring_matches(dev, kept, ring, what: str):
+    """Which ring frame each kept (displayed) frame is the card's JPEG q80
+    encode -> decode of; raises where one is no ring frame's.  Returns the
+    matched ring indices and the expected frames."""
+    from ultragrid_tpu_torch.modules.video_decompress import JpegDecompress
+    from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
+    from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame
+
+    h, w = ring[0].shape[0], ring[0].shape[1] // 2
+    enc = JpegEncoder(w, h)
+    dec = JpegDecompress(device=dev)
+    desc_j = VideoDesc(w, h, Codec.JPEG, 60.0)
+    expect = [dec.decompress(VideoFrame(desc_j, [enc.encode(f)]), Codec.UYVY).data for f in ring]
+    matched = set()
+    for f in kept:
+        hit = [i for i, e in enumerate(expect) if torch.equal(f, e)]
+        if not hit:
+            raise RuntimeError(f"{what}: a displayed frame is no testcard frame's encode -> decode")
+        matched.add(hit[0])
+    return matched, expect
 
 
 def phase_live_session(dev):
@@ -785,17 +829,8 @@ def phase_live_session(dev):
     # the expected frames: the card's encode -> decode of each testcard ring
     # frame; each kept frame must be one of them, and they must equal the
     # CPU plain path
-    ring = sender.capture.frames
-    enc = JpegEncoder(W1080, H1080)
-    dec = JpegDecompress(device=dev)
+    matched, expect = jpeg_ring_matches(dev, kept, sender.capture.frames, "live session 1080p jpeg")
     desc_j = VideoDesc(W1080, H1080, Codec.JPEG, 60.0)
-    expect = [dec.decompress(VideoFrame(desc_j, [enc.encode(f)]), Codec.UYVY).data for f in ring]
-    matched = set()
-    for f in kept:
-        hit = [i for i, e in enumerate(expect) if torch.equal(f, e)]
-        if not hit:
-            raise RuntimeError("live session 1080p jpeg: a displayed frame is no testcard frame's encode -> decode")
-        matched.add(hit[0])
     ring_cpu = initialize_video_capture(LIVE_CAPTURE, device="cpu").frames
     dec_cpu = JpegDecompress(device="cpu")
     worst = (0, 0)
@@ -1447,6 +1482,452 @@ def codec_live_rows(dev):
     return out
 
 
+# ---- slice 9: audio in the live session, and its record and replay (no
+# new kernel: audio is host numpy as in the reference; K1 runs per video
+# frame, K2 in the peel, the audio RS parity product on the card) ----
+
+# 48 kHz stereo 16-bit: 3,840 bytes a channel per 1/25 s; at 997 Hz a 1/25 s
+# chunk holds 39.88 cycles, so each frame differs from the one before (at
+# the default 1 kHz every frame would be the same 40 cycles)
+AUDIO_CAPTURE = "testcard:frequency=997"
+AUDIO_FEC = "rs:16:24"
+AUDIO_FEC_REF_EXAMPLE = "rs:200:240"  # the reference's own example
+AUDIO_CHUNK = 48000 // 25  # samples per audio frame (the sender's audio thread)
+RECORD_FRAMES = 30
+
+
+def drop_audio_packets(session, per_frame: int, seed: int):
+    """Drop ``per_frame`` seeded packets of every audio frame out of the
+    audio session's sends, so they never reach the receiver: a frame's
+    packets are held until its M bit, then sent less the dropped ones.
+    Returns the list the dropped counts go to."""
+    rng = np.random.default_rng(seed)
+    send = session.send_data_hdr
+    held, dropped = [], []
+
+    def send_data_hdr(ts, pt, m, payload_hdr, data, *args, **kwargs):
+        held.append((ts, pt, m, payload_hdr, data))
+        if not m:
+            return
+        lost = set(rng.choice(len(held), min(per_frame, len(held)), replace=False).tolist())
+        for i, pkt in enumerate(held):
+            if i not in lost:
+                send(*pkt)
+        dropped.append(len(lost))
+        held.clear()
+
+    session.send_data_hdr = send_data_hdr
+    return dropped
+
+
+def audio_taps(recv, sender, loss: int, seed: int = 23):
+    """Hooks on the two ends of a session's audio: each frame the sender's
+    audio Tx is given, under the RTP timestamp its packets carry; each frame
+    played, under the timestamp of the buffer it was decoded from; the send
+    -> playback latency (the RTP timestamp is the sender's 90 kHz clock on
+    this host); and ``loss`` seeded packets of every frame dropped before
+    the socket."""
+    taps = {"sent": {}, "played": [], "latency_ms": [], "dropped": [], "pending": [None], "rx_ts": [None]}
+    if loss:
+        taps["dropped"] = drop_audio_packets(sender.audio_session, loss, seed)
+    send = sender.audio_tx.send_audio
+
+    def send_audio(session, frame, *args, **kwargs):
+        taps["pending"][0] = [np.array(c, copy=True) for c in frame.channels]
+        return send(session, frame, *args, **kwargs)
+
+    sender.audio_tx.send_audio = send_audio
+    send_hdr = sender.audio_session.send_data_hdr
+
+    def send_data_hdr(ts, *args, **kwargs):
+        if taps["pending"][0] is not None:
+            taps["sent"][ts] = taps["pending"][0]
+            taps["pending"][0] = None
+        return send_hdr(ts, *args, **kwargs)
+
+    sender.audio_session.send_data_hdr = send_data_hdr
+    put = recv.audio_playback.put_frame
+
+    def put_frame(frame):
+        if frame is not None:
+            taps["played"].append((taps["rx_ts"][0], [np.array(c, copy=True) for c in frame.channels]))
+        put(frame)
+
+    recv.audio_playback.put_frame = put_frame
+    handle = recv._handle_audio
+
+    def handle_audio(node):
+        taps["rx_ts"][0] = node.ts
+        ok = handle(node)
+        if ok:
+            taps["latency_ms"].append(((int(time.monotonic() * 90000) - node.ts) & 0xFFFFFFFF) / 90.0)
+        return ok
+
+    recv._handle_audio = handle_audio
+    return taps
+
+
+def audio_result(taps, sender, audio_fec: str) -> dict:
+    """The audio numbers of one session.  Each played frame is held to the
+    frame sent under its RTP timestamp, byte for byte and channel by
+    channel, and the timestamps played must rise; the sent frames must each
+    differ from the one before, or the check could not see a repeated or
+    reordered buffer."""
+    sent, played = taps["sent"], taps["played"]
+    order = sorted(sent)
+    distinct = sum(not all(np.array_equal(a, b) for a, b in zip(sent[t0], sent[t1]))
+                   for t0, t1 in zip(order, order[1:]))
+    equal = sum(ts in sent and len(sent[ts]) == len(chans)
+                and all(np.array_equal(a, b) for a, b in zip(sent[ts], chans)) for ts, chans in played)
+    rising = all(a[0] < b[0] for a, b in zip(played, played[1:]))
+    first = next(iter(sent.values()), None)
+    lat = sorted(taps["latency_ms"])
+    return {"fec": audio_fec, "frames_sent": len(sent), "frames_played": len(played),
+            "frames_played_equal_to_sent_at_their_timestamp": equal, "timestamps_played_rising": rising,
+            "sent_frames_differing_from_the_one_before": distinct, "packets_dropped": int(sum(taps["dropped"])),
+            "bytes_per_channel": int(first[0].size) if first else 0, "tx_device": str(sender.audio_tx.device),
+            "latency_ms_p50": lat[len(lat) // 2] if lat else None,
+            "latency_ms_p95": lat[min(len(lat) - 1, int(len(lat) * 0.95))] if lat else None}
+
+
+def audio_ok(a: dict) -> bool:
+    """Every played frame is the one sent under its timestamp, in order, and
+    the sent frames are distinguishable from their neighbours."""
+    return (a["frames_played"] >= 1 and a["frames_played_equal_to_sent_at_their_timestamp"] == a["frames_played"]
+            and a["timestamps_played_rising"]
+            and a["sent_frames_differing_from_the_one_before"] == a["frames_sent"] - 1)
+
+
+def rs_packet_recovery(spec: str, nsamples: int = AUDIO_CHUNK, mtu: int = 1500) -> dict:
+    """One 48 kHz stereo 16-bit audio frame of ``nsamples`` through the
+    port's Tx with ``-f A:<spec>``, on the CPU: its packets, RS symbol size,
+    the most symbols a packet spans, and at how many packet positions the
+    loss of that one packet is recovered exactly by ``AudioRxState``."""
+    from ultragrid_tpu_torch.audio.types import AudioDesc, AudioFrame
+    from ultragrid_tpu_torch.net import rtp_types as rt
+    from ultragrid_tpu_torch.net.audio_rx import AudioRxState
+    from ultragrid_tpu_torch.net.pbuf import PbufNode
+    from ultragrid_tpu_torch.net.rtp import RtpPacket
+    from ultragrid_tpu_torch.net.transmit import Tx
+
+    class Recorder:
+        def __init__(self):
+            self.packets = []
+
+        def send_data_hdr(self, ts, pt, m, payload_hdr, data):
+            self.packets.append((pt, m, payload_hdr + data))
+
+    rng = np.random.default_rng(5)
+    frame = AudioFrame(AudioDesc(), [rng.integers(0, 256, nsamples * 2, dtype=np.uint8) for _ in range(2)])
+    rec = Recorder()
+    Tx(mtu=mtu, device="cpu").send_audio(rec, frame, "PCM", fec_spec=spec)
+    k, n = (int(x) for x in spec.split(":")[1:3])
+    hdrs = [rt.parse_audio_header(p[: rt.AUDIO_PAYLOAD_HDR_LEN]) for _, _, p in rec.packets]
+    ss = hdrs[0][3] // n
+    spans = [(off + len(p) - rt.AUDIO_PAYLOAD_HDR_LEN - 1) // ss - off // ss + 1
+             for (_, _, p), (_, _, off, _, _, _, _) in zip(rec.packets, hdrs)]
+    state = AudioRxState()
+    ok = 0
+    for lost in range(len(rec.packets)):
+        node = PbufNode(0, 0.0, 0.0)
+        for i, (pt, m, payload) in enumerate(rec.packets):
+            if i != lost:
+                node.insert_packet(RtpPacket(pt, i, 0, 0, m, payload, 0.0))
+        out = state.decode_frame(node)
+        ok += out is not None and all(np.array_equal(out.channels[c], frame.channels[c]) for c in range(2))
+    return {"spec": spec, "mtu": mtu, "bytes_per_channel": nsamples * 2, "symbol_size": ss, "parity_symbols": n - k,
+            "max_symbols_per_packet": max(spans), "packets_per_frame": len(rec.packets),
+            "packets_whose_loss_is_recovered": int(ok)}
+
+
+TWO_PROC_FRAMES = 600  # the sender's --frames: 10 s at 60 fps, against a start-up of seconds
+TWO_PROC_SHOWN = 540  # the receiver's --frames: it stops by itself once it has shown 90% of them
+TWO_PROC_GRACE_S = 5.0  # how long the receiver may run on after the sender has exited
+
+
+def cli_two_processes(dev, frames: int = TWO_PROC_FRAMES, shown: int = TWO_PROC_SHOWN,
+                      capture: str = LIVE_CAPTURE) -> dict:
+    """The session as a user starts it, in two processes: ``python -m
+    ultragrid_tpu_torch -d dummy -r wav:<tmp> --frames <shown>`` and, once
+    its control socket is up, the sender ``-t <capture> -c jpeg:80 -f
+    V:ldgm:256:26:5 -f A:rs:16:24 -s testcard:frequency=997 --frames
+    <frames>`` over 127.0.0.1, no packet dropped.  The receiver stops by
+    itself once it has shown ``shown`` frames; else it is stopped
+    ``TWO_PROC_GRACE_S`` after the sender exits.  Its display reports the
+    frames shown so far on the first frame 5 s or more after its start or
+    its report before, so the first report, coming after the sender's
+    start-up, times the first frame shown.  Each 1/25 s frame of the played
+    wav must be one of the testcard's chunks, later than the one before; the
+    row counts the chunks missing between the first and the last played."""
+    import re
+    import signal
+    import wave
+
+    from ultragrid_tpu_torch.audio.capture import initialize_audio_capture
+
+    dev_args = [] if torch.device(dev).type == "cuda" else ["--device", "cpu"]
+    port = free_port_pair(3)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_two_proc_")
+    wav_path = os.path.join(tmp, "played.wav")
+    env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=ROOT)
+    uv = [sys.executable, "-m", "ultragrid_tpu_torch"]
+    rx_cmd = uv + ["-d", "dummy", "-r", f"wav:{wav_path}", "-P", str(port), "-n", "0", "--frames", str(shown),
+                   *dev_args]
+    tx_cmd = uv + ["-t", capture, "-c", "jpeg:80", "-f", "V:" + FEC, "-f", "A:" + AUDIO_FEC, "-s", AUDIO_CAPTURE,
+                   "-P", str(port), "-n", "0", "--frames", str(frames), *dev_args, "127.0.0.1"]
+    lines = {"rx": [], "tx": []}
+
+    def start(which, cmd):
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+        def read():
+            for ln in proc.stdout:
+                lines[which].append((time.monotonic(), ln.rstrip()))
+
+        threading.Thread(target=read, daemon=True).start()
+        return proc
+
+    procs = []
+    try:
+        t_rx = time.monotonic()
+        rx = start("rx", rx_cmd)
+        procs.append(rx)
+        while not any("control socket on" in ln for _, ln in lines["rx"]):
+            if rx.poll() is not None or time.monotonic() - t_rx > 120:
+                raise RuntimeError(f"two processes: the receiver did not come up: {lines['rx'][-5:]}")
+            time.sleep(0.05)
+        t_tx = time.monotonic()
+        tx = start("tx", tx_cmd)
+        procs.append(tx)
+        tx_rc = tx.wait(timeout=120 + frames / 10)
+        tx_s = time.monotonic() - t_tx
+        try:
+            rx_rc = rx.wait(timeout=TWO_PROC_GRACE_S)
+            stopped_by_itself = True
+        except subprocess.TimeoutExpired:
+            rx.send_signal(signal.SIGTERM)
+            rx_rc = rx.wait(timeout=30)
+            stopped_by_itself = False
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    reports = [(int(m.group(1)), t - t_tx) for t, ln in lines["rx"]
+               for m in [re.search(r"\[display\] (\d+) frames in ", ln)] if m]
+    total = [(int(m.group(1)), t - t_tx) for t, ln in lines["rx"]
+             for m in [re.search(r"displayed (\d+) frames", ln)] if m]
+    with wave.open(wav_path, "rb") as wf:
+        raw = np.frombuffer(wf.readframes(wf.getnframes()), np.uint8)
+    shutil.rmtree(tmp, ignore_errors=True)
+    # the testcard's chunks as the sender's audio thread reads them
+    chunk_bytes = AUDIO_CHUNK * 2 * 2
+    cap = initialize_audio_capture(AUDIO_CAPTURE)
+    chunks = [cap.read(AUDIO_CHUNK).to_interleaved().tobytes() for _ in range(int(tx_s * 25) + 50)]
+    at = []
+    for j in range(raw.size // chunk_bytes):
+        played = raw[j * chunk_bytes:(j + 1) * chunk_bytes].tobytes()
+        hit = next((i for i in range((at[-1] + 1) if at else 0, len(chunks)) if chunks[i] == played), None)
+        if hit is not None:
+            at.append(hit)
+    return {"capture": capture, "frames_sent": frames, "sender_rc": tx_rc, "sender_seconds": tx_s,
+            "receiver_frames_limit": shown, "receiver_rc": rx_rc, "receiver_stopped_by_itself": stopped_by_itself,
+            "receiver_stopped_s_after_sender_start": total[0][1] if total else None,
+            "frames_shown": total[0][0] if total else max((n for n, _ in reports), default=0),
+            "frames_shown_is_a_lower_bound": not total,
+            "first_frame_shown_s_after_sender_start": reports[0][1] if reports and reports[0][0] == 1 else None,
+            "display_reports": [{"frames_shown": n, "at_s_after_sender_start": t} for n, t in reports],
+            "frames_dropped_by_the_receiver": sum("dropping frame" in ln for _, ln in lines["rx"]),
+            "audio": {"fec": AUDIO_FEC, "frames_played": raw.size // chunk_bytes,
+                      "frames_equal_to_a_testcard_chunk_in_order": len(at),
+                      "chunks_missing_between_first_and_last_played": (at[-1] - at[0] + 1 - len(at)) if at else None},
+            "receiver_tail": [ln for _, ln in lines["rx"][-3:]], "sender_tail": [ln for _, ln in lines["tx"][-3:]]}
+
+
+def cli_receiver(argv):
+    """The VideoReceiver that ``cli.main(argv)`` builds, not run."""
+    from ultragrid_tpu_torch import cli
+    from ultragrid_tpu_torch.pipeline import receiver as receiver_mod
+
+    built = []
+    run = receiver_mod.VideoReceiver.run
+    receiver_mod.VideoReceiver.run = lambda self: built.append(self) or 0
+    try:
+        rc = cli.main(argv)
+    finally:
+        receiver_mod.VideoReceiver.run = run
+    if rc != 0 or len(built) != 1:
+        raise RuntimeError(f"cli {argv}: rc {rc}, {len(built)} receivers built")
+    return built[0]
+
+
+def phase_audio_session(dev):
+    """Audio in the live session, through the port's sender and receiver (what
+    the CLI builds for ``-s testcard -f A:rs:16:24 -r wav:<tmp>``): (a) the
+    1080p60 JPEG + LDGM session of phase ``live_session`` with audio, one
+    seeded video packet and one seeded audio packet dropped per frame at MTU
+    1500 (every played audio frame equal to the one sent under its RTP
+    timestamp, every kept video frame on the card and a ring frame's encode
+    -> decode), the same row without audio, and the reference's example
+    ``A:rs:200:240``; (b)
+    ``--audio-delay`` on the receiver the CLI builds; (c) ``-E`` on a
+    30-frame 1080p60 sender, then the recording through ``ImportCapture``
+    and as ``-I``'s capture; (d) the audio RS parity on the card against the
+    CPU's; (e) the CLI's receiver and sender in two processes."""
+    import struct
+    import wave
+
+    from ultragrid_tpu_torch.ops.fec import fec_from_spec
+    from ultragrid_tpu_torch.pipeline.sender import VideoSender
+    from ultragrid_tpu_torch.utils.export import ImportCapture
+
+    t_phase = time.perf_counter()
+    out = {"phase": "audio_session"}
+    # the recovery table on the CPU: at 16:24 any one lost packet of an audio
+    # thread's frame is recoverable; at the reference's 200:240 only the
+    # short tails are; -I's embedded chunk of one 60 fps frame (800 samples)
+    # is read, not gated
+    rec = {spec: rs_packet_recovery(spec) for spec in (AUDIO_FEC, AUDIO_FEC_REF_EXAMPLE)}
+    rec[AUDIO_FEC + " at 800 samples"] = rs_packet_recovery(AUDIO_FEC, 48000 // 60)
+    out["rs_recovery"] = rec
+    r = rec[AUDIO_FEC]
+    if (r["packets_whose_loss_is_recovered"] != r["packets_per_frame"]
+            or r["max_symbols_per_packet"] > r["parity_symbols"]):
+        raise RuntimeError(f"A:{AUDIO_FEC}: not every packet's loss is recoverable: {r}")
+
+    # (a) the session with audio, the same without, the reference's example
+    jpeg = "jpeg:80"
+    # the row without audio first: both rows then run warm (the first session
+    # of a process pays its threads' first decode)
+    out["jpeg_ldgm_no_audio_1080p"] = live_run(dev, LIVE_CAPTURE, jpeg, FEC, LIVE_FRAMES, loss=LIVE_LOSS)[0]
+    main_run, kept, sender = live_run(dev, LIVE_CAPTURE, jpeg, FEC, LIVE_FRAMES, loss=LIVE_LOSS, keep_every=20,
+                                      audio_capture=AUDIO_CAPTURE, audio_fec=AUDIO_FEC, audio_loss=1)
+    a = main_run["audio"]
+    if (main_run["frames_displayed"] < LIVE_FRAMES // 2 or main_run["frames_off_card"]
+            or min(main_run["launches"]["jpeg_encode"], main_run["launches"]["gf2_parity"]) < 1
+            or main_run["fec_jobs_recovered"] < 1):
+        raise RuntimeError(f"audio session, video: {main_run}")
+    if (not audio_ok(a) or a["packets_dropped"] < a["frames_played"]
+            or not a["tx_device"].startswith(torch.device(dev).type)):
+        raise RuntimeError(f"audio session, audio: {a}")
+    matched, _ = jpeg_ring_matches(dev, kept, sender.capture.frames, "audio session 1080p jpeg")
+    main_run.update(displayed_frames_checked=len(kept), ring_frames_matched=len(matched))
+    out["jpeg_ldgm_audio_1080p"] = main_run
+    out["jpeg_ldgm_audio_ref_example"] = live_run(dev, LIVE_CAPTURE, jpeg, FEC, 30, loss=LIVE_LOSS,
+                                                  audio_capture=AUDIO_CAPTURE, audio_fec=AUDIO_FEC_REF_EXAMPLE,
+                                                  audio_loss=1)[0]
+
+    # (b) --audio-delay on the receiver the CLI builds (ref: 0.232 / 0.032 s
+    # and 0.032 / 0.132 s at the default 32 ms playout delay)
+    delays = {}
+    for ms, want in ((200, (0.232, 0.032)), (-100, (0.032, 0.132))):
+        recv = cli_receiver(["-d", "dummy", "-r", "dummy", f"--audio-delay={ms}", "-P", str(free_port_pair(3)),
+                             "-n", "0", "--device", torch.device(dev).type])
+        got = (recv.audio_pbuf.playout_delay, recv.pbuf.playout_delay)
+        recv.session.close()
+        recv.audio_session.close()
+        recv.display.done()
+        if any(abs(g - w) > 1e-9 for g, w in zip(got, want)) or recv.device.type != torch.device(dev).type:
+            raise RuntimeError(f"--audio-delay {ms}: audio/video playout delays {got}, want {want}")
+        delays[str(ms)] = {"audio_playout_s": got[0], "video_playout_s": got[1]}
+    out["audio_delay"] = delays
+
+    # (c) -E, then the recording through ImportCapture and as -I's capture
+    rec_dir = tempfile.mkdtemp(prefix="chip_smoke_record_")
+    try:
+        recorder = VideoSender(LIVE_CAPTURE, "127.0.0.1", tx_port=free_port_pair(3), frame_limit=RECORD_FRAMES,
+                               audio_capture=AUDIO_CAPTURE, record=rec_dir, device=dev)
+        n_rec = recorder.run()
+        ring = recorder.capture.frames
+        cap = ImportCapture(rec_dir, device=dev)
+        if n_rec != RECORD_FRAMES or cap.frame_count != n_rec:
+            raise RuntimeError(f"-E: {n_rec} sent, {cap.frame_count} recorded")
+        read_ms, up_ms = [], []
+        for i in range(n_rec):
+            t0 = time.perf_counter()
+            host = cap.read_host(i)
+            t1 = time.perf_counter()
+            card = torch.from_numpy(host).to(dev)
+            torch.cuda.synchronize()
+            up_ms.append((time.perf_counter() - t1) * 1e3)
+            read_ms.append((t1 - t0) * 1e3)
+            frame = cap.frame_at(i)
+            if frame.data.device != card.device or not torch.equal(frame.data, card):
+                raise RuntimeError(f"ImportCapture frame {i} is not the recording on {dev}")
+            if not any(torch.equal(card, r_) for r_ in ring):
+                raise RuntimeError(f"-E frame {i} is no testcard frame")
+        cap.done()
+        with wave.open(os.path.join(rec_dir, "sound.wav"), "rb") as wf:
+            wav = np.frombuffer(wf.readframes(wf.getnframes()), np.uint8)
+        grabbed, replayed = [], []
+
+        def tap(snd):
+            grab, send = snd.capture.grab, snd.audio_tx.send_audio
+
+            def grab_checked():
+                frame, audio = grab()
+                grabbed.append(frame is None or frame.data.device.type == torch.device(dev).type)
+                return frame, audio
+
+            def send_recorded(session, frame, *args, **kwargs):
+                replayed.append(frame.to_interleaved().copy())
+                return send(session, frame, *args, **kwargs)
+
+            snd.capture.grab = grab_checked
+            snd.audio_tx.send_audio = send_recorded
+
+        # no audio packet is dropped here: -I's embedded chunk of one 60 fps
+        # frame spans packets of more symbols than 16:24 has parity (see
+        # rs_recovery); row (a) is the audio loss row
+        replay, kept_r, _ = live_run(dev, f"import:{rec_dir}", jpeg, FEC, n_rec, loss=LIVE_LOSS, keep_every=5,
+                                     tap=tap, audio_capture="embedded", audio_fec=AUDIO_FEC)
+        ra = replay["audio"]
+        sent_bytes = np.concatenate(replayed) if replayed else np.zeros(0, np.uint8)
+        if (not all(grabbed) or replay["frames_displayed"] < n_rec // 2 or not replayed
+                or not np.array_equal(sent_bytes, wav[:sent_bytes.size])
+                or not audio_ok(ra)):
+            raise RuntimeError(f"-I replay: {len(replayed)} audio frames, wav {wav.size} B, {replay}")
+        matched_r, _ = jpeg_ring_matches(dev, kept_r, ring, "-I replay")
+        replay.update(displayed_frames_checked=len(kept_r), ring_frames_matched=len(matched_r),
+                      grabs_on_card=len(grabbed), audio_bytes_replayed_equal_to_wav=int(sent_bytes.size))
+        out["record_replay"] = {"frames_recorded": n_rec, "wav_bytes": int(wav.size),
+                                "frames_equal_to_the_recording_on_card": n_rec,
+                                "import_read_ms_per_frame": float(np.mean(read_ms)),
+                                "import_upload_ms_per_frame": float(np.mean(up_ms)), "replay": replay}
+    finally:
+        shutil.rmtree(rec_dir, ignore_errors=True)
+
+    # (d) the audio RS parity product on the card against the CPU's, at the
+    # audio thread's chunk and at -I's chunk of one 60 fps frame
+    rng = np.random.default_rng(31)
+    rs_rows = []
+    for spec in (AUDIO_FEC, AUDIO_FEC_REF_EXAMPLE):
+        rs = fec_from_spec(spec)
+        for nbytes in (AUDIO_CHUNK * 2, 48000 // 60 * 2):
+            data = rng.integers(0, 256, nbytes, dtype=np.uint8)
+            hdr = struct.pack("<I", 1)
+            card, fd = rs.encode(data, hdr=hdr, device=dev)
+            cpu, _ = rs.encode(data, hdr=hdr, device="cpu")
+            if not np.array_equal(card, cpu):
+                raise RuntimeError(f"RS {spec} parity on {dev} differs from the CPU's at {nbytes} B")
+            rs_rows.append({"spec": spec, "bytes_per_channel": nbytes, "symbol_size": fd.symbol_size,
+                            "equal_to_cpu": True, "encode_ms_card": host_ms(lambda: rs.encode(data, hdr=hdr,
+                                                                                            device=dev), 20),
+                            "encode_ms_cpu": host_ms(lambda: rs.encode(data, hdr=hdr, device="cpu"), 20)})
+    out["rs_parity"] = rs_rows
+
+    # (e) the CLI in two processes, as a user runs it
+    two = cli_two_processes(dev)
+    ta = two["audio"]
+    if (two["sender_rc"] != 0 or not two["receiver_stopped_by_itself"] or two["receiver_rc"] != 0
+            or two["frames_shown"] < TWO_PROC_SHOWN or ta["frames_played"] < 1
+            or ta["frames_equal_to_a_testcard_chunk_in_order"] != ta["frames_played"]):
+        raise RuntimeError(f"the CLI in two processes: {two}")
+    out["cli_two_processes"] = two
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def coeff_entry_timing(dev):
     """K1's coefficient entry at 1080p UYVY 4:4:4 q80: CUDA events, profiler
     device time, its plain version (symbols and pack on the card), and its
@@ -1950,6 +2431,8 @@ def main() -> int:
     emit(phase_codecs(dev))
     live = phase_live_session(dev)
     emit(live)
+    audio = phase_audio_session(dev)
+    emit(audio)
 
     # ---- timing: mean of back-to-back launches between two CUDA events;
     # profiler device time beside it ----
@@ -2108,11 +2591,16 @@ def main() -> int:
 
     one_call = "none: no single PyTorch call computes this function"
     live_l = live["jpeg_ldgm_1080p"]["launches"]
+    audio_l = audio["jpeg_ldgm_audio_1080p"]["launches"]
+    replay_l = audio["record_replay"]["replay"]["launches"]
     emit({"kernels": [
         {"name": "jpeg_encode", "route": "cuda", "source": "ultragrid_tpu_torch/csrc/jpeg_encode.cu",
          "replaces": "ultragrid_tpu/ops/jpeg_pallas.py:122", "launches": live_l["jpeg_encode"],
-         "launches_on": "live session 1080p jpeg + LDGM, " + str(LIVE_FRAMES) + " frames",
+         "launches_on": "live session 1080p jpeg + LDGM, " + str(LIVE_FRAMES) + " frames; "
+                        "launches_audio_session: the same with audio (-s testcard -f A:rs:16:24); "
+                        "launches_replay_session: -I of a 30-frame -E recording, jpeg + LDGM",
          "launches_sender_step": launches["jpeg_encode"],
+         "launches_audio_session": audio_l["jpeg_encode"], "launches_replay_session": replay_l["jpeg_encode"],
          "max_abs_err": k1_err, **{key: k1_t["1080p"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "device_ms": k1_t["1080p"]["device_ms"], "library_ms": None, "library": one_call,
          "at": "1920x1080 UYVY q80 4:2:2", "8k": k1_t["8K"],
@@ -2130,7 +2618,9 @@ def main() -> int:
          "replaces": "ultragrid_tpu/ops/fec.py:141", "launches": live_l["gf2_parity"],
          "launches_on": "live session 1080p jpeg + LDGM with loss (the receiver's peel); "
                         "launches_h264_live: the 1080p h264 inter + LDGM session with loss; "
-                        "launches_codec_live: the 1080p jpegxs and openapv + LDGM sessions with loss",
+                        "launches_codec_live: the 1080p jpegxs and openapv + LDGM sessions with loss; "
+                        "launches_audio_session / launches_replay_session: the 1080p jpeg + LDGM session "
+                        "with audio, and -I of a recording, with loss",
          "launches_h264_live": live["h264_inter_ldgm_1080p"]["launches"]["gf2_parity"],
          "peel_h264_max_abs_err": live["h264_k2_peel"]["max_abs_err"],
          "launches_codec_live": {spec: {"launches": live[f"{spec}_ldgm_1080p"]["launches"]["gf2_parity"],
@@ -2138,6 +2628,7 @@ def main() -> int:
                                         "peel_max_abs_err": live[f"{spec}_ldgm_1080p"]["k2_peel"]["max_abs_err"]}
                                  for spec, _ in CODEC_LIVE},
          "launches_sender_step": launches["gf2_parity"],
+         "launches_audio_session": audio_l["gf2_parity"], "launches_replay_session": replay_l["gf2_parity"],
          "max_abs_err": k2_err, **{key: k2_t["1080p"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "device_ms": k2_t["1080p"]["device_ms"], "library_ms": None, "library": one_call,
          "at": "1080p step's parts, LDGM 256:26:5", "8k": k2_t["8K"],

@@ -1,7 +1,8 @@
 """Kernels K1 and K2 on the card against their plain PyTorch twins, the
 receive path, the batched sender, the pixel formats, DXT, postprocess, the
-filters, the local loop, the stitcher and the H.264 device encoders on the
-card against the CPU.
+filters, the local loop, the stitcher, the H.264 device encoders, the
+wavelet and intra codecs and the audio RS parity on the card against the
+CPU, and the import capture of a recording on the card.
 
 Needs a CUDA card and nvcc; skips without a card.  On the card's machine
 (which has no jax, so the JAX conftest must stay out):
@@ -593,3 +594,63 @@ def test_codec_1080p_on_card_equals_cpu(cuda, spec):
     assert got.is_cuda and torch.equal(got.cpu(), want)
     if spec in ("jpegxs:100", "cineform:100"):
         assert np.array_equal(got.cpu().numpy(), src)
+
+
+# ---- audio in the live session, and the session's record and replay ----
+
+@pytest.mark.parametrize("spec", ["rs:16:24", "rs:200:240"])
+@pytest.mark.parametrize("nbytes", [3840, 1600])
+def test_audio_rs_parity_on_card_equals_cpu(cuda, spec, nbytes):
+    """``-f A:rs:k:n``: each channel's RS parity from the Tx on the card (its
+    default device) equals the CPU's, at the audio thread's chunk (1/25 s of
+    48 kHz 16-bit) and at ``-I``'s chunk of one 60 fps frame."""
+    from ultragrid_tpu_torch.audio.types import AudioDesc, AudioFrame
+    from ultragrid_tpu_torch.net.transmit import Tx
+
+    class Recorder:
+        def __init__(self):
+            self.packets = []
+
+        def send_data_hdr(self, ts, pt, m, payload_hdr, data):
+            self.packets.append((pt, m, payload_hdr + data))
+
+    rng = np.random.default_rng(8)
+    frame = AudioFrame(AudioDesc(), [rng.integers(0, 256, nbytes, dtype=np.uint8) for _ in range(2)])
+    card, cpu = Recorder(), Recorder()
+    tx = Tx()
+    assert tx.device.type == "cuda"
+    tx.send_audio(card, frame, "PCM", fec_spec=spec)
+    Tx(device="cpu").send_audio(cpu, frame, "PCM", fec_spec=spec)
+    assert card.packets == cpu.packets
+
+
+def test_import_capture_on_card(cuda, tmp_path):
+    """``-E`` on the card, then ``ImportCapture`` (its default device is the
+    card): every frame it hands out is on the card and equal to the recorded
+    file, and its embedded audio is the recorded wav."""
+    import wave
+
+    from ultragrid_tpu_torch.pipeline.sender import VideoSender
+    from ultragrid_tpu_torch.utils.export import ImportCapture
+
+    from tests.test_torch_net import free_port_pair
+
+    rec = str(tmp_path / "rec")
+    sender = VideoSender("testcard:s=1920x1080:f=60:c=UYVY", "127.0.0.1", tx_port=free_port_pair(), frame_limit=8,
+                         audio_capture="testcard", record=rec)
+    assert sender.run() == 8
+    cap = ImportCapture(rec)
+    assert cap.device.type == "cuda" and cap.frame_count == 8
+    with wave.open(f"{rec}/sound.wav", "rb") as wf:
+        wav = np.frombuffer(wf.readframes(wf.getnframes()), np.uint8)
+    audio = []
+    for i in range(8):
+        frame, a = cap.grab()
+        assert frame.data.is_cuda
+        assert np.array_equal(frame.data.cpu().numpy().reshape(-1), np.fromfile(f"{rec}/{i + 1:08d}.yuv", np.uint8))
+        assert any(torch.equal(frame.data, r) for r in sender.capture.frames)
+        if a is not None:
+            audio.append(a.to_interleaved())
+    cap.done()
+    got = np.concatenate(audio)
+    assert got.size > 0 and np.array_equal(got, wav[:got.size])

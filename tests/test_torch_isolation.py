@@ -3,9 +3,11 @@ Pillow, which the reference's JPEG 2000 decoder falls back to).
 
 A subprocess blocks ``jax`` and ``ultragrid_tpu`` in ``sys.modules`` (so any
 import of either, direct or indirect, fails) and drives the port with its own
-types, down to a live session over 127.0.0.1, the H.264 codec and the wavelet and
-intra codecs on the CPU.  A source scan rejects any ``import`` of any of them in the port,
-``chip_smoke.py``, ``chip_profile.py`` and ``chip_phases.py``.
+types, down to a live session over 127.0.0.1, the H.264 codec, the wavelet and
+intra codecs, and audio with its record and replay (``audio/``, ``tools/``)
+on the CPU.  A source scan rejects any ``import`` of any of them in the port
+(``audio/`` and ``tools/`` included), ``chip_smoke.py``, ``chip_profile.py``
+and ``chip_phases.py``.
 """
 
 import os
@@ -124,7 +126,7 @@ assert n == 3 and len(got) == 4 and got[-1] is None and tuple(got[0].data.shape)
 assert capabilities.get_capabilities()["backend"] == "torch-cuda"
 # the live session: every new module, the CLI, a loopback and a sender ->
 # receiver pair over 127.0.0.1 on the CPU; each defaults to the card
-import threading
+import threading, time
 from ultragrid_tpu_torch import cli, native
 from ultragrid_tpu_torch.modules import messaging, video_compress, video_decompress
 from ultragrid_tpu_torch.net import pbuf, rtcp, rtp, rtp_types, transmit, video_rx, vrx_fast
@@ -203,6 +205,49 @@ for comp, dec, out in ((JpegXsCompress("100", device="cpu"), JpegXsDecompress(de
                        (J2kCompress("100", device="cpu"), J2kDecompress(device="cpu"), Codec.RGB)):
     shown = dec.decompress(comp.compress(VideoFrame(desc, [frame])), out)
     assert shown.data.dtype == torch.uint8 and shown.data.shape[0] == 32, type(comp).__name__
+# audio in the live session, -E and -I, astat: every audio module and tool;
+# the Tx and the import capture default to the card
+import io, tempfile, wave
+from ultragrid_tpu_torch.audio import (aes67, alsa, capture, codecs, echo, filters, midi_synth, playback,
+                                       resampler, volume)
+from ultragrid_tpu_torch.net import audio_rx
+from ultragrid_tpu_torch.tools import astat
+from ultragrid_tpu_torch.utils import export
+rec = tempfile.mkdtemp()
+sender.VideoSender("testcard:s=64x32:f=60:c=UYVY", "127.0.0.1", tx_port=port, frame_limit=6, audio_capture="testcard",
+                   record=rec, device="cpu").run()
+if not torch.cuda.is_available():
+    for make in (transmit.Tx, lambda: export.ImportCapture(rec)):
+        try:
+            make()
+        except RuntimeError:
+            pass
+        else:
+            raise SystemExit("an audio entry point ran without a card on its default device")
+try:
+    codecs.get_audio_codec("Opus")
+except ValueError as e:
+    assert "lavc_codecs.py" in str(e)
+else:
+    raise SystemExit("a libavcodec audio codec was accepted")
+played = []
+rx = receiver.VideoReceiver("dummy", rx_port=port, timeout=20.0, audio_playback="dummy", device="cpu")
+put = rx.audio_playback.put_frame
+rx.audio_playback.put_frame = lambda f: (played.append(f), put(f))
+t = threading.Thread(target=rx.run, daemon=True)
+t.start()
+assert cli.main(["-I", rec, "-f", "A:rs:16:24", "-P", str(port), "-n", "0", "--device", "cpu", "127.0.0.1"]) == 0
+time.sleep(0.3)
+rx.should_exit = True
+t.join(timeout=20)
+with wave.open(rec + "/sound.wav", "rb") as wf:
+    wav = wf.readframes(wf.getnframes())
+got = b"".join(f.to_interleaved().tobytes() for f in played)
+assert rx.frames_displayed >= 1 and got and got == wav[:len(got)], (rx.frames_displayed, len(got), len(wav))
+ctl = control_socket.ControlServer(messaging.Module("root"), 0)
+threading.Timer(0.3, lambda: ctl.report_stats("stats ARECV volrms0 -18.0 volpeak0 -12.0")).start()
+assert astat.run("127.0.0.1", ctl.port, seconds=1.0, out=io.StringIO()) == {0: (-18.0, -12.0)}
+ctl.close()
 loaded = [m for m, mod in sys.modules.items()
           if m.split(".")[0] in ("jax", "ultragrid_tpu", "PIL") and mod is not None]
 assert not loaded, loaded
@@ -230,7 +275,8 @@ def test_port_sources_never_name_jax():
     # build/ holds compiled kernels (and may hold an unpacked checkout)
     sources = [p for p in pkg.rglob("*.py") if "build" not in p.relative_to(pkg).parts]
     sources += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py", ROOT / "chip_phases.py"]
-    assert sources
+    walked = {p.relative_to(pkg).parts[0] for p in sources if pkg in p.parents}
+    assert {"audio", "tools", "net", "utils", "ops", "modules", "pipeline"} <= walked, walked
     pil_at = set()
     for path in sources:
         where = ""

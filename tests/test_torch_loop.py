@@ -478,6 +478,8 @@ def test_stitch_equals_reference(spec):
 
 
 def test_registry_uses_the_reference_names():
+    import ultragrid_tpu.audio.midi_synth  # noqa: F401  (the reference's initialize_audio_capture registers it)
+
     L, RL = registry.LibraryClass, ref_registry.LibraryClass
     assert [c.value for c in L] == [c.value for c in RL]
     assert {c.value: v for c, v in registry.ABI_VERSIONS.items()} == \
@@ -487,9 +489,11 @@ def test_registry_uses_the_reference_names():
                            "jpegxs", "none", "openapv", "uyvy"],
         L.VIDEO_DECOMPRESS: ["cineform", "cmpto_j2k", "dxt", "h264_own", "i420", "jpeg", "jpeg_to_dxt", "jpegxs",
                              "openapv"],
-        L.VIDEO_CAPTURE: ["gpustitch", "noise", "stitch", "testcard", "testcard2"],
+        L.VIDEO_CAPTURE: ["gpustitch", "import", "noise", "stitch", "testcard", "testcard2"],
         L.VIDEO_DISPLAY: ["aggregate", "blend", "caca", "conference", "dummy", "dump", "file",
                           "null", "pano", "pipe"],
+        L.AUDIO_CAPTURE: ["aes67", "alsa", "fluidsynth", "midi", "none", "testcard", "wav"],
+        L.AUDIO_PLAYBACK: ["alsa", "dummy", "none", "wav"],
     }
     for cls, names in expected.items():
         assert registry.list_modules(cls) == names

@@ -6,17 +6,19 @@ port holds (src/main.cpp:690-740):
   -t DEVICE[:cfg]    capture device (testcard, testcard2, noise)
   -d DISPLAY[:cfg]   display (dummy, null, dump, file, conference, ...)
   -c COMPRESS[:opts] video compression (none, uyvy, dxt, jpeg[:rate=], h264[:opts])
-  -f FEC             forward error correction (none|mult:N|ldgm:...|rs:k:n)
+  -f FEC             forward error correction ([A:|V:]none|mult:N|ldgm:...|rs:k:n)
+  -s / -r / -A       audio capture, playback and codec (PCM, alaw, ulaw)
+  -E DIR / -I DIR    record the session / replay a recording as the capture
   -x PROTOCOL        ultragrid_rtp (default) or loopback
   --device DEV       where frames live and kernels run: cuda (default) or cpu
 
 Run a sender ``python -m ultragrid_tpu_torch -t testcard -c jpeg -f ldgm
 <host>``, a receiver ``python -m ultragrid_tpu_torch -d dummy``, both on the
 card unless ``--device cpu`` is given.  Options whose modules are not in the
-port yet (audio, encryption, export, RTSP, standards mode, NAT traversal,
-the other rxtx protocols, full-duplex sessions, windowed displays) are
-refused with an error that names the missing module; none is accepted and
-ignored.  The reference's ``~/.ug.rc`` aliases are not read.
+port yet (encryption, the libavcodec audio codecs, echo cancellation, RTSP,
+standards mode, NAT traversal, the other rxtx protocols, full-duplex
+sessions, windowed displays) are refused with an error that names the
+missing module; none is accepted and ignored.  The reference's ``~/.ug.rc`` aliases are not read.
 """
 
 from __future__ import annotations
@@ -24,30 +26,20 @@ from __future__ import annotations
 import argparse
 import sys
 
+from ultragrid_tpu_torch.audio.codecs import LAVC_AUDIO_CODECS
 from ultragrid_tpu_torch.modules.registry import LibraryClass, list_modules
 from ultragrid_tpu_torch.utils import log as _log
 from ultragrid_tpu_torch.utils.params import print_param_doc, set_commandline_param
 
 # option dest -> the module of the reference it needs, not ported yet
 _NOT_PORTED = {
-    "playback": "-I/--playback needs the import capture (ultragrid_tpu/modules/file_io.py)",
-    "audio_channel_map": "-U needs the audio modules (ultragrid_tpu/audio/)",
-    "audio_delay": "--audio-delay needs the audio modules (ultragrid_tpu/audio/)",
-    "audio_capture_format": "-a needs the audio modules (ultragrid_tpu/audio/)",
-    "audio_capture_channels": "--audio-capture-channels needs the audio modules (ultragrid_tpu/audio/)",
-    "audio_scale": "--audio-scale needs the audio modules (ultragrid_tpu/audio/)",
-    "audio_host": "--audio-host needs the audio modules (ultragrid_tpu/audio/)",
-    "echo_cancellation": "--echo-cancellation needs ultragrid_tpu/audio/echo.py",
+    "echo_cancellation": "--echo-cancellation is assigned by the full-duplex session "
+                         "(ultragrid_tpu/pipeline/duplex.py)",
     "window_title": "--window-title needs a windowed display (gl, x11, drm)",
     "nat_traverse": "-N/--nat-traverse needs ultragrid_tpu/net/nat.py",
     "encryption": "-e/--encryption needs ultragrid_tpu/utils/crypto.py",
-    "record": "-E/--record needs ultragrid_tpu/utils/export.py",
     "rtsp": "--rtsp needs ultragrid_tpu/net/rtsp.py",
     "rtp_standard": "--rtp-standard needs ultragrid_tpu/net/rtpdec_jpeg.py and utils/sdp.py",
-    "audio_capture": "-s/--audio-capture needs the audio modules (ultragrid_tpu/audio/)",
-    "audio_playback": "-r/--audio-playback needs the audio modules (ultragrid_tpu/audio/)",
-    "audio_codec": "-A/--audio-codec needs the audio modules (ultragrid_tpu/audio/)",
-    "audio_filter": "-i/--audio-filter needs the audio modules (ultragrid_tpu/audio/)",
 }
 
 _PROTOCOLS_NOT_PORTED = {
@@ -71,8 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "jpegxs[:quality]|cineform[:quality]|openapv|apv[:qp=N][:tile_w=N][:tile_h=N]|"
                         "j2k|cmpto_j2k[:quality]")
     p.add_argument("-f", "--fec", action="append", default=None,
-                   help="FEC: [V:]{none|mult:N|ldgm:k:m:c|ldgm:P%%|rs:k:n} "
-                        "(A: is audio, not ported; ref: main.cpp:824-839)")
+                   help="FEC: [A:|V:]{none|mult:N|ldgm:k:m:c|ldgm:P%%|rs:k:n} "
+                        "(A:/V: select the medium; ref: main.cpp:824-839)")
     p.add_argument("-l", "--limit-bitrate", default="auto",
                    help="auto|dynamic|unlimited|<num>[kMG][!][E] "
                         "(ref: parse_bitrate, rtp_common.c:777)")
@@ -116,28 +108,48 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print machine-readable capabilities JSON (GUI contract)")
     p.add_argument("--device", default="cuda",
                    help="torch device of frames and kernels: cuda (default) or cpu")
+    p.add_argument("-I", "--playback", default=None, metavar="DIR",
+                   help="replay a recorded session directory as the capture "
+                        "(ref: -I/--playback, main.cpp:904-915)")
+    p.add_argument("-E", "--record", nargs="?", const="", default=None,
+                   help="export the session to DIR (default auto-named)")
+    p.add_argument("-U", "--audio-channel-map", default=None,
+                   help="src:dst[,src:dst...] audio channel remap")
+    p.add_argument("--audio-delay", type=int, default=0,
+                   help="ms to delay audio against video (negative delays "
+                        "video; ref: set_audio_delay, host.cpp:1019)")
+    p.add_argument("-a", "--audio-capture-format", default=None,
+                   help="{channels=<num>|bps=<bits>|sample_rate=<rate>}"
+                        "[:...] capture format overrides (ref: -a, "
+                        "parse_audio_format audio/utils.cpp:720)")
+    p.add_argument("--audio-capture-channels", type=int, default=None,
+                   help="shorthand for -a channels=N (ref: main.cpp:725)")
+    p.add_argument("--audio-scale", default="none",
+                   help="<factor>|auto|none — received-audio scaling "
+                        "(ref: OPT_AUDIO_SCALE, main.cpp:858)")
+    p.add_argument("--audio-host", default=None,
+                   help="send audio to a different address than video "
+                        "(ref: OPT_AUDIO_HOST, main.cpp:895)")
+    p.add_argument("-s", "--audio-capture", default=None,
+                   help="audio capture (testcard, wav:FILE, none, embedded, ...)")
+    p.add_argument("-r", "--audio-playback", default=None, help="audio playback (dummy, wav:FILE)")
+    p.add_argument("-A", "--audio-codec", default="PCM",
+                   help="audio codec: PCM|alaw|ulaw (Opus, G722, speex, MP3, AAC, FLAC need "
+                        "libavcodec, not in the port yet)")
+    p.add_argument("-i", "--audio-filter", default=None,
+                   help="<filter>[:<config>][#<filter>...] — gain/delay/"
+                        "silence/discard/channel_remap/controlport_stats "
+                        "(ref: main.cpp:271)")
     # the reference's options whose modules the port does not hold yet:
     # parsed, so that using one is refused by name (see _NOT_PORTED)
-    p.add_argument("-I", "--playback", default=None, metavar="DIR", help=argparse.SUPPRESS)
-    p.add_argument("-U", "--audio-channel-map", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--audio-delay", type=int, default=None, help=argparse.SUPPRESS)
-    p.add_argument("-a", "--audio-capture-format", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--audio-capture-channels", type=int, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--audio-scale", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--audio-host", default=None, help=argparse.SUPPRESS)
     p.add_argument("--echo-cancellation", action="store_true", default=None, help=argparse.SUPPRESS)
     p.add_argument("--window-title", default=None, help=argparse.SUPPRESS)
     p.add_argument("-N", "--nat-traverse", nargs="?", const="auto", default=None, help=argparse.SUPPRESS)
     p.add_argument("--audio-protocol", default=None, help=argparse.SUPPRESS)
     p.add_argument("--video-protocol", default=None, help=argparse.SUPPRESS)
     p.add_argument("-e", "--encryption", default=None, help=argparse.SUPPRESS)
-    p.add_argument("-E", "--record", nargs="?", const="", default=None, help=argparse.SUPPRESS)
     p.add_argument("--rtsp", action="store_true", default=None, help=argparse.SUPPRESS)
     p.add_argument("--rtp-standard", action="store_true", default=None, help=argparse.SUPPRESS)
-    p.add_argument("-s", "--audio-capture", default=None, help=argparse.SUPPRESS)
-    p.add_argument("-r", "--audio-playback", default=None, help=argparse.SUPPRESS)
-    p.add_argument("-A", "--audio-codec", default=None, help=argparse.SUPPRESS)
-    p.add_argument("-i", "--audio-filter", default=None, help=argparse.SUPPRESS)
     p.add_argument("host", nargs="?", default=None, help="receiver address (sender mode)")
     return p
 
@@ -150,9 +162,9 @@ def refusal(args) -> str:
     for dest, why in _NOT_PORTED.items():
         if getattr(args, dest) is not None:
             return f"not in the port yet: {why}"
-    for spec in args.fec or []:
-        if len(spec) > 2 and spec[1] == ":" and spec[0].upper() == "A":
-            return "not in the port yet: -f A:... needs the audio modules (ultragrid_tpu/audio/)"
+    if args.audio_codec in LAVC_AUDIO_CODECS:
+        return (f"not in the port yet: -A {args.audio_codec} needs libavcodec "
+                "(ultragrid_tpu/audio/lavc_codecs.py)")
     for kv in args.param:
         key, _, val = kv.partition("=")
         if key == "h264-decoder" and val == "lavc":
@@ -204,6 +216,19 @@ def main(argv=None) -> int:
                 print(f"{c.name:12s} {' '.join(attrs)}")
         return 0
 
+    if args.audio_capture_format:
+        from ultragrid_tpu_torch.audio.capture import set_audio_capture_format
+
+        try:
+            set_audio_capture_format(args.audio_capture_format)
+        except ValueError as e:
+            print(f"-a: {e}", file=sys.stderr)
+            return 1
+    if args.audio_capture_channels:
+        from ultragrid_tpu_torch.audio.capture import set_audio_capture_format
+
+        set_audio_capture_format(f"channels={args.audio_capture_channels}")
+
     if args.conv_policy:
         from ultragrid_tpu_torch.ops.pixfmt import set_pixfmt_conv_policy
 
@@ -233,11 +258,25 @@ def main(argv=None) -> int:
         print(print_param_doc())
         return 0
 
-    # -f [V:]spec (ref: main.cpp:824-839); the last one wins
-    video_fec = "none"
+    # -f [A:|V:]spec may appear once per medium (ref: main.cpp:824-839);
+    # normalize into args.fec (video) + args.audio_fec
+    video_fec, audio_fec = "none", "none"
     for spec in args.fec or []:
-        video_fec = spec[2:] if len(spec) > 2 and spec[:2].upper() == "V:" else spec
+        if len(spec) > 2 and spec[1] == ":" and spec[0].upper() in "AV":
+            if spec[0].upper() == "A":
+                audio_fec = spec[2:]
+            else:
+                video_fec = spec[2:]
+        else:
+            video_fec = spec
     args.fec = video_fec
+    args.audio_fec = audio_fec
+
+    if args.playback:
+        # -I DIR == import capture with embedded audio (ref: playback.c)
+        args.capture = f"import:{args.playback}"
+        if not args.audio_capture:
+            args.audio_capture = "embedded"
 
     for kv in args.param:
         key, _, val = kv.partition("=")

@@ -1,4 +1,5 @@
-"""The port's modules: registry, capture, filters, displays, compression.
+"""The port's modules: registry, capture, filters, displays, compression,
+and the import capture and audio devices registered beside them.
 
 Importing the package registers every built-in module in the port's own
 registry (ref: constructor-time REGISTER_MODULE, src/lib_common.h:124-143),
@@ -19,3 +20,9 @@ import ultragrid_tpu_torch.modules.video_decompress  # noqa: E402,F401
 import ultragrid_tpu_torch.modules.filters  # noqa: E402,F401
 import ultragrid_tpu_torch.modules.extra_displays  # noqa: E402,F401
 import ultragrid_tpu_torch.modules.stitch  # noqa: E402,F401
+import ultragrid_tpu_torch.utils.export  # noqa: E402,F401  (registers the 'import' capture device)
+# the audio devices register too, so --list-modules sees them; these are
+# imports by module name only (audio/capture.py imports its sibling devices
+# once AudioCapture exists, so entering through any of them does not cycle)
+import ultragrid_tpu_torch.audio.capture  # noqa: E402,F401
+import ultragrid_tpu_torch.audio.playback  # noqa: E402,F401

@@ -59,7 +59,11 @@ def _pace(cap) -> None:
 
 
 class VideoCapture:
-    """Base class for capture devices."""
+    """Base class for capture devices.  ``finished`` turns true when a
+    device has nothing more to give (a replayed recording at its end), and
+    the sender then stops."""
+
+    finished = False
 
     def __init__(self, cfg: str, device="cuda"):
         self.cfg = cfg

@@ -1,11 +1,13 @@
 """Minimal RTP session over UDP (RFC 3550 data path + basic RTCP).
 
-The port's copy of ``ultragrid_tpu/net/rtp.py`` (jax-free), for video:
-every send is a batch through the shared C helper ``native/udp_tx.c`` and
-batch receives go through ``native/udp_rx.c`` (the port's loaders raise if
-they cannot be built; there is no Python-socket stand-in for them).  The
-reference's per-packet send queue and its extra unicast destinations (RTSP
-clients) are not ported with RTSP.
+The port's copy of ``ultragrid_tpu/net/rtp.py`` (jax-free).  Video is sent
+in batches through the shared C helper ``native/udp_tx.c``; audio, a few
+packets every 40 ms, one packet at a time from the caller's thread
+(:meth:`RtpSession.send_data_hdr`, where the reference hands each packet to
+a send thread: the same bytes in the same order).  Batch receives go through
+``native/udp_rx.c`` (the port's loaders raise if they cannot be built; there
+is no Python-socket stand-in for them).  The reference's extra unicast
+destinations (RTSP clients) are not ported with RTSP.
 
 Host-side analogue of the reference's src/rtp/rtp.c + net_udp.c: dual-role
 session bound to rx_port, sending to (addr, tx_port); receive uses a
@@ -193,6 +195,25 @@ class RtpSession:
                 f"receiver {addr!r} resolves to a different address family "
                 "than this session's socket")
         self._dest = (ip, tx_port or self.tx_port)
+
+    def send_data_hdr(self, ts: int, pt: int, m: bool, payload_hdr: bytes, data: bytes) -> None:
+        """ref: rtp_send_data_hdr (rtp.c); payload = payload_hdr + data,
+        sent now from this thread."""
+        if self._dest is None:
+            return
+        seq = self.seq
+        self.seq = (self.seq + 1) & 0xFFFF
+        hdr = struct.pack("!BBHII", RTP_VERSION << 6, (0x80 if m else 0) | (pt & 0x7F),
+                          seq, ts & 0xFFFFFFFF, self.ssrc)
+        pkt = hdr + payload_hdr + bytes(data)
+        self.bytes_sent += len(pkt)
+        self.packets_sent += 1
+        if self.rtcp is not None:
+            self.rtcp.on_rtp_sent(len(pkt), ts)
+        try:
+            self.sock.sendto(pkt, self._dest)
+        except OSError as e:
+            log.warning(f"send failed: {e}")
 
     def send_batch(self, ts: int, pt: int, payload_hdrs, payload: "bytes|object",
                    offsets, sizes, m_last: bool, pace_ns: int = 0) -> int:

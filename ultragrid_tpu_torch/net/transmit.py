@@ -1,27 +1,32 @@
-"""Video packetizer and traffic shaper (ref: src/transmit.c).
+"""Video and audio packetizer and traffic shaper (ref: src/transmit.c).
 
-The port's copy of ``ultragrid_tpu/net/transmit.py``, video only.
-Wire-compatible: symbol-aligned packet splitting (get_packet_sizes,
-transmit.c:589-623), video/FEC payload headers, M bit on the frame's last
-packet, packet pacing modes unlimited/auto (75% of frame time)/fixed
-(get_packet_rate, transmit.c:653-689), mult:N duplication.
+The port's copy of ``ultragrid_tpu/net/transmit.py``.  Wire-compatible:
+symbol-aligned packet splitting (get_packet_sizes, transmit.c:589-623),
+video/FEC payload headers, M bit on the frame's last packet, packet pacing
+modes unlimited/auto (75% of frame time)/fixed (get_packet_rate,
+transmit.c:653-689), mult:N duplication.
 
 FEC goes through the port's :func:`ultragrid_tpu_torch.ops.fec.fec_from_spec`;
 the LDGM encode is the shared host C XOR, as in the reference.  An
 uncompressed frame that lives on the card is copied to the host once per
-frame, in :meth:`Tx.send_video`, before FEC and packetisation.  Not in the
-port yet, and refused by name: audio (``send_audio``), the RFC 2435
-standards mode (``net/rtpdec_jpeg.py``) and per-packet encryption
-(``utils/crypto.py``).
+frame, in :meth:`Tx.send_video`, before FEC and packetisation.  Audio
+(:meth:`Tx.send_audio`) is per-channel packets with the 5-word audio header,
+optionally Reed-Solomon protected with the parity product on the Tx's
+device.  Not in the port yet, and refused by name: the RFC 2435 standards
+mode with its G.711 audio (``send_audio_standard``; ``net/rtpdec_jpeg.py``)
+and per-packet encryption (``utils/crypto.py``).
 """
 
 from __future__ import annotations
 
+import struct
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from ultragrid_tpu_torch.audio.types import AUDIO_TAGS
+from ultragrid_tpu_torch.device import get_device
 from ultragrid_tpu_torch.net import rtp_types as rt
 from ultragrid_tpu_torch.net.rtp import RtpSession, get_local_mediatime
 from ultragrid_tpu_torch.ops.fec import FecDesc, RsSession, fec_from_spec
@@ -125,8 +130,9 @@ def host_bytes(tile) -> np.ndarray:
 class Tx:
     """Sender packetizer state (ref: struct tx + tx_init, transmit.c).
 
-    ``device`` is where the RS parity product runs (the card unless the
-    caller names another); the LDGM encode is host C."""
+    ``device`` is where the RS parity product runs, for video and audio (the
+    card unless the caller names another; it raises without one); the LDGM
+    encode is host C."""
 
     def __init__(
         self,
@@ -140,7 +146,7 @@ class Tx:
         self.mtu = mtu
         self.bitrate = bitrate
         self.bitrate_fixed = bitrate_fixed
-        self.device = device
+        self.device = get_device(device)
         self._dyn_avg_frame = 0.0  # RATE_DYNAMIC state (ref: transmit.c:672-680)
         self._dyn_last_excess = _EXCESS_GAP + 1
         self.mult_count = mult_count
@@ -150,6 +156,7 @@ class Tx:
             fec_spec = "none"
         self.fec_spec = fec_spec
         self._fec = None
+        self._last_audio_ts = -1
 
     def _get_fec(self, frame_size: int):
         if self.fec_spec in ("", "none"):
@@ -226,9 +233,65 @@ class Tx:
             )
         return total
 
-    def send_audio(self, *args, **kwargs) -> int:
-        raise NotImplementedError("audio transmission needs the audio modules "
-                                  "(ultragrid_tpu/audio/, net/audio_rx.py), not ported yet")
+    def send_audio_standard(self, session: RtpSession, frame) -> int:
+        raise NotImplementedError("standards-mode G.711 audio belongs to the RTP standards mode "
+                                  "(--rtp-standard: net/rtpdec_jpeg.py, utils/sdp.py), not in the port yet")
+
+    def send_audio(self, session: RtpSession, frame, codec_name: str = "PCM",
+                   fec_spec: str = "none") -> int:
+        """Per-channel audio packetization (ref: audio_tx_send_chan,
+        transmit.c:829+): each channel's data split into MTU chunks with the
+        5-word audio payload header; M bit on the frame's last packet.
+
+        With ``fec_spec="rs:k:n"`` each channel is Reed-Solomon protected
+        (PT_AUDIO_RS; fec params ride in the header's codec-tag word, the tag
+        itself travels inside the protected payload — ref: audio_fec_decode,
+        audio_decoders.cpp:260-271); the parity product runs on the Tx's
+        device."""
+        ts = get_local_mediatime()
+        # packetized codecs may emit several buffers per audio cycle
+        # back-to-back (compress_multi); the playout buffer keys frames by
+        # RTP TS, so a 90 kHz tick collision would merge two codec packets
+        # into one buffer — keep audio TS strictly increasing
+        if ts <= self._last_audio_ts:
+            ts = (self._last_audio_ts + 1) & 0xFFFFFFFF
+        self._last_audio_ts = ts
+        tag = AUDIO_TAGS.get(codec_name, 0x0001)
+        pt = rt.PT_AUDIO
+        rs = None
+        if fec_spec.startswith("rs"):
+            if self._fec is None or self.fec_spec != fec_spec:
+                self._fec = fec_from_spec(fec_spec)
+                self.fec_spec = fec_spec
+            rs = self._fec
+            pt = rt.PT_AUDIO_RS
+        netto = self.mtu - (IPV4_HDR_LEN + UDP_HDR_LEN + rt.RTP_HDR_LEN + rt.AUDIO_PAYLOAD_HDR_LEN)
+        sent = 0
+        nch = len(frame.channels)
+        for ch, data in enumerate(frame.channels):
+            data = np.asarray(data, np.uint8)
+            if rs is not None:
+                buf, fdesc = rs.encode(data, hdr=struct.pack("<I", tag), device=self.device)
+                data = buf
+                tag_word = (fdesc.k << 19) | (fdesc.m << 6)
+            else:
+                tag_word = tag
+            pos = 0
+            n = data.size
+            while pos < n or (n == 0 and pos == 0):
+                chunk = data[pos : pos + netto]
+                hdr = rt.pack_audio_header(
+                    ch, self.buffer, pos, n,
+                    frame.desc.bps, frame.desc.sample_rate, tag_word,
+                )
+                # M only on the whole frame's (= last channel's) final packet,
+                # else the playout buffer decodes before all channels arrive
+                last = ch == nch - 1 and pos + chunk.size >= n
+                session.send_data_hdr(ts, pt, last, hdr, chunk.tobytes())
+                pos += max(chunk.size, 1)
+                sent += 1
+        self.buffer = (self.buffer + 1) & 0x3FFFFF
+        return sent
 
     def _packet_rate(self, fps: float, packet_count: int, data_len: int) -> float:
         """Inter-packet interval in seconds (ref: get_packet_rate,

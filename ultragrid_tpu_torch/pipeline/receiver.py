@@ -1,7 +1,7 @@
 """Receiver pipeline: RTP/UDP -> playout buffer -> FEC -> decompress -> display.
 
-The port of ``ultragrid_tpu/pipeline/receiver.py``, video only: the
-reference's receiver thread and 3-stage decode pipeline (ref:
+The port of ``ultragrid_tpu/pipeline/receiver.py``: the reference's receiver
+thread and 3-stage decode pipeline (ref:
 src/rxtx/ultragrid_rtp.c:382-500, src/rtp/video_decoders.cpp:46-93).
 
 Threads and the card: the rx loop reassembles packets on the host (and fills
@@ -12,8 +12,12 @@ scan-decoded arrays) and decodes, converts, postprocesses and displays on
 the card.  Every thread enters the pipeline's one CUDA stream, the stream
 current where the receiver was built (the rule of ``pipeline/loop.py``).
 
-Not in the port yet, and refused by name: audio playback (``-r``) and its
-volume / A-V delay messages, and decryption (``-e``).
+Audio (``-r``) is received on the base port + 2 by the same rx loop into its
+own playout buffer and decoded, Reed-Solomon erasures included, scaled
+(``--audio-scale``, runtime volume and mute) and played on the host in numpy,
+as in the reference; ``--audio-delay`` sets the two playout delays.
+
+Not in the port yet, and refused by name: decryption (``-e``).
 """
 
 from __future__ import annotations
@@ -26,11 +30,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ultragrid_tpu_torch.audio.playback import initialize_audio_playback
+from ultragrid_tpu_torch.audio.types import AudioFrame
+from ultragrid_tpu_torch.audio.volume import format_stats_line
 from ultragrid_tpu_torch.device import get_device, pipeline_stream, stream_context
 from ultragrid_tpu_torch.modules.filters import FilterChain
 from ultragrid_tpu_torch.modules.messaging import (
     RESPONSE_BAD_REQUEST,
-    RESPONSE_NOT_IMPL,
     RESPONSE_OK,
     Module,
     MsgReceiver,
@@ -38,6 +44,7 @@ from ultragrid_tpu_torch.modules.messaging import (
 )
 from ultragrid_tpu_torch.modules.video_decompress import decompress_init
 from ultragrid_tpu_torch.modules.video_display import initialize_video_display
+from ultragrid_tpu_torch.net.audio_rx import AudioRxState
 from ultragrid_tpu_torch.net.pbuf import PlayoutBuffer
 from ultragrid_tpu_torch.net.rtp import RtpSession
 from ultragrid_tpu_torch.net.video_rx import FecJob, VideoRxState
@@ -70,15 +77,24 @@ class VideoReceiver:
         frame_limit: Optional[int] = None,
         timeout: Optional[float] = None,
         playout_delay: float = 0.032,
+        audio_delay_ms: int = 0,
         postprocess: str = "",
+        audio_playback: Optional[str] = None,
         mode: str = "normal",
         control=None,
         mcast_addr: Optional[str] = None,
         force_ip_version: int = 0,
         root: Optional[Module] = None,
         mcast_if: Optional[str] = None,
+        audio_scale: Optional[str] = None,
         device="cuda",
     ):
+        if audio_scale not in (None, "", "none", "auto"):
+            float(audio_scale)  # fail fast on '--audio-scale 50%' typos
+        self.audio_scale = audio_scale
+        self.volume = 1.0  # runtime audio gain (control socket / keyboard)
+        self.muted = False
+        self._agc_gain = 1.0
         self.device = get_device(device)
         self.stream = pipeline_stream(self.device)
         self.control = control
@@ -101,7 +117,19 @@ class VideoReceiver:
         pd = get_commandline_param("pbuf-delay")
         if pd is not None:
             playout_delay = float(pd) / 1000.0
-        self.pbuf = PlayoutBuffer(playout_delay)
+        self._base_playout = playout_delay
+        self.audio_playback = None
+        if audio_playback and audio_playback != "none":
+            self.audio_playback = initialize_audio_playback(audio_playback)
+            self.audio_session = RtpSession(addr=mcast_addr, rx_port=rx_port + 2, tx_port=0,
+                                            force_ip_version=force_ip_version)
+            # --audio-delay: positive delays audio, negative delays video
+            # (ref: set_audio_delay host.cpp:1019-1024 -> per-medium playout
+            # offsets, rtp_common.c:320-321)
+            self.audio_pbuf = PlayoutBuffer(playout_delay + max(audio_delay_ms, 0) / 1000.0)
+            self.audio_rx = AudioRxState()
+            self._audio_desc = None
+        self.pbuf = PlayoutBuffer(playout_delay + max(-audio_delay_ms, 0) / 1000.0)
         self.rx_state = VideoRxState(device=self.device)
         self.frame_limit = frame_limit
         self.timeout = timeout
@@ -118,8 +146,6 @@ class VideoReceiver:
     def _on_message(self, msg) -> Response:
         if not isinstance(msg, MsgReceiver):
             return Response(RESPONSE_BAD_REQUEST, "unsupported message")
-        if msg.volume is not None or msg.av_delay_ms is not None:
-            return Response(RESPONSE_NOT_IMPL, "audio playback (ultragrid_tpu/audio/) is not ported yet")
         if msg.postprocess is not None:
             try:
                 chain = FilterChain(msg.postprocess)
@@ -127,6 +153,32 @@ class VideoReceiver:
                 return Response(RESPONSE_BAD_REQUEST, str(e))
             self.postprocess_chain = chain  # atomic swap
             log.notice(f"postprocess changed to {msg.postprocess or 'none'}")
+        if msg.volume is not None:
+            # ref: volume/mute control commands + keyboard keys
+            v = msg.volume
+            if v == "mute":
+                self.muted = True
+            elif v == "unmute":
+                self.muted = False
+            elif v == "toggle-mute":  # keyboard 'm'
+                self.muted = not self.muted
+            elif v == "up":
+                self.volume *= 10 ** (1 / 20)  # +1 dB
+            elif v == "down":
+                self.volume /= 10 ** (1 / 20)
+            else:
+                try:
+                    self.volume = float(v)
+                except ValueError:
+                    return Response(RESPONSE_BAD_REQUEST, f"bad volume {v!r}")
+            log.notice(f"volume {self.volume:.3f}{' (muted)' if self.muted else ''}")
+        if msg.av_delay_ms is not None:
+            # ref: av-delay command -> per-medium playout offsets
+            d = msg.av_delay_ms
+            self.pbuf.playout_delay = self._base_playout + max(-d, 0) / 1000.0
+            if self.audio_playback is not None:
+                self.audio_pbuf.playout_delay = self._base_playout + max(d, 0) / 1000.0
+            log.notice(f"av-delay {d} ms")
         return Response(RESPONSE_OK)
 
     # -- stage 1: packet reassembly (runs on the rx thread) ---------------
@@ -280,6 +332,40 @@ class VideoReceiver:
             self.frames_displayed += 1
         return True
 
+    def _handle_audio(self, node) -> bool:
+        frame = self.audio_rx.decode_frame(node)
+        if frame is None:
+            return False
+        if self._audio_desc != frame.desc:
+            self.audio_playback.reconfigure(frame.desc)
+            self._audio_desc = frame.desc
+        if self.control is not None:
+            # volume stats for astat clients (ref: astat.cpp stats line)
+            self.control.report_stats(format_stats_line("ARECV", frame))
+        self.audio_playback.put_frame(self._scale_audio(frame))
+        return True
+
+    def _scale_audio(self, frame):
+        """--audio-scale factor|auto|none plus runtime volume/mute
+        (ref: OPT_AUDIO_SCALE + volume control commands)."""
+        vol = 0.0 if self.muted else self.volume
+        if self.audio_scale in (None, "", "none") and vol == 1.0:
+            return frame
+        samples = frame.samples_float()
+        if self.audio_scale == "auto":
+            peak = float(np.abs(samples).max()) or 1.0
+            # follow the running peak toward full scale, limited slew
+            self._agc_gain = min(self._agc_gain * 1.02, 0.95 / peak)
+            gain = self._agc_gain
+        elif self.audio_scale in (None, "", "none"):
+            gain = 1.0
+        else:
+            gain = float(self.audio_scale)
+        gain *= vol
+        out = AudioFrame.from_float(frame.desc, np.clip(samples * gain, -1.0, 1.0))
+        out.timestamp = frame.timestamp
+        return out
+
     def run(self) -> int:
         """Receiver as the reference's 3-stage pipeline: rx loop (packet
         drain + reassembly) -> fec thread -> decompress/display thread with
@@ -342,6 +428,14 @@ class VideoReceiver:
                         idle_since = now
                     self.pbuf.decode(now, self._reassemble_cb)
                     self.pbuf.remove_old(now)
+                if self.audio_playback is not None:
+                    apkts = self.audio_session.recv_many(timeout=0.0001, max_pkts=64)
+                    for apkt in apkts:
+                        self.audio_pbuf.insert(apkt)
+                    if apkts:
+                        got_any, idle_since = True, now
+                    self.audio_pbuf.decode(now, self._handle_audio)
+                    self.audio_pbuf.remove_old(now)
                 if not got_any and now - idle_since > 0.002:
                     time.sleep(0.001)  # avoid busy-spin when idle
         self.session.close()
@@ -350,6 +444,9 @@ class VideoReceiver:
         self._fec_q.put(None)  # poison pill cascades through the stages
         fec_t.join(timeout=5)
         dec_t.join(timeout=5)
+        if self.audio_playback is not None:
+            self.audio_session.close()
+            self.audio_playback.done()
         self.display.put_frame(None)
         self.display.done()  # join display worker threads cleanly
         return self.frames_displayed
@@ -371,6 +468,7 @@ def run_receiver(args) -> int:
         rx_port=int(str(args.ports).split(":")[0]),
         frame_limit=args.frames,
         postprocess=args.postprocess,
+        audio_playback=args.audio_playback,
         mode=args.mode,
         control=control,
         # receiver-mode `uv -d gl 239.x.y.z` joins the multicast group
@@ -378,6 +476,8 @@ def run_receiver(args) -> int:
         force_ip_version=args.force_ip_version,
         root=root,
         mcast_if=args.mcast_if,
+        audio_delay_ms=args.audio_delay or 0,
+        audio_scale=args.audio_scale,
         device=args.device,
     )
 

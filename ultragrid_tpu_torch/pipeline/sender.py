@@ -1,7 +1,7 @@
 """Sender pipeline: capture -> compress -> FEC -> RTP/UDP.
 
-The port of ``ultragrid_tpu/pipeline/sender.py``, video only.  Thread per
-stage like the reference (capture thread src/main.cpp:347-397 -> compress
+The port of ``ultragrid_tpu/pipeline/sender.py``.  Thread per stage like the
+reference (capture thread src/main.cpp:347-397 -> compress
 worker src/video_compress.cpp -> sender loop src/rxtx.cpp:259-287).
 
 Threads and the card: the capture ring and the capture filters run on the
@@ -12,8 +12,17 @@ the pipeline's one CUDA stream, the stream current where the sender was
 built, so work handed from one thread to the next is ordered by the stream
 itself (``device.pipeline_stream``, the rule of ``pipeline/loop.py``).
 
-Not in the port yet, and refused by name: audio (``-s``), encryption
-(``-e``), export (``-E``), RTSP and the RFC 2435 standards mode.
+Audio (``-s``, ``-A``, ``-f A:``, ``-i``, ``-U``, ``--audio-host``) stays on
+the host in numpy as in the reference: an audio thread reads the capture in
+chunks of ``sample_rate // 25`` samples, or the audio embedded in a video
+grab (``-s embedded``, as ``-I`` replays it) rides the capture thread, and
+both send on the audio session at the base port + 2; only a Reed-Solomon
+``-f A:rs:k:n`` parity product runs on the sender's device.  ``-E`` records
+the frames as sent and, unlike the reference's sender, the audio as captured
+(``sound.wav``; ROADMAP F8).
+
+Not in the port yet, and refused by name: encryption (``-e``), RTSP and the
+RFC 2435 standards mode.
 """
 
 from __future__ import annotations
@@ -22,6 +31,9 @@ import threading
 import time
 from typing import Optional
 
+from ultragrid_tpu_torch.audio.capture import initialize_audio_capture
+from ultragrid_tpu_torch.audio.codecs import get_audio_codec
+from ultragrid_tpu_torch.audio.filters import ChannelRemap, ControlPortStats, make_audio_filter_chain
 from ultragrid_tpu_torch.device import get_device, pipeline_stream, stream_context
 from ultragrid_tpu_torch.modules.filters import FilterChain
 from ultragrid_tpu_torch.modules.messaging import (
@@ -40,6 +52,7 @@ from ultragrid_tpu_torch.ops.fec import fec_from_spec
 from ultragrid_tpu_torch.utils import profiler
 from ultragrid_tpu_torch.utils.control_socket import ControlServer
 from ultragrid_tpu_torch.utils.crash import arm_exit_watchdog
+from ultragrid_tpu_torch.utils.export import Exporter
 from ultragrid_tpu_torch.utils.keyboard import KeyboardControl
 from ultragrid_tpu_torch.utils.log import Logger
 from ultragrid_tpu_torch.utils.params import add_to_param, get_commandline_param, param_is_set
@@ -65,21 +78,54 @@ class VideoSender:
         mtu: int = 1500,
         frame_limit: Optional[int] = None,
         capture_filter: str = "",
+        audio_capture: Optional[str] = None,
+        audio_codec: str = "PCM",
+        record: Optional[str] = None,
         mode: str = "normal",
         control_port: Optional[int] = None,
+        audio_fec: str = "none",
+        audio_channel_map: Optional[str] = None,
+        audio_filter: Optional[str] = None,
         start_paused: bool = False,
         bitrate: int = RATE_AUTO,
         bitrate_fixed: bool = False,
         ttl: int = 255,
         force_ip_version: int = 0,
         mcast_if=None,
+        audio_host: Optional[str] = None,
         device="cuda",
     ):
         self.device = get_device(device)
         self.stream = pipeline_stream(self.device)
         self.mode = VideoMode.from_str(mode)
+        self.exporter = Exporter(record or None) if record is not None else None
         self.capture_chain = FilterChain(capture_filter)
         self.capture = initialize_video_capture(capture_spec, device=self.device)
+        self.audio = None
+        self.audio_codec_name = audio_codec
+        self.audio_fec = audio_fec
+        # audio filter chain: -U remap first, then --audio-filter elements
+        # (ref: --audio-filter grammar, main.cpp:271)
+        self.audio_filters = []
+        if audio_channel_map:
+            self.audio_filters.append(ChannelRemap(audio_channel_map))
+        if audio_filter:
+            self.audio_filters.extend(make_audio_filter_chain(audio_filter))
+        # "embedded" = audio rides along with video capture grabs
+        # (ref: audio_sdi_send, main.cpp:365)
+        self.audio_embedded = audio_capture == "embedded"
+        self.audio_session = None
+        if audio_capture and audio_capture != "none":
+            if not self.audio_embedded:
+                self.audio = initialize_audio_capture(audio_capture)
+            self.audio_codec = get_audio_codec(audio_codec)
+            # audio ports = base + 2 (ref: src/main.cpp:592-628); --audio-host
+            # redirects the audio stream (ref: OPT_AUDIO_HOST, main.cpp:895)
+            self.audio_session = RtpSession(addr=audio_host or host, rx_port=0,
+                                            tx_port=tx_port + 2, mtu=mtu,
+                                            ttl=ttl,
+                                            force_ip_version=force_ip_version)
+            self.audio_tx = Tx(mtu=mtu, device=self.device)
         self.root = Module("root")
         # live-reconfigurable sender module (ref: the "sender" message
         # target, rxtx/rtp_common.c:216-241 + msg_sender handling)
@@ -113,6 +159,9 @@ class VideoSender:
             try:
                 self.control = ControlServer(self.root, control_port)
                 log.notice(f"control socket on 127.0.0.1:{self.control.port}")
+                for flt in self.audio_filters:
+                    if isinstance(flt, ControlPortStats) and flt.control is None:
+                        flt.control = self.control
             except OSError as e:
                 log.warning(f"control socket unavailable: {e}")
         self._bytes_since_report = 0
@@ -212,7 +261,7 @@ class VideoSender:
                     if self.frame_limit is not None and count >= self.frame_limit:
                         break
                     with profiler.zone("capture.grab"):
-                        frame, _audio = self.capture.grab()
+                        frame, audio = self.capture.grab()
                     # stamp the capture instant (ref: main.cpp captures carry
                     # a timestamp into the RTP TS via tv_to_rtp); transmit
                     # maps this to the 90 kHz RTP clock, so a same-host
@@ -220,10 +269,16 @@ class VideoSender:
                     # time.monotonic()
                     if frame is not None and frame.timestamp < 0:
                         frame.timestamp = time.monotonic()
+                    if self.audio_embedded and audio is not None:
+                        # embedded (SDI-style) audio rides the capture cadence
+                        # (ref: audio_sdi_send, main.cpp:365)
+                        self._send_audio(audio)
                     if frame is not None:
                         with profiler.zone("capture.filter"):
                             frame = self.capture_chain.apply(frame)
                     if frame is None:
+                        if self.capture.finished:
+                            break  # a replayed recording at its end (ROADMAP F9)
                         continue
                     if self.paused.is_set():
                         continue  # drop while paused (ref: paused sender state)
@@ -240,6 +295,41 @@ class VideoSender:
                     self.compress.enqueue(frame)
         finally:
             self.compress.enqueue(None)
+
+    def _send_audio(self, frame) -> None:
+        """Filter, record, compress and send one captured audio frame: one
+        RTP buffer per codec packet (ref compress loop, audio.cpp:774-779)."""
+        for flt in self.audio_filters:
+            frame = flt.apply(frame)
+            if frame is None:
+                return
+        if self.exporter is not None:
+            self.exporter.export_audio(frame)
+        for comp in self.audio_codec.compress_multi(frame):
+            self.audio_tx.send_audio(self.audio_session, comp, self.audio_codec_name,
+                                     fec_spec=self.audio_fec)
+
+    def _audio_thread(self) -> None:
+        # ~1/25 s chunks; pacing is TIMESTAMP-driven off the cumulative
+        # sample count, not a fixed sleep, so capture drift (48001 Hz
+        # sources, slow reads) never desynchronizes the stream
+        # (ref: audio_sender_thread cadence, audio.cpp:707-776)
+        chunk = self.audio.desc.sample_rate // 25
+        start = time.monotonic()
+        samples_sent = 0
+        with stream_context(self.stream):  # -f A:rs parity on the device
+            while not self.should_exit.is_set():
+                frame = self.audio.read(chunk)
+                if frame is None:
+                    break
+                # pacing advances by CAPTURED samples even if a filter drops
+                nsamples = frame.channels[0].size // frame.desc.bps
+                self._send_audio(frame)
+                samples_sent += nsamples
+                deadline = start + samples_sent / frame.desc.sample_rate
+                delay = deadline - time.monotonic()
+                if delay > 0:
+                    time.sleep(delay)
 
     def _report(self, sent_bytes: int) -> None:
         """Periodic bandwidth and RTCP lines on the control socket (ref:
@@ -267,11 +357,17 @@ class VideoSender:
         kb.start()  # no-op unless stdin is a tty
         t = threading.Thread(target=self._capture_thread, name="capture", daemon=True)
         t.start()
+        at = None
+        if self.audio is not None:
+            at = threading.Thread(target=self._audio_thread, name="audio", daemon=True)
+            at.start()
         with stream_context(self.stream):
             while True:
                 frame = self.compress.pop()
                 if frame is None:
                     break
+                if self.exporter is not None:
+                    self.exporter.export_video(frame)
                 with profiler.zone("fec+tx.send"):
                     before = self.session.bytes_sent
                     self.tx.send_video(self.session, frame)
@@ -284,8 +380,15 @@ class VideoSender:
         wd = arm_exit_watchdog()
         if self.control is not None:
             self.control.close()
-        self.session.close()
         t.join(timeout=5)
+        if at is not None:
+            at.join(timeout=5)
+            self.audio.done()
+        if self.audio_session is not None:
+            self.audio_session.close()
+        self.session.close()
+        if self.exporter is not None:
+            self.exporter.finish()
         self.capture.done()
         wd.cancel()
         return self.frames_sent
@@ -302,14 +405,21 @@ def run_sender(args) -> int:
         mtu=args.mtu,
         frame_limit=args.frames,
         capture_filter=args.capture_filter,
+        audio_capture=args.audio_capture,
+        audio_codec=args.audio_codec,
+        record=args.record,
         mode=args.mode,
         control_port=args.control_port,
+        audio_fec=args.audio_fec,
+        audio_channel_map=args.audio_channel_map,
+        audio_filter=args.audio_filter,
         start_paused=args.start_paused,
         bitrate=bitrate,
         bitrate_fixed=bitrate_fixed,
         ttl=args.ttl if args.ttl >= 0 else 255,
         force_ip_version=args.force_ip_version,
         mcast_if=args.mcast_if,
+        audio_host=args.audio_host,
         device=args.device,
     )
     n = sender.run()
