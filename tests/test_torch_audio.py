@@ -562,5 +562,8 @@ def test_port_tx_runs_on_the_card_by_default():
     else:
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             transmit.Tx()
-    with pytest.raises(NotImplementedError, match="rtpdec_jpeg.py"):
-        transmit.Tx(device="cpu").send_audio_standard(RecordingSession(), seeded_frame("port", 0, 160))
+    # standards-mode G.711 (PT 0 at 8 kHz): the same packets as the reference's
+    port_rec, ref_rec = RecordingSession(), RecordingSession()
+    n = transmit.Tx(device="cpu").send_audio_standard(port_rec, seeded_frame("port", 0, 160))
+    assert n == ref_transmit.Tx().send_audio_standard(ref_rec, seeded_frame("ref", 0, 160)) == 1
+    assert port_rec.packets == ref_rec.packets and port_rec.packets[0][0] == 0

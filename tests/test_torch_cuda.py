@@ -2,7 +2,8 @@
 receive path, the batched sender, the pixel formats, DXT, postprocess, the
 filters, the local loop, the stitcher, the H.264 device encoders, the
 wavelet and intra codecs and the audio RS parity on the card against the
-CPU, and the import capture of a recording on the card.
+CPU, the import capture of a recording on the card, the standards-mode
+JPEG round trip (K1, RFC 2435, the decode) and thumbnailgen on the card.
 
 Needs a CUDA card and nvcc; skips without a card.  On the card's machine
 (which has no jax, so the JAX conftest must stay out):
@@ -654,3 +655,51 @@ def test_import_capture_on_card(cuda, tmp_path):
     cap.done()
     got = np.concatenate(audio)
     assert got.size > 0 and np.array_equal(got, wav[:got.size])
+
+
+def test_standards_mode_jpeg_round_trip_on_card(cuda):
+    """K1 on the card -> RFC 2435 packets (``Tx(rfc2435=True)``, PT 26) ->
+    ``VideoRxState`` -> ``JpegDecompress`` on the card, at 1080p, against
+    the CPU's encode of the same frame and its decode of the rebuilt file."""
+    from ultragrid_tpu_torch.net import transmit, video_rx
+    from ultragrid_tpu_torch.net.pbuf import PbufNode
+    from ultragrid_tpu_torch.net.rtp import RtpPacket
+
+    f = content(1920, 1080, Codec.UYVY, 51)
+    jpeg_cuda.LAUNCHES.reset()
+    card_file = JpegEncoder(1920, 1080).encode(torch.as_tensor(f).to(cuda))
+    assert jpeg_cuda.LAUNCHES.count >= 1
+    assert np.array_equal(card_file, JpegEncoder(1920, 1080).encode(f, device="cpu"))
+    sent = []
+
+    class Recorder:
+        def send_data_hdr(self, ts, pt, m, payload_hdr, data):
+            sent.append((pt, m, bytes(payload_hdr) + bytes(data)))
+
+    desc = VideoDesc(1920, 1080, Codec.JPEG, 60.0)
+    n = transmit.Tx(rfc2435=True, device=cuda).send_video(Recorder(), VideoFrame(desc, [card_file], timestamp=2.0))
+    assert n == len(sent) > 1 and {pt for pt, _, _ in sent} == {26}
+    node = PbufNode(ts=180000, arrival=0.0, playout_delay=0.0)
+    for i, (pt, m, payload) in enumerate(sent):
+        node.packets.append(RtpPacket(pt, i, 180000, 1, m, payload, 0.0))
+    frame = video_rx.VideoRxState(device=cuda).reassemble(node)
+    got = JpegDecompress(device=cuda).decompress(frame, Codec.UYVY).data
+    want = JpegDecompress(device="cpu").decompress(frame, Codec.UYVY).data
+    assert got.is_cuda
+    diff = (got.cpu().to(torch.int16) - want.to(torch.int16)).abs()
+    assert int(diff.max()) <= 1 and int((diff > 0).sum()) <= 0.001 * want.numel()
+    original = JpegDecompress(device=cuda).decompress(VideoFrame(desc, [card_file]), Codec.UYVY).data
+    assert torch.equal(got, original)
+
+
+def test_thumbnailgen_on_card_equals_cpu(cuda, tmp_path):
+    """``write_thumbnail`` at the preview's 960x540: K1's RGB 4:4:4
+    template on the card, the file byte-equal to the CPU's."""
+    from ultragrid_tpu_torch.tools.thumbnailgen import write_thumbnail
+
+    rgb = content(960, 540, Codec.RGB, 52).tobytes()
+    jpeg_cuda.LAUNCHES.reset()
+    write_thumbnail(960, 540, rgb, str(tmp_path / "card.jpg"), device=cuda)
+    assert jpeg_cuda.LAUNCHES.count >= 1
+    write_thumbnail(960, 540, rgb, str(tmp_path / "cpu.jpg"), device="cpu")
+    assert (tmp_path / "card.jpg").read_bytes() == (tmp_path / "cpu.jpg").read_bytes()

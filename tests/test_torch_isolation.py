@@ -4,8 +4,9 @@ Pillow, which the reference's JPEG 2000 decoder falls back to).
 A subprocess blocks ``jax`` and ``ultragrid_tpu`` in ``sys.modules`` (so any
 import of either, direct or indirect, fails) and drives the port with its own
 types, down to a live session over 127.0.0.1, the H.264 codec, the wavelet and
-intra codecs, and audio with its record and replay (``audio/``, ``tools/``)
-on the CPU.  A source scan rejects any ``import`` of any of them in the port
+intra codecs, audio with its record and replay (``audio/``, ``tools/``), and
+standards mode, RTSP capture, the duplex call, the preview socket and
+thumbnailgen on the CPU.  A source scan rejects any ``import`` of any of them in the port
 (``audio/`` and ``tools/`` included), ``chip_smoke.py``, ``chip_profile.py``
 and ``chip_phases.py``.
 """
@@ -248,6 +249,63 @@ ctl = control_socket.ControlServer(messaging.Module("root"), 0)
 threading.Timer(0.3, lambda: ctl.report_stats("stats ARECV volrms0 -18.0 volpeak0 -12.0")).start()
 assert astat.run("127.0.0.1", ctl.port, seconds=1.0, out=io.StringIO()) == {0: (-18.0, -12.0)}
 ctl.close()
+# standards mode, RTSP, the duplex call, the preview socket and
+# thumbnailgen, iHDTV: every module and tool of them; each entry point
+# defaults to the card
+import functools, os
+from ultragrid_tpu_torch.modules import ipc_display, rtsp_capture
+from ultragrid_tpu_torch.net import rtpdec_h264, rtpdec_jpeg, rtsp, rtsp_client
+from ultragrid_tpu_torch.pipeline import duplex, ihdtv
+from ultragrid_tpu_torch.tools import ipc_frame_dump, thumbnailgen
+from ultragrid_tpu_torch.utils import sdp
+if not torch.cuda.is_available():
+    for make in (lambda: thumbnailgen.write_thumbnail(16, 8, bytes(384), os.devnull),
+                 lambda: ihdtv.run_ihdtv_receiver("dummy", 0), lambda: ihdtv.run_ihdtv_sender("testcard", "x", 0),
+                 lambda: rtsp_capture.RtspCapture("rtsp://127.0.0.1:9/x"),
+                 lambda: cli.main(["-t", "testcard:s=64x32", "-d", "dummy", "127.0.0.1", "-n", "0", "--frames", "1"])):
+        try:
+            make()
+        except RuntimeError:
+            pass
+        else:
+            raise SystemExit("a standards-mode, duplex or preview entry point ran without a card")
+sender.SdpHttpServer = functools.partial(sdp.SdpHttpServer, port=0)
+sender.RtspServer = functools.partial(rtsp.RtspServer, port=0)
+rx = receiver.VideoReceiver("dummy", rx_port=port, frame_limit=2, timeout=20.0, device="cpu")
+t = threading.Thread(target=rx.run, daemon=True)
+t.start()
+sender.VideoSender("testcard:s=64x32:f=60:c=UYVY:still=1", "127.0.0.1", compress_spec="jpeg", tx_port=port,
+                   frame_limit=12, rtp_standard=True, device="cpu").run()
+t.join(timeout=20)
+assert rx.frames_displayed >= 2, rx.frames_displayed
+rtsp_tx = sender.VideoSender("testcard:s=64x32:f=60:c=UYVY", None, compress_spec="jpeg", tx_port=port, rtsp=True,
+                             rtp_standard=True, device="cpu")
+t = threading.Thread(target=rtsp_tx.run, daemon=True)
+t.start()
+cap = rtsp_capture.RtspCapture(f"rtsp://127.0.0.1:{rtsp_tx.rtsp_server.port}/ug", device="cpu")
+got = None
+for _ in range(40):
+    got = cap.grab()[0]
+    if got is not None:
+        break
+cap.done()
+rtsp_tx.should_exit.set()
+t.join(timeout=20)
+assert got is not None and tuple(got.data.shape) == (32, 128)
+assert cli.main(["-t", "testcard:s=64x32:f=60:c=UYVY", "-d", "dummy", "127.0.0.1", "-P", str(port), "-n", "0",
+                 "--frames", "3", "--device", "cpu"]) == 0
+sock = os.path.join(rec, "preview.sock")
+reader = ipc_display.IpcFrameReader(sock)
+disp = ipc_display.UnixSockDisplay(f"path={sock}", device="cpu")
+reader.accept()
+desc_rgb = VideoDesc(64, 32, Codec.RGB, 30.0)
+for _ in range(6):
+    disp.put_frame(VideoFrame(desc_rgb, [torch.zeros(32, 192, dtype=torch.uint8)]))
+w, h, color, data = reader.read_frame()
+disp.done()
+reader.close()
+thumbnailgen.write_thumbnail(w, h, data, os.path.join(rec, "t.jpg"), device="cpu")
+assert open(os.path.join(rec, "t.jpg"), "rb").read(2) == b"\xff\xd8"
 loaded = [m for m, mod in sys.modules.items()
           if m.split(".")[0] in ("jax", "ultragrid_tpu", "PIL") and mod is not None]
 assert not loaded, loaded

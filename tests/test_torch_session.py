@@ -328,14 +328,10 @@ def test_cli_parses_reference_argv(argv):
 _REFUSED = [
     (["-t", "testcard", "-A", "Opus", "h"], "lavc_codecs.py"),
     (["-t", "testcard", "-e", "secret", "h"], "crypto.py"),
-    (["-t", "testcard", "--rtsp"], "rtsp.py"),
-    (["-t", "testcard", "--rtp-standard", "h"], "rtpdec_jpeg.py"),
     (["-t", "testcard", "-N", "h"], "nat.py"),
     (["-t", "testcard", "-x", "mpegts", "h"], "mpegts.py"),
-    (["-t", "testcard", "-x", "ihdtv", "h"], "ihdtv.py"),
-    (["-t", "testcard", "-d", "dummy", "h"], "duplex.py"),
     (["-d", "dummy", "--window-title", "x"], "windowed display"),
-    (["-t", "testcard", "-s", "testcard", "--echo-cancellation", "h"], "duplex.py"),
+    (["-d", "dummy", "--param", "h264-decoder=lavc"], "lavc.py"),
 ]
 
 
@@ -345,8 +341,9 @@ def test_cli_refuses_options_outside_the_port_by_name(argv, name, capsys):
     assert name in capsys.readouterr().err
 
 
-# options refused until their modules landed (audio, -E and -I): accepted
-# now, and parsed as the reference parses them
+# options refused until their modules landed (audio, -E and -I; standards
+# mode, RTSP, iHDTV, duplex and echo cancellation): accepted now, and parsed
+# as the reference parses them
 _ACCEPTED = [
     ["-t", "testcard", "-s", "testcard", "h"],
     ["-d", "dummy", "-r", "dummy"],
@@ -354,6 +351,11 @@ _ACCEPTED = [
     ["-t", "testcard", "-E", "dir", "h"],
     ["-I", "dir", "h"],
     ["-d", "dummy", "--audio-delay", "20"],
+    ["-t", "testcard", "--rtsp"],
+    ["-t", "testcard", "--rtp-standard", "h"],
+    ["-t", "testcard", "-x", "ihdtv", "h"],
+    ["-t", "testcard", "-d", "dummy", "h"],
+    ["-t", "testcard", "-s", "testcard", "--echo-cancellation", "h"],
 ]
 
 
@@ -366,7 +368,8 @@ def test_cli_accepts_the_ported_audio_and_record_options(argv):
         # None: an option the port refuses, unset (the reference's default may be False)
         if key != "device" and val is not None:
             assert val == ref[key], key
-    for key in ("audio_capture", "audio_playback", "fec", "record", "playback", "audio_delay"):
+    for key in ("audio_capture", "audio_playback", "fec", "record", "playback", "audio_delay", "rtsp",
+                "rtp_standard", "protocol", "echo_cancellation", "display"):
         assert ours[key] == ref[key], key
 
 

@@ -15,74 +15,22 @@ The port's copy of ``ultragrid_tpu/audio/aes67.py``.
 from __future__ import annotations
 
 import queue
-import re
 import socket
 import struct
 import threading
-from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from ultragrid_tpu_torch.audio.capture import AudioCapture
 from ultragrid_tpu_torch.audio.types import AudioDesc, AudioFrame
 from ultragrid_tpu_torch.modules.registry import LibraryClass, register_module
+from ultragrid_tpu_torch.net.rtsp_client import parse_sdp
 from ultragrid_tpu_torch.utils.log import Logger
 
 log = Logger("aes67")
 
 SAP_ADDR = ("239.255.255.255", 9875)
-
-
-# SdpMedia and parse_sdp: the port's copy of the SDP parsing of
-# ultragrid_tpu/net/rtsp_client.py, which comes over whole with RTSP
-
-
-@dataclass
-class SdpMedia:
-    kind: str  # "video" | "audio"
-    port: int
-    payload_type: int
-    encoding: str = ""
-    clock: int = 90000
-    channels: int = 0
-    control: str = ""
-    fmtp: Dict[str, str] = field(default_factory=dict)
-
-
-def parse_sdp(text: str) -> List[SdpMedia]:
-    """Parse the m=/a=rtpmap/a=fmtp/a=control lines we need."""
-    medias: List[SdpMedia] = []
-    cur: Optional[SdpMedia] = None
-    for raw in text.splitlines():
-        line = raw.strip()
-        if line.startswith("m="):
-            parts = line[2:].split()
-            if len(parts) >= 4:
-                cur = SdpMedia(kind=parts[0], port=int(parts[1]), payload_type=int(parts[3]))
-                medias.append(cur)
-        elif cur is not None and line.startswith("a=rtpmap:"):
-            m = re.match(r"a=rtpmap:(\d+)\s+([^/]+)/(\d+)(?:/(\d+))?", line)
-            if m and int(m.group(1)) == cur.payload_type:
-                cur.encoding = m.group(2).upper()
-                cur.clock = int(m.group(3))
-                cur.channels = int(m.group(4) or 0)
-        elif cur is not None and line.startswith("a=control:"):
-            cur.control = line[len("a=control:"):]
-        elif cur is not None and line.startswith("a=fmtp:"):
-            m = re.match(r"a=fmtp:(\d+)\s+(.*)", line)
-            if m and int(m.group(1)) == cur.payload_type:
-                for kv in m.group(2).split(";"):
-                    k, _, v = kv.strip().partition("=")
-                    if k:
-                        cur.fmtp[k] = v
-    # static payload types without rtpmap (RFC 3551)
-    for med in medias:
-        if not med.encoding:
-            med.encoding = {0: "PCMU", 8: "PCMA", 26: "JPEG"}.get(med.payload_type, "")
-            if med.payload_type in (0, 8):
-                med.clock = 8000
-    return medias
 
 
 def parse_sap(pkt: bytes) -> Optional[str]:

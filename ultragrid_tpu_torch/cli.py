@@ -9,16 +9,19 @@ port holds (src/main.cpp:690-740):
   -f FEC             forward error correction ([A:|V:]none|mult:N|ldgm:...|rs:k:n)
   -s / -r / -A       audio capture, playback and codec (PCM, alaw, ulaw)
   -E DIR / -I DIR    record the session / replay a recording as the capture
-  -x PROTOCOL        ultragrid_rtp (default) or loopback
+  -x PROTOCOL        ultragrid_rtp (default), loopback or ihdtv
+  --rtp-standard     send JPEG as RFC 2435 on PT 26 and serve its SDP over HTTP
+  --rtsp             serve the session over RTSP (implies --rtp-standard)
   --device DEV       where frames live and kernels run: cuda (default) or cpu
 
 Run a sender ``python -m ultragrid_tpu_torch -t testcard -c jpeg -f ldgm
 <host>``, a receiver ``python -m ultragrid_tpu_torch -d dummy``, both on the
-card unless ``--device cpu`` is given.  Options whose modules are not in the
-port yet (encryption, the libavcodec audio codecs, echo cancellation, RTSP,
-standards mode, NAT traversal, the other rxtx protocols, full-duplex
-sessions, windowed displays) are refused with an error that names the
-missing module; none is accepted and ignored.  The reference's ``~/.ug.rc`` aliases are not read.
+card unless ``--device cpu`` is given; ``-t ... -d ... <peer>`` is a
+full-duplex call (``pipeline/duplex.py``, with ``--echo-cancellation``).
+Options whose modules are not in the port yet (encryption, the libavcodec
+audio codecs, NAT traversal, mpegts and the SDK protocols, windowed
+displays) are refused with an error that names the missing module; none is
+accepted and ignored.  The reference's ``~/.ug.rc`` aliases are not read.
 """
 
 from __future__ import annotations
@@ -33,18 +36,13 @@ from ultragrid_tpu_torch.utils.params import print_param_doc, set_commandline_pa
 
 # option dest -> the module of the reference it needs, not ported yet
 _NOT_PORTED = {
-    "echo_cancellation": "--echo-cancellation is assigned by the full-duplex session "
-                         "(ultragrid_tpu/pipeline/duplex.py)",
     "window_title": "--window-title needs a windowed display (gl, x11, drm)",
     "nat_traverse": "-N/--nat-traverse needs ultragrid_tpu/net/nat.py",
     "encryption": "-e/--encryption needs ultragrid_tpu/utils/crypto.py",
-    "rtsp": "--rtsp needs ultragrid_tpu/net/rtsp.py",
-    "rtp_standard": "--rtp-standard needs ultragrid_tpu/net/rtpdec_jpeg.py and utils/sdp.py",
 }
 
 _PROTOCOLS_NOT_PORTED = {
     "mpegts": "ultragrid_tpu/pipeline/mpegts.py",
-    "ihdtv": "ultragrid_tpu/pipeline/ihdtv.py",
     "sage": "the SAGE SDK",
     "omt": "the Open Media Transport SDK",
 }
@@ -102,7 +100,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", "--postprocess", default="", help="display postprocess chain")
     p.add_argument("--frames", type=int, default=None, help="stop after N frames")
     p.add_argument("-x", "--protocol", default="ultragrid_rtp",
-                   help="rxtx protocol: ultragrid_rtp | loopback (ref: --protocol)")
+                   help="rxtx protocol: ultragrid_rtp | loopback | ihdtv (ref: --protocol)")
     p.add_argument("-L", "--list-modules", action="store_true")
     p.add_argument("-b", "--capabilities", action="store_true",
                    help="print machine-readable capabilities JSON (GUI contract)")
@@ -140,16 +138,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="<filter>[:<config>][#<filter>...] — gain/delay/"
                         "silence/discard/channel_remap/controlport_stats "
                         "(ref: main.cpp:271)")
+    p.add_argument("--echo-cancellation", action="store_true",
+                   help="cancel playback echo from captured audio in duplex "
+                        "sessions (ref: --echo-cancellation, audio/echo.cpp)")
+    p.add_argument("--rtsp", action="store_true",
+                   help="serve the session over RTSP (implies --rtp-standard for JPEG)")
+    p.add_argument("--rtp-standard", action="store_true",
+                   help="send JPEG as standards-compliant RFC 2435 / PT 26 (interop mode)")
     # the reference's options whose modules the port does not hold yet:
     # parsed, so that using one is refused by name (see _NOT_PORTED)
-    p.add_argument("--echo-cancellation", action="store_true", default=None, help=argparse.SUPPRESS)
     p.add_argument("--window-title", default=None, help=argparse.SUPPRESS)
     p.add_argument("-N", "--nat-traverse", nargs="?", const="auto", default=None, help=argparse.SUPPRESS)
     p.add_argument("--audio-protocol", default=None, help=argparse.SUPPRESS)
     p.add_argument("--video-protocol", default=None, help=argparse.SUPPRESS)
     p.add_argument("-e", "--encryption", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--rtsp", action="store_true", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--rtp-standard", action="store_true", default=None, help=argparse.SUPPRESS)
     p.add_argument("host", nargs="?", default=None, help="receiver address (sender mode)")
     return p
 
@@ -171,10 +173,8 @@ def refusal(args) -> str:
             return "not in the port yet: --param h264-decoder=lavc needs libavcodec (ultragrid_tpu/modules/lavc.py)"
     if args.protocol in _PROTOCOLS_NOT_PORTED:
         return f"not in the port yet: --protocol {args.protocol} needs {_PROTOCOLS_NOT_PORTED[args.protocol]}"
-    if args.protocol not in ("ultragrid_rtp", "loopback"):
+    if args.protocol not in ("ultragrid_rtp", "loopback", "ihdtv"):
         return f"unknown protocol {args.protocol!r}"
-    if args.capture and args.host and args.display and args.protocol == "ultragrid_rtp":
-        return "not in the port yet: a full-duplex session needs ultragrid_tpu/pipeline/duplex.py"
     return ""
 
 
@@ -287,6 +287,16 @@ def main(argv=None) -> int:
 
     profiler.maybe_enable_from_params()
 
+    if args.protocol == "ihdtv":
+        # legacy dual-stream raw v210 transport (ref: src/rxtx/ihdtv.cpp)
+        from ultragrid_tpu_torch.pipeline.ihdtv import run_ihdtv_receiver, run_ihdtv_sender
+
+        if args.capture and args.host:
+            return run_ihdtv_sender(args.capture, args.host, mtu=args.mtu,
+                                    frame_limit=args.frames, device=args.device)
+        if args.display:
+            return run_ihdtv_receiver(args.display, frame_limit=args.frames,
+                                      mtu=args.mtu, device=args.device)
     if args.protocol == "loopback" and args.capture:
         # single-process fixture: compressed frames straight to the display
         # (ref: src/rxtx/loopback.c)
@@ -300,7 +310,17 @@ def main(argv=None) -> int:
         n = lb.run()
         print(f"{n} frames processed (loopback)")
         return 0
-    if args.capture and args.host:
+    if args.capture and args.host and args.display and args.protocol == "ultragrid_rtp" and not args.rtsp:
+        # full-duplex videoconferencing mode: -t ... -d ... <peer> sends AND
+        # receives in one process (ref: capture thread + receiver thread,
+        # main.cpp:347-397 / rxtx.cpp:153)
+        from ultragrid_tpu_torch.pipeline.duplex import run_duplex
+
+        return run_duplex(args)
+    if args.capture and (args.host or args.rtsp):
+        # --rtsp without a host: serve and wait for clients to PLAY
+        if args.rtsp:
+            args.rtp_standard = True
         from ultragrid_tpu_torch.pipeline.sender import run_sender
 
         return run_sender(args)

@@ -615,10 +615,10 @@ class DisplayFilter(Filter):
 
 
 class PreviewFilter(DisplayFilter):
-    """preview — tee into the preview display (ref:
-    capture_filter/preview.cpp).  The port has no preview display yet, so
-    this passes frames through with the JAX package's warning, as the JAX
-    package does when no preview consumer is listening."""
+    """preview — tee into the preview unix-socket display (ref:
+    capture_filter/preview.cpp; ``modules/ipc_display.py``).  Degrades to
+    passthrough, with the JAX package's warning, only when the display
+    cannot be built: no preview consumer is listening."""
 
     def __init__(self, cfg: str):
         try:

@@ -6,8 +6,9 @@ packets every 40 ms, one packet at a time from the caller's thread
 (:meth:`RtpSession.send_data_hdr`, where the reference hands each packet to
 a send thread: the same bytes in the same order).  Batch receives go through
 ``native/udp_rx.c`` (the port's loaders raise if they cannot be built; there
-is no Python-socket stand-in for them).  The reference's extra unicast
-destinations (RTSP clients) are not ported with RTSP.
+is no Python-socket stand-in for them).  Extra unicast destinations (the
+RTSP clients that PLAY a ``--rtsp`` sender) get a copy of every packet, one
+``sendto`` each, as in the reference.
 
 Host-side analogue of the reference's src/rtp/rtp.c + net_udp.c: dual-role
 session bound to rx_port, sending to (addr, tx_port); receive uses a
@@ -168,6 +169,7 @@ class RtpSession:
         if rx_port:
             self.sock.bind(("" if self.family == socket.AF_INET else "::", rx_port))
         self._dest = ((ip, tx_port) if ip else None)
+        self._extra_dests: set = set()
         self.bytes_sent = 0
         self.packets_sent = 0
         self.bytes_received = 0
@@ -196,10 +198,28 @@ class RtpSession:
                 "than this session's socket")
         self._dest = (ip, tx_port or self.tx_port)
 
+    def has_receiver(self) -> bool:
+        return self._dest is not None or bool(self._extra_dests)
+
+    # extra unicast destinations (RTSP clients; ref: live555 per-client
+    # sessions in src/rtsp/BasicRTSPOnlyServer.cpp)
+    def add_destination(self, addr: str, port: int) -> None:
+        self._extra_dests.add((addr, port))
+
+    def remove_destination(self, addr: str, port: int) -> None:
+        self._extra_dests.discard((addr, port))
+
+    def _fanout(self, pkt: bytes) -> None:
+        for dest in list(self._extra_dests):
+            try:
+                self.sock.sendto(pkt, dest)
+            except OSError:
+                pass
+
     def send_data_hdr(self, ts: int, pt: int, m: bool, payload_hdr: bytes, data: bytes) -> None:
         """ref: rtp_send_data_hdr (rtp.c); payload = payload_hdr + data,
         sent now from this thread."""
-        if self._dest is None:
+        if self._dest is None and not self._extra_dests:
             return
         seq = self.seq
         self.seq = (self.seq + 1) & 0xFFFF
@@ -211,9 +231,11 @@ class RtpSession:
         if self.rtcp is not None:
             self.rtcp.on_rtp_sent(len(pkt), ts)
         try:
-            self.sock.sendto(pkt, self._dest)
+            if self._dest is not None:
+                self.sock.sendto(pkt, self._dest)
         except OSError as e:
             log.warning(f"send failed: {e}")
+        self._fanout(pkt)
 
     def send_batch(self, ts: int, pt: int, payload_hdrs, payload: "bytes|object",
                    offsets, sizes, m_last: bool, pace_ns: int = 0) -> int:
@@ -224,8 +246,14 @@ class RtpSession:
         offsets/sizes: per-packet slices of `payload` (a contiguous buffer).
         """
         npkt = len(sizes)
-        if self._dest is None or not npkt:
+        if not npkt or not self.has_receiver():
             return 0
+        if self._dest is None:
+            # RTSP clients only: per-packet sends (the reference's fallback)
+            for i in range(npkt):
+                self.send_data_hdr(ts, pt, m_last and i == npkt - 1, payload_hdrs[i].tobytes(),
+                                   payload[offsets[i]: offsets[i] + sizes[i]])
+            return npkt
         lib = udp_tx_lib()
         # prepend RTP headers (vectorized)
         seqs = (self.seq + np.arange(npkt)) & 0xFFFF
@@ -257,6 +285,11 @@ class RtpSession:
             payload_arr.ctypes.data, offs.ctypes.data, szs.ctypes.data,
             npkt, pace_ns, sockaddr, len(sockaddr),
         )
+        if self._extra_dests:
+            # per-client unicast fan-out (RTSP clients); the primary
+            # destination rides the C batch sender
+            for i in range(npkt):
+                self._fanout(headers[i].tobytes() + bytes(payload_arr[offs[i]: offs[i] + szs[i]]))
         if n < 0:
             log.warning("batch send failed (socket error)")
             return 0

@@ -12,23 +12,29 @@ uncompressed frame that lives on the card is copied to the host once per
 frame, in :meth:`Tx.send_video`, before FEC and packetisation.  Audio
 (:meth:`Tx.send_audio`) is per-channel packets with the 5-word audio header,
 optionally Reed-Solomon protected with the parity product on the Tx's
-device.  Not in the port yet, and refused by name: the RFC 2435 standards
-mode with its G.711 audio (``send_audio_standard``; ``net/rtpdec_jpeg.py``)
-and per-packet encryption (``utils/crypto.py``).
+device.  Standards mode (``Tx(rfc2435=True)``) sends a JPEG frame as RFC 2435
+fragments on PT 26 (``net/rtpdec_jpeg.py``), one unpaced ``send_data_hdr``
+per packet; :meth:`Tx.send_audio_standard` is the reference's G.711 API (PT
+0 at 8 kHz), which its sender never calls either.  Not in the port yet, and
+refused by name: per-packet encryption (``utils/crypto.py``).
 """
 
 from __future__ import annotations
 
 import struct
+from fractions import Fraction
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from ultragrid_tpu_torch.audio.types import AUDIO_TAGS
+from ultragrid_tpu_torch.audio.codecs import get_audio_codec
+from ultragrid_tpu_torch.audio.resampler import resample_channel
+from ultragrid_tpu_torch.audio.types import AUDIO_TAGS, AudioFrame
 from ultragrid_tpu_torch.device import get_device
 from ultragrid_tpu_torch.net import rtp_types as rt
 from ultragrid_tpu_torch.net.rtp import RtpSession, get_local_mediatime
+from ultragrid_tpu_torch.net.rtpdec_jpeg import packetize as rfc2435_packetize
 from ultragrid_tpu_torch.ops.fec import FecDesc, RsSession, fec_from_spec
 from ultragrid_tpu_torch.types import (
     PIX_BLOCK_LCM,
@@ -141,6 +147,7 @@ class Tx:
         bitrate: int = RATE_AUTO,
         mult_count: int = 1,
         bitrate_fixed: bool = False,
+        rfc2435: bool = False,
         device="cuda",
     ):
         self.mtu = mtu
@@ -157,6 +164,9 @@ class Tx:
         self.fec_spec = fec_spec
         self._fec = None
         self._last_audio_ts = -1
+        # standards mode: JPEG frames go out as RFC 2435 / PT 26 instead of
+        # the UltraGrid payload header (interop with ffmpeg/GStreamer/RTSP)
+        self.rfc2435 = rfc2435
 
     def _get_fec(self, frame_size: int):
         if self.fec_spec in ("", "none"):
@@ -174,6 +184,8 @@ class Tx:
         once, here.
         """
         ts = get_local_mediatime() if frame.timestamp < 0 else int(frame.timestamp * 90000) & 0xFFFFFFFF
+        if self.rfc2435 and frame.desc.color_spec == Codec.JPEG:
+            return self._send_rfc2435(session, frame, ts)
         tiles = [host_bytes(t) for t in frame.tiles]
         sent = 0
         for ti, data in enumerate(tiles):
@@ -181,6 +193,15 @@ class Tx:
                                     send_m=(ti == len(tiles) - 1))
         self.buffer = (self.buffer + 1) & 0x3FFFFF
         return sent
+
+    def _send_rfc2435(self, session: RtpSession, frame: VideoFrame, ts: int) -> int:
+        """Send one JPEG frame as RFC 2435 fragments (PT 26)."""
+        jpeg = host_bytes(frame.tiles[0]).tobytes()
+        payloads = rfc2435_packetize(jpeg, mtu_payload=self.mtu - 40)
+        for i, p in enumerate(payloads):
+            session.send_data_hdr(ts, rt.PT_JPEG, i == len(payloads) - 1, b"", p)
+        self.buffer = (self.buffer + 1) & 0x3FFFFF
+        return len(payloads)
 
     def _send_tile(self, session: RtpSession, frame: VideoFrame, data: np.ndarray, ts: int,
                    substream: int, send_m: bool) -> int:
@@ -234,8 +255,42 @@ class Tx:
         return total
 
     def send_audio_standard(self, session: RtpSession, frame) -> int:
-        raise NotImplementedError("standards-mode G.711 audio belongs to the RTP standards mode "
-                                  "(--rtp-standard: net/rtpdec_jpeg.py, utils/sdp.py), not in the port yet")
+        """Standards-mode G.711 audio: the RFC 3551 static payload PT 0
+        (PCMU; as in the reference, PCMA's PT 8 is only received), 8 kHz
+        mono/stereo interleaved, 20 ms per packet — interoperable with any
+        SIP/RTSP receiver (the UltraGrid-native path uses the 5-word audio
+        header instead).  Host numpy, as the reference's."""
+        desc = frame.desc
+        if desc.sample_rate != 8000:
+            # G.711 static payloads are defined at 8 kHz (RFC 3551 table 4)
+            fr = Fraction(8000, desc.sample_rate)
+            chans = []
+            for ch in frame.channels:
+                x = np.asarray(ch, np.uint8).view("<i2").astype(np.float64)
+                y = resample_channel(x, fr.numerator, fr.denominator)
+                chans.append(np.frombuffer(np.clip(y, -32768, 32767).astype("<i2").tobytes(), np.uint8))
+            nf = AudioFrame(desc.with_(sample_rate=8000, bps=2), chans)
+            nf.timestamp = frame.timestamp
+            frame = nf
+            desc = frame.desc
+        comp = get_audio_codec("ulaw").compress(frame)
+        pt = 0  # PCMU
+        data = np.asarray(comp.channels[0], np.uint8)
+        if desc.ch_count == 2:
+            # RFC 3551: stereo is sample-interleaved
+            r = np.asarray(comp.channels[1], np.uint8)
+            inter = np.empty(data.size + r.size, np.uint8)
+            inter[0::2] = data
+            inter[1::2] = r
+            data = inter
+        step = 160 * desc.ch_count  # 20 ms at 8 kHz
+        ts = int(frame.timestamp * 8000) & 0xFFFFFFFF if frame.timestamp >= 0 else 0
+        sent = 0
+        for off in range(0, data.size, step):
+            chunk = data[off : off + step].tobytes()
+            session.send_data_hdr(ts + off // desc.ch_count, pt, False, b"", chunk)
+            sent += 1
+        return sent
 
     def send_audio(self, session: RtpSession, frame, codec_name: str = "PCM",
                    fec_spec: str = "none") -> int:

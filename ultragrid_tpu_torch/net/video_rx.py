@@ -7,9 +7,12 @@ holes, run LDGM/RS recovery for FEC payload types.  Reassembly is host work
 into host buffers; ``--param ldgm-device=device`` sends the LDGM peel to the
 port's :meth:`LdgmSession.decode_device` (kernel K2 on the card).  A
 display-owned framebuffer on the card is filled by one upload per frame.
-Not in the port yet, and dropped with a warning that names the missing
-module: encrypted payloads (``utils/crypto.py``) and the RFC 2435 / RFC 6184
-standards payloads (``net/rtpdec_jpeg.py``, ``net/rtpdec_h264.py``).
+The standards payloads bypass the C fast depacketizer and are reassembled
+here in Python, packet by packet: RFC 2435 (PT 26) into a JFIF file
+(``Codec.JPEG``, decoded on the card by the receiver's ``JpegDecompress``)
+and RFC 6184 (PT 96) into an Annex-B access unit (``Codec.H264``).  Not in
+the port yet, and dropped with a warning that names the missing module:
+encrypted payloads (``utils/crypto.py``).
 """
 
 from __future__ import annotations
@@ -21,8 +24,11 @@ import torch
 
 from ultragrid_tpu_torch.net import rtp_types as rt
 from ultragrid_tpu_torch.net.pbuf import PbufNode
+from ultragrid_tpu_torch.net.rtpdec_h264 import H264Depacketizer
+from ultragrid_tpu_torch.net.rtpdec_jpeg import JpegDepacketizer
 from ultragrid_tpu_torch.ops.fec import LdgmSession, RsSession
-from ultragrid_tpu_torch.types import VideoDesc, VideoFrame, codec_is_planar, is_codec_opaque
+from ultragrid_tpu_torch.ops.jpeg import _parse_headers
+from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame, codec_is_planar, is_codec_opaque
 from ultragrid_tpu_torch.utils.log import Logger
 from ultragrid_tpu_torch.utils.params import add_to_param, get_commandline_param
 
@@ -73,8 +79,6 @@ _NOT_PORTED_PTS = {
     rt.PT_ENCRYPT_VIDEO: "utils/crypto.py (-e)",
     rt.PT_ENCRYPT_VIDEO_LDGM: "utils/crypto.py (-e)",
     rt.PT_ENCRYPT_VIDEO_RS: "utils/crypto.py (-e)",
-    rt.PT_JPEG: "net/rtpdec_jpeg.py (RFC 2435)",
-    rt.PT_H264: "net/rtpdec_h264.py (RFC 6184)",
 }
 
 
@@ -110,6 +114,7 @@ class VideoRxState:
         # LINE_DECODER path, video_decoders.cpp:1707-1796)
         self.framebuffer_provider = None
         self._warned: set = set()
+        self._h264_dep = None
 
     def _get_fec(self, kind: str, k: int, m: int, c: int, seed: int):
         key = (kind, k, m, c, seed)
@@ -148,6 +153,13 @@ class VideoRxState:
             return None
         if pt == rt.PT_VIDEO:
             frame = self._decode_plain(node)
+        elif pt == rt.PT_JPEG:
+            # standards-mode RFC 2435 JPEG (no UltraGrid payload header;
+            # ref: rtpdec_jpeg.c via the RTSP decode path)
+            frame = self._decode_rfc2435(node)
+        elif pt == rt.PT_H264:
+            # standards-mode RFC 6184 (dynamic PT 96; ref: rtpdec_h264.c)
+            frame = self._decode_rfc6184(node)
         elif pt in (rt.PT_VIDEO_LDGM, rt.PT_VIDEO_RS):
             job = self._reassemble_fec(node, "ldgm" if pt == rt.PT_VIDEO_LDGM else "rs")
             if job is not None:
@@ -162,6 +174,45 @@ class VideoRxState:
             # RTP TS (90 kHz) = the sender's capture instant; kept in
             # seconds so capture->display latency is measurable downstream
             frame.timestamp = (node.ts & 0xFFFFFFFF) / 90000.0
+        return frame
+
+    def _decode_rfc2435(self, node: PbufNode) -> Optional[VideoFrame]:
+        """PT 26: reassemble RFC 2435 fragments into a JPEG frame whose data
+        is the full JFIF file (color_spec=JPEG); the decompress stage takes
+        it from there."""
+        dep = JpegDepacketizer()
+        jpeg = None
+        pkts = sorted(node.packets, key=lambda p: p.seq)
+        for i, pkt in enumerate(pkts):
+            jpeg = dep.feed(bytes(pkt.payload), marker=bool(pkt.m) or i == len(pkts) - 1)
+            if jpeg is not None:
+                break
+        if jpeg is None:
+            self.frames_missing_data += 1
+            return None
+        self.frames_ok += 1
+        hdr = _parse_headers(jpeg)
+        desc = VideoDesc(hdr["w"], hdr["h"], Codec.JPEG, 0.0)
+        return self._wrap(np.frombuffer(jpeg, np.uint8), desc)
+
+    def _decode_rfc6184(self, node: PbufNode) -> Optional[VideoFrame]:
+        """PT 96: reassemble an H.264 access unit (Annex-B) per RFC 6184.
+        The frame carries the Annex-B bytes (color_spec=H264); the
+        receiver's own H.264 decoder takes it from there."""
+        dep = self._h264_dep
+        if dep is None:
+            dep = self._h264_dep = H264Depacketizer()
+        au = None
+        pkts = sorted(node.packets, key=lambda p: p.seq)
+        for i, pkt in enumerate(pkts):
+            au = dep.feed(bytes(pkt.payload), marker=bool(pkt.m) or i == len(pkts) - 1)
+        if au is None:
+            self.frames_missing_data += 1
+            return None
+        self.frames_ok += 1
+        desc = VideoDesc(dep.width or 1920, dep.height or 1080, Codec.H264, 0.0)
+        frame = self._wrap(np.frombuffer(au, np.uint8), desc)
+        frame.callbacks["frame_type"] = dep.frame_type
         return frame
 
     def _decode_plain(self, node: PbufNode) -> Optional[VideoFrame]:

@@ -19,6 +19,12 @@ standards payloads, CSRC/extension headers) are handed back verbatim
 and flow through the ordinary pbuf path.  RFC 3550 reception statistics
 are accounted ONCE, in C, for every valid RTP packet; they are merged
 into the RTCP session just before each report is built.
+
+The hand-back buffer holds a whole recvmmsg batch (``VRX_BATCH``, 256
+datagrams).  The reference's holds 64, and the C layer drops the slow-path
+datagrams of a batch beyond that without a word: a standards-mode receiver
+that falls one or two 1080p frames behind loses packets of every frame
+after (ROADMAP F11, repaired here).
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from ultragrid_tpu_torch.utils.log import Logger
 log = Logger("vrx_fast")
 
 META_WORDS = 12
+VRX_BATCH = 256  # datagrams per recvmmsg batch (native/video_rx_fast.c)
 STUCK_TIMEOUT = 1.0  # ref: pbuf.c:599 — force-decode a stuck frame
 
 _FAST_PTS = (rt.PT_VIDEO, rt.PT_VIDEO_LDGM, rt.PT_VIDEO_RS)
@@ -98,9 +105,10 @@ class FastVideoRx:
             buf = np.empty(self._cap, np.uint8)
             self._slot_buf.append(buf)
             lib.vrx_set_buffer(self.state, i, buf.ctypes.data, buf.size)
-        # overflow scratch (reused; packets are copied out when parsed)
-        self._ovf = np.empty((64, RTP_MAX_PACKET_LEN), np.uint8)
-        self._ovf_lens = np.empty(64, np.int32)
+        # overflow scratch (reused; packets are copied out when parsed),
+        # room for every datagram of a batch (ROADMAP F11)
+        self._ovf = np.empty((VRX_BATCH, RTP_MAX_PACKET_LEN), np.uint8)
+        self._ovf_lens = np.empty(VRX_BATCH, np.int32)
         self._pending: dict = {}  # (ssrc, ts) -> _PendingFrame
         self._rtcp_snapshot: list = []
         self._stats_out = np.zeros(8, np.uint64)

@@ -15,7 +15,13 @@ current where the receiver was built (the rule of ``pipeline/loop.py``).
 Audio (``-r``) is received on the base port + 2 by the same rx loop into its
 own playout buffer and decoded, Reed-Solomon erasures included, scaled
 (``--audio-scale``, runtime volume and mute) and played on the host in numpy,
-as in the reference; ``--audio-delay`` sets the two playout delays.
+as in the reference; ``--audio-delay`` sets the two playout delays.  In a
+full-duplex session with ``--echo-cancellation`` each played frame also
+feeds the sender's echo canceller (``echo``).
+
+The standards payloads (RFC 2435 JPEG on PT 26, RFC 6184 H.264 on PT 96)
+take the Python playout-buffer path; their frames are decoded on the card
+like any compressed frame.
 
 Not in the port yet, and refused by name: decryption (``-e``).
 """
@@ -94,6 +100,8 @@ class VideoReceiver:
         self.audio_scale = audio_scale
         self.volume = 1.0  # runtime audio gain (control socket / keyboard)
         self.muted = False
+        # --echo-cancellation: assigned by the duplex runner (far-end feed)
+        self.echo = None
         self._agc_gain = 1.0
         self.device = get_device(device)
         self.stream = pipeline_stream(self.device)
@@ -342,7 +350,10 @@ class VideoReceiver:
         if self.control is not None:
             # volume stats for astat clients (ref: astat.cpp stats line)
             self.control.report_stats(format_stats_line("ARECV", frame))
-        self.audio_playback.put_frame(self._scale_audio(frame))
+        frame = self._scale_audio(frame)
+        if self.echo is not None:  # far-end feed for AEC (ref: echo_play)
+            self.echo.play(frame)
+        self.audio_playback.put_frame(frame)
         return True
 
     def _scale_audio(self, frame):

@@ -21,8 +21,18 @@ both send on the audio session at the base port + 2; only a Reed-Solomon
 the frames as sent and, unlike the reference's sender, the audio as captured
 (``sound.wav``; ROADMAP F8).
 
-Not in the port yet, and refused by name: encryption (``-e``), RTSP and the
-RFC 2435 standards mode.
+Standards mode (``--rtp-standard``) sends a JPEG frame as RFC 2435 on PT 26
+(``Tx(rfc2435=True)``, kept across every ``Tx`` swap) and publishes an SDP
+over HTTP (``utils/sdp.py``); ``--rtsp`` serves the session over RTSP
+(``net/rtsp.py``), each client that PLAYs becoming an extra destination of
+the RTP session.  Both servers default to port 8554: under ``--rtsp`` the
+SDP server's bind fails and is logged, as in the reference (ROADMAP F10).
+The port's sender closes both servers when it stops; the reference's leaves
+them to the end of the process.
+``echo`` (set by the duplex session for ``--echo-cancellation``) cleans the
+captured audio before it is filtered and sent.
+
+Not in the port yet, and refused by name: encryption (``-e``).
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from ultragrid_tpu_torch.modules.messaging import (
 from ultragrid_tpu_torch.modules.video_capture import initialize_video_capture
 from ultragrid_tpu_torch.modules.video_compress import CompressDriver
 from ultragrid_tpu_torch.net.rtp import RtpSession
+from ultragrid_tpu_torch.net.rtsp import RtspServer
 from ultragrid_tpu_torch.net.transmit import RATE_AUTO, Tx, parse_bitrate
 from ultragrid_tpu_torch.ops.fec import fec_from_spec
 from ultragrid_tpu_torch.utils import profiler
@@ -56,6 +67,7 @@ from ultragrid_tpu_torch.utils.export import Exporter
 from ultragrid_tpu_torch.utils.keyboard import KeyboardControl
 from ultragrid_tpu_torch.utils.log import Logger
 from ultragrid_tpu_torch.utils.params import add_to_param, get_commandline_param, param_is_set
+from ultragrid_tpu_torch.utils.sdp import SdpHttpServer, make_sdp
 from ultragrid_tpu_torch.utils.tiling import VideoMode, vf_split
 
 add_to_param("fec-adaptive",
@@ -82,6 +94,8 @@ class VideoSender:
         audio_codec: str = "PCM",
         record: Optional[str] = None,
         mode: str = "normal",
+        rtp_standard: bool = False,
+        rtsp: bool = False,
         control_port: Optional[int] = None,
         audio_fec: str = "none",
         audio_channel_map: Optional[str] = None,
@@ -148,10 +162,35 @@ class VideoSender:
                                   mtu=mtu, ttl=ttl, rtcp=True,
                                   force_ip_version=force_ip_version,
                                   mcast_if=mcast_if)
+        self.rfc2435 = rtp_standard
         self.tx = self._new_tx(fec_spec, mtu, bitrate, bitrate_fixed)
+        self.sdp_server = None
+        self.rtsp_server = None
+        if rtsp:
+            # serve the session over RTSP: PLAY adds the client as an RTP
+            # destination (ref: rtsp rxtx mode / BasicRTSPOnlyServer.cpp)
+            try:
+                self.rtsp_server = RtspServer(
+                    [("video", tx_port, 26, "JPEG", 90000)],
+                    on_play=self.session.add_destination,
+                    on_teardown=self.session.remove_destination,
+                )
+            except OSError as exc:
+                log.warning(f"RTSP server unavailable: {exc}")
+        if rtp_standard:
+            # publish an SDP for the standards-mode stream (ref: utils/sdp.c)
+            sdp = make_sdp(host or "0.0.0.0", [("video", tx_port, 26, "JPEG", 90000)])
+            try:
+                self.sdp_server = SdpHttpServer(sdp)
+            except OSError as exc:
+                log.warning(f"SDP HTTP server unavailable: {exc}")
         self.frame_limit = frame_limit
         self.should_exit = threading.Event()
         self.frames_sent = 0
+        # --echo-cancellation: assigned by the duplex session runner; the
+        # captured (near-end) signal is cleaned before compression
+        # (ref: echo_cancel, audio/echo.cpp)
+        self.echo = None
         # runtime control socket — live sessions always get one like the
         # reference (ref: control_init, main.cpp:1288-1306)
         self.control = None
@@ -171,7 +210,7 @@ class VideoSender:
 
     def _new_tx(self, fec_spec: str, mtu: int, bitrate: int, bitrate_fixed: bool) -> Tx:
         return Tx(mtu=mtu, fec_spec=fec_spec, bitrate=bitrate, bitrate_fixed=bitrate_fixed,
-                  device=self.device)
+                  rfc2435=self.rfc2435, device=self.device)
 
     def _swap_tx(self, fec_spec: str) -> None:
         """Single-reference swap: the next frame uses the new Tx."""
@@ -324,6 +363,8 @@ class VideoSender:
                     break
                 # pacing advances by CAPTURED samples even if a filter drops
                 nsamples = frame.channels[0].size // frame.desc.bps
+                if self.echo is not None:
+                    frame = self.echo.cancel(frame) or frame
                 self._send_audio(frame)
                 samples_sent += nsamples
                 deadline = start + samples_sent / frame.desc.sample_rate
@@ -380,6 +421,9 @@ class VideoSender:
         wd = arm_exit_watchdog()
         if self.control is not None:
             self.control.close()
+        for srv in (self.rtsp_server, self.sdp_server):
+            if srv is not None:
+                srv.close()
         t.join(timeout=5)
         if at is not None:
             at.join(timeout=5)
@@ -420,6 +464,8 @@ def run_sender(args) -> int:
         force_ip_version=args.force_ip_version,
         mcast_if=args.mcast_if,
         audio_host=args.audio_host,
+        rtp_standard=args.rtp_standard,
+        rtsp=args.rtsp,
         device=args.device,
     )
     n = sender.run()
