@@ -53,8 +53,14 @@ times kernels, steps, the receive step, the 4K batch in frames/s,
 chain.  Every phase prints one JSON line; any failed
 check raises, so the exit code is non-zero.  The last lines are the kernel
 table, the card's name and power limit, and ``{"ok": true, "device":
-{...}}``.  ``python3 chip_smoke.py --only standards`` builds the kernels
-and runs phase ``standards`` alone, printing no result line.
+{...}}``.  Phase ``parallel`` runs the multi-device path (``parallel/``) at
+8K UYVY as four row bands on one card: the sender and receiver steps (K1
+and K2 per band, the peel per band) against single-band encodes, K2's plain
+version, the CPU port and the unsharded decode, ``ShardedJpegDecoder``, the
+halo deinterlace, sharded H.264 at 1080p x 4, the dry run, and the file
+capture and display modules.  ``python3 chip_smoke.py --only standards``
+(or ``--only parallel``) builds the kernels and runs that phase alone,
+printing no result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -168,15 +174,25 @@ def device_kernels(fn, runs: int = 20, attempts: int = 3, warmup: bool = True, e
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        for evt in prof.key_averages():
-            if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(evt, "self_device_time_total", None)
-            if us is None:
-                us = evt.self_cuda_time_total
-            out[evt.key] = (evt.count / runs, us / 1000.0 / runs)
+        out = kernel_table(prof, runs)
         if out and any(expect.lower() in k.lower() for k in out):
             break
+    return out
+
+
+def kernel_table(prof, runs: int):
+    """{kernel name: (launches per call, device ms per call)} of a finished
+    profile of ``runs`` calls: the device's kernels and copies, not the span
+    of a profiler step (``ProfilerStep#``), which it also shows on the
+    device."""
+    out = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA or evt.key.startswith("ProfilerStep"):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        out[evt.key] = (evt.count / runs, us / 1000.0 / runs)
     return out
 
 
@@ -2511,6 +2527,289 @@ def phase_standards(dev):
     return out
 
 
+# ---- phase parallel: the multi-device path ----
+
+# 8K UHD, the reference's top resolution, as 4 row bands of 7680x1080 on one
+# card (the reference's tiled mode round-robins tiles over the CUDA devices
+# of one process; with one card every band sits on it)
+PAR_W, PAR_H, PAR_BANDS = 7680, 4320, 4
+PAR_H264 = (1920, 1080)  # 68 macroblock rows split over 4 bands (8K's 270 do not)
+PAR_FILE_FRAMES = 3
+
+
+def par_diff(a, b, what: str):
+    """(differing bytes, largest difference) of two uint8 frames; raises
+    beyond the decoder's stated tolerance (the card's float32 product is
+    torch.matmul)."""
+    nd, mx = byte_diff(a, b)
+    if a.shape != b.shape or mx > 1 or nd > MAX_DIFF_BYTE_SHARE * a.numel():
+        raise RuntimeError(f"parallel {what}: {nd} bytes differ (max {mx}), shapes {a.shape} {b.shape}")
+    return {"bytes_differing": nd, "max_abs_err": mx}
+
+
+def par_file_io(dev, tmp: str):
+    """1080p raw ``file`` capture on the card, its frames through the
+    ``y4m`` display and back through the ``file`` capture as I420, and
+    ``swmix``, each against the file's bytes or the CPU."""
+    from ultragrid_tpu_torch.modules.video_capture import initialize_video_capture
+    from ultragrid_tpu_torch.modules.video_display import initialize_video_display
+    from ultragrid_tpu_torch.ops.planar import uyvy_to_i420
+    from ultragrid_tpu_torch.types import Codec, VideoDesc
+
+    frames = np.stack([content(H1080, 2 * W1080, 40 + i) for i in range(PAR_FILE_FRAMES)])
+    raw = os.path.join(tmp, "frames.uyvy")
+    with open(raw, "wb") as fh:
+        fh.write(frames.tobytes())
+    y4m = os.path.join(tmp, "frames.y4m")
+    cap = initialize_video_capture(f"file:{raw}:{W1080}x{H1080}:60:UYVY", device=dev)
+    disp = initialize_video_display(f"y4m:{y4m}", device=dev)
+    disp.reconfigure(VideoDesc(W1080, H1080, Codec.UYVY, 60.0))
+    t0 = time.perf_counter()
+    for i in range(PAR_FILE_FRAMES):
+        f, _ = cap.grab()
+        if not f.data.is_cuda or not np.array_equal(f.data.cpu().numpy(), frames[i]):
+            raise RuntimeError(f"parallel file capture: frame {i} is not the file's on the card")
+        disp.put_frame(f)
+    read_ms = (time.perf_counter() - t0) * 1e3 / PAR_FILE_FRAMES
+    if cap.grab() != (None, None):
+        raise RuntimeError("parallel file capture: a frame past the file's end")
+    cap.done()
+    disp.done()
+    back = initialize_video_capture(f"file:{y4m}", device=dev)
+    for i in range(PAR_FILE_FRAMES):
+        f, _ = back.grab()
+        want = uyvy_to_i420(torch.as_tensor(frames[i]), W1080, H1080)
+        if not f.data.is_cuda or not torch.equal(f.data.cpu(), want):
+            raise RuntimeError(f"parallel y4m round trip: frame {i} differs from the CPU's I420")
+    back.done()
+    spec = f"swmix:{W1080}:{H1080}:60#testcard:s={W1080}x{H1080}:c=UYVY#testcard:s=1280x720:c=RGB:pattern=gradient"
+    mixed = []
+    for where in (dev, "cpu"):
+        mix = initialize_video_capture(spec, device=where)
+        mixed.append(mix.grab()[0].data)
+        mix.done()
+    if not mixed[0].is_cuda or not torch.equal(mixed[0].cpu(), mixed[1]):
+        raise RuntimeError("parallel swmix: the card's frame differs from the CPU's")
+    return {"frames": PAR_FILE_FRAMES, "geometry": f"{W1080}x{H1080} UYVY", "on_card_equal_to_file": True,
+            "y4m_round_trip_equal": True, "swmix_equal_to_cpu": True, "read_upload_ms_per_frame": read_ms}
+
+
+def complete_profiles(fn, expect: dict, want: int = 5, attempts: int = 30):
+    """Device time and launches of one call of fn(), read from profiles of
+    single calls in which the profiler kept every launch of the kernels
+    named in ``expect`` (name -> launches a call): it drops events now and
+    then, of one kernel and not another, but never adds one.  Each profile
+    traces a warm-up call first and keeps only the call after it (events
+    launched just as tracing starts are the ones it loses).  No scaling by
+    an anchor: the median call of up to ``want`` complete profiles.  Raises
+    when no call shows the expected launches."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    good = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        ks = kernel_table(prof, 1)
+        seen = {name: sum(c for n, (c, _) in ks.items() if name in n) for name in expect}
+        if seen == expect:
+            good.append(ks)
+            if len(good) == want:
+                break
+    if not good:
+        raise RuntimeError(f"no profile of {attempts} single calls showed {expect} (last {seen})")
+    good.sort(key=lambda p: sum(ms for _, ms in p.values()))
+    ks = good[len(good) // 2]
+    return {"device_ms": sum(ms for _, ms in ks.values()), "device_launches": sum(c for c, _ in ks.values()),
+            "profiler_launches_per_call": expect, "complete_profiles": len(good),
+            "device_ms_of_each": [sum(ms for _, ms in p.values()) for p in good],
+            "kernels_per_call": {n[:60]: [c, ms] for n, (c, ms) in ks.items()}}
+
+
+def phase_parallel(dev):
+    """This slice's path on the card: the multi-device steps over a mesh of
+    four row bands on one card at 8K UYVY (7680x4320, bands of 7680x1080):
+    the sender step (per band K1, then K2 over the band's slot container,
+    LDGM 256:26:5) against single-band encodes and K2's plain version and
+    against the CPU port; the receiver step with one data symbol erased per
+    band (the peel on the card, the band-local C scan decode, the reverse
+    product per band) against the CPU plain path and the unsharded decode;
+    ShardedJpegDecoder; the halo deinterlace; sharded H.264 at 1080p x 4;
+    the dry run; the file modules.  Times the 8K x 4 sender step beside the
+    unsharded 8K step, and the receiver's stages."""
+    from ultragrid_tpu_torch.models.encode import EncodeConfig, EncodePipeline
+    from ultragrid_tpu_torch.ops import postprocess
+    from ultragrid_tpu_torch.ops.h264_dec import IntraDecoder
+    from ultragrid_tpu_torch.ops.h264_fast import FastStreamDecoder
+    from ultragrid_tpu_torch.ops.jpeg import JpegDecoder, JpegEncoder
+    from ultragrid_tpu_torch.parallel import make_mesh, shard_frame_rows
+    from ultragrid_tpu_torch.parallel.dryrun import dryrun_multichip
+    from ultragrid_tpu_torch.parallel.sharded_h264 import ShardedH264Encoder
+    from ultragrid_tpu_torch.parallel.sharded_jpeg import (ShardedJpegDecoder, ShardedReceiverStep,
+                                                           ShardedSenderStep, band_symbols)
+    from ultragrid_tpu_torch.parallel.sharded_post import sharded_deinterlace
+    from ultragrid_tpu_torch.types import Codec, VideoDesc
+
+    t_phase = time.perf_counter()
+    out = {"phase": "parallel", "geometry": f"{PAR_W}x{PAR_H} UYVY q80, {PAR_BANDS} row bands of "
+                                            f"{PAR_W}x{PAR_H // PAR_BANDS} on one card", "fec": FEC}
+    mesh = make_mesh(devices=[dev] * PAR_BANDS)
+    cpu_mesh = make_mesh(PAR_BANDS, device="cpu")
+    k, m, c = 256, 26, 5
+    frame_np = content(PAR_H, 2 * PAR_W, 31)
+    frame = torch.as_tensor(frame_np).to(dev)
+    bands = shard_frame_rows(frame, mesh)
+    step = ShardedSenderStep(PAR_W, PAR_H, mesh, quality=80, k=k, m=m, c=c)
+    rx = ShardedReceiverStep(PAR_W, PAR_H, mesh, quality=80, k=k, m=m, c=c, wwords=step.base.local.wwords)
+    step(bands)  # the card's first launches at these shapes
+    torch.cuda.synchronize()
+
+    # ---- the sender step, counted ----
+    reset_kernel_counts()
+    outs = step(bands)
+    torch.cuda.synchronize()
+    sender_l = kernel_counts()
+    if sender_l["jpeg_encode"] != PAR_BANDS or sender_l["gf2_parity"] != PAR_BANDS:
+        raise RuntimeError(f"parallel sender step: launches {sender_l}, expected {PAR_BANDS} of K1 and of K2")
+    if any(bool(o[7]) for o in outs) or not all(t.is_cuda for o in outs for t in o):
+        raise RuntimeError("parallel sender step: overflow, or an output off the card")
+    # each band against a single-band encode (K1) plus K2's plain version
+    single = JpegEncoder(PAR_W, PAR_H // PAR_BANDS, quality=80, restart_interval=step.base.local.restart_interval)
+    for s, (band, o) in enumerate(zip(bands, outs)):
+        want = single._encode(band)
+        if not all(torch.equal(a, b) for a, b in zip(o[:6], want[:6])):
+            raise RuntimeError(f"parallel sender step: band {s}'s slots differ from a single-band encode")
+        plain = step.parity.plain(*want[:6]).view(torch.uint8).reshape(m, step.ps)
+        if not torch.equal(o[6], plain):
+            raise RuntimeError(f"parallel sender step: band {s}'s parity differs from K2's plain version")
+    t0 = time.perf_counter()
+    cpu_outs = ShardedSenderStep(PAR_W, PAR_H, cpu_mesh, quality=80, k=k, m=m, c=c)(frame_np)
+    cpu_s = time.perf_counter() - t0
+    for s, (o, co) in enumerate(zip(outs, cpu_outs)):
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(o[:7], co[:7])):
+            raise RuntimeError(f"parallel sender step: band {s} differs from the CPU port's")
+    out["sender"] = {"launches": sender_l, "bands_equal_single_band_plus_k2_plain": True,
+                     "bands_equal_cpu": True, "cpu_plain_seconds": cpu_s, "ps": step.ps,
+                     "row_counts": step.row_counts, "wwords": step.base.local.wwords,
+                     "restart_interval": step.base.local.restart_interval}
+
+    # ---- the receiver step, one data symbol erased per band, counted ----
+    sym = np.stack([band_symbols(o, step.row_counts, step.ps, k) for o in outs])
+    lost = np.random.default_rng(32).integers(0, sum(step.row_counts), PAR_BANDS)
+    present = np.ones(sym.shape[:2], bool)
+    present[np.arange(PAR_BANDS), lost] = False
+    lossy = sym.copy()
+    lossy[~present] = 0
+    rx(lossy, present)  # warm-up
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    rx_bands, ok = rx(lossy, present)
+    torch.cuda.synchronize()
+    receiver_l = kernel_counts()
+    if not ok.all() or not all(b.is_cuda for b in rx_bands):
+        raise RuntimeError(f"parallel receiver step: ok {ok.tolist()}, or a band off the card")
+    if receiver_l["gf2_parity"] != sum(rx.rounds) or min(rx.rounds) < 1 or receiver_l["jpeg_encode"]:
+        raise RuntimeError(f"parallel receiver step: K2 {receiver_l['gf2_parity']}, peel rounds {rx.rounds}")
+    got = torch.cat(rx_bands)
+    cpu_bands, cpu_ok = ShardedReceiverStep(PAR_W, PAR_H, cpu_mesh, quality=80, k=k, m=m, c=c,
+                                            wwords=step.base.local.wwords)(lossy, present)
+    if not cpu_ok.all():
+        raise RuntimeError("parallel receiver step: the CPU plain path recovered fewer bands")
+    vs_cpu = par_diff(got, torch.cat(cpu_bands), "receiver step against the CPU plain path")
+    jfile = bytes(step.base.encode(bands))
+    whole = JpegDecoder(dev).decode_to_uyvy(jfile)[0]
+    vs_whole = par_diff(got, whole, "receiver step against the unsharded 8K decode")
+    out["receiver"] = {"launches": receiver_l, "peel_rounds": rx.rounds, "lost_rows": lost.tolist(),
+                       "ok": ok.tolist(), "against_cpu": vs_cpu, "against_unsharded_decode": vs_whole,
+                       "file_bytes": len(jfile)}
+
+    # ---- ShardedJpegDecoder, the halo deinterlace, H.264, the dry run, files ----
+    dec_bands, dh, dw = ShardedJpegDecoder(mesh).decode_to_uyvy(jfile)
+    if (dh, dw) != (PAR_H, PAR_W) or len(dec_bands) != PAR_BANDS:
+        raise RuntimeError(f"parallel ShardedJpegDecoder: {len(dec_bands)} bands of {dh}x{dw}")
+    out["sharded_decoder"] = par_diff(torch.cat(dec_bands), whole, "ShardedJpegDecoder against JpegDecoder")
+    for kind, fn in (("blend", postprocess.deinterlace_blend), ("linear", postprocess.deinterlace_linear)):
+        di = sharded_deinterlace(frame, Codec.UYVY, mesh, kind=kind)
+        if not all(b.is_cuda for b in di) or not torch.equal(torch.cat(di), fn(frame, Codec.UYVY)):
+            raise RuntimeError(f"parallel deinterlace {kind}: differs from ops/postprocess on the whole frame")
+    out["deinterlace"] = {"kinds": ["blend", "linear"], "byte_equal": True}
+    hw, hh = PAR_H264
+    h_np = content(hh, 2 * hw, 33)
+    henc = ShardedH264Encoder(hw, hh, mesh, qp=26)
+    au = henc.encode(torch.as_tensor(h_np).to(dev))
+    if au != ShardedH264Encoder(hw, hh, cpu_mesh, qp=26).encode(h_np):
+        raise RuntimeError("parallel h264: the card's access unit differs from the CPU port's")
+    t0 = time.perf_counter()
+    pic = FastStreamDecoder().decode_au(au)
+    c_ms = (time.perf_counter() - t0) * 1e3
+    ref_pic = IntraDecoder().decode(au)
+    if pic is None or not all(np.array_equal(a, b) for a, b in zip(pic, ref_pic)):
+        raise RuntimeError("parallel h264: the C decoder's picture is not the encoder's reference picture")
+    out["h264"] = {"geometry": f"{hw}x{hh} UYVY qp 26, {PAR_BANDS} slices", "au_bytes": len(au),
+                   "wwords": henc.wwords, "equal_to_cpu": True, "c_decode_equal_to_reference_picture": True,
+                   "c_decode_ms": c_ms}
+    dryrun_multichip(PAR_BANDS, devices=[dev] * PAR_BANDS)
+    out["dryrun"] = {"devices": f"[{dev}] x {PAR_BANDS}", "asserts_held": True}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_file_io_")
+    try:
+        out["file_io"] = par_file_io(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- timing: the sharded sender step beside the unsharded 8K step ----
+    # both rows read one way: single-call profiles that show every launch
+    whole_pipe = EncodePipeline(VideoDesc(PAR_W, PAR_H, Codec.UYVY, 60.0), EncodeConfig(compress="jpeg", fec=FEC),
+                                device=dev)
+    out["timing"] = {"card": nvidia_smi_line()}
+    for row, fn, n in (("sharded_sender", lambda: step(bands), PAR_BANDS), ("unsharded_sender",
+                                                                             lambda: whole_pipe(frame), 1)):
+        out["timing"][row] = {**complete_profiles(fn, {"jpeg_encode_kernel": n, "gf2_parity_kernel": n}),
+                              "ms": cuda_ms(fn, runs=20),
+                              "host_ms": host_ms(lambda: (fn(), torch.cuda.synchronize()), runs=20)}
+    t = {"peel": [], "host_decode": [], "device_decode": [], "upload": []}
+    for _ in range(5):
+        t0 = time.perf_counter()
+        peeled = rx.peel(lossy, present)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        hdr, nmcux, nmcuy, coeffs, _ = rx.host_decode(peeled)
+        t2 = time.perf_counter()
+        rx.device_decode(hdr, nmcux, nmcuy, coeffs)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for cf in coeffs:
+            for o in cf:
+                torch.as_tensor(o, device=dev)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for key, a, b in (("peel", t0, t1), ("host_decode", t1, t2), ("device_decode", t2, t3), ("upload", t3, t4)):
+            t[key].append((b - a) * 1e3)
+    # the host stage of one band, split: its copy to the host, the C
+    # assembly of its stream, the C scan decode
+    from ultragrid_tpu_torch.ops.jpeg import entropy_decode_422
+
+    band0 = peeled[0][0][:k]
+    rows = band0.cpu().numpy()
+    stream = rx._assemble_band(rows)
+    split = {"copy_ms": host_ms(lambda: band0.cpu(), runs=5),
+             "assemble_ms": host_ms(lambda: rx._assemble_band(rows), runs=5),
+             "scan_decode_ms": host_ms(lambda: entropy_decode_422(stream), runs=5)}
+    out["timing"]["receiver"] = {
+        **{f"{key}_ms": float(np.median(v)) for key, v in t.items()},
+        **complete_profiles(lambda: rx(lossy, present), {"gf2_parity_kernel": sum(rx.rounds)}),
+        "host_ms": host_ms(lambda: rx(lossy, present), runs=3),
+        "host_decode_one_band": split,
+        "note": "medians of 5 calls; device_decode_ms includes the upload; device_ms by the profiler, "
+                "the median of single-call profiles showing every peel launch"}
+    out["launches_sharded_sender"] = sender_l
+    out["launches_sharded_receiver"] = receiver_l
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def coeff_entry_timing(dev):
     """K1's coefficient entry at 1080p UYVY 4:4:4 q80: CUDA events, profiler
     device time, its plain version (symbols and pack on the card), and its
@@ -2582,6 +2881,9 @@ def main() -> int:
     if sys.argv[1:] == ["--only", "standards"]:
         # a quicker reading of this slice's phase alone; prints no result line
         emit(phase_standards(dev))
+        return 0
+    if sys.argv[1:] == ["--only", "parallel"]:
+        emit(phase_parallel(dev))
         return 0
 
     def frame_for(enc, seed, noise=False):
@@ -3179,6 +3481,10 @@ def main() -> int:
     # the earlier slices
     std = phase_standards(dev)
     emit(std)
+    # the multi-device path at 8K x 4 bands, its counts
+    # read around its own sender and receiver steps
+    par = phase_parallel(dev)
+    emit(par)
 
     one_call = "none: no single PyTorch call computes this function"
     live_l = live["jpeg_ldgm_1080p"]["launches"]
@@ -3195,13 +3501,16 @@ def main() -> int:
                         "launches_rtsp_capture: the --rtsp sender while RtspCapture took " + str(STD_FRAMES) +
                         " frames; launches_duplex: the duplex call through cli.main, " + str(DUPLEX_FRAMES) +
                         " frames; launches_thumbnails: -F preview and thumbnailgen's " + str(THUMBNAILS) +
-                        " thumbnails (960x544 RGB 4:4:4)",
+                        " thumbnails (960x544 RGB 4:4:4); launches_sharded_sender / launches_sharded_receiver: "
+                        "one 8K x 4-band sender step and one receiver step (phase parallel)",
          "launches_sender_step": launches["jpeg_encode"],
          "launches_audio_session": audio_l["jpeg_encode"], "launches_replay_session": replay_l["jpeg_encode"],
          "launches_standards_session": std["standards_session"]["launches"]["jpeg_encode"],
          "launches_rtsp_capture": std["rtsp_jpeg"]["launches"]["jpeg_encode"],
          "launches_duplex": duplex_l["jpeg_encode"],
          "launches_thumbnails": std["preview"]["launches"]["jpeg_encode"],
+         "launches_sharded_sender": par["launches_sharded_sender"]["jpeg_encode"],
+         "launches_sharded_receiver": par["launches_sharded_receiver"]["jpeg_encode"],
          "thumbnail_960x544_rgb": std["preview"]["k1_thumbnail_rgb"],
          "max_abs_err": k1_err, **{key: k1_t["1080p"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "device_ms": k1_t["1080p"]["device_ms"], "library_ms": None, "library": one_call,
@@ -3223,7 +3532,10 @@ def main() -> int:
                         "launches_codec_live: the 1080p jpegxs and openapv + LDGM sessions with loss; "
                         "launches_audio_session / launches_replay_session: the 1080p jpeg + LDGM session "
                         "with audio, and -I of a recording, with loss; launches_duplex: the 1080p duplex "
-                        "call through cli.main, jpeg + LDGM, one data packet of each frame dropped",
+                        "call through cli.main, jpeg + LDGM, one data packet of each frame dropped; "
+                        "launches_sharded_sender / launches_sharded_receiver: one 8K x 4-band sender step "
+                        "(K2 per band) and one receiver step with a data symbol erased per band (the peel's "
+                        "rounds per band; phase parallel)",
          "launches_h264_live": live["h264_inter_ldgm_1080p"]["launches"]["gf2_parity"],
          "peel_h264_max_abs_err": live["h264_k2_peel"]["max_abs_err"],
          "launches_codec_live": {spec: {"launches": live[f"{spec}_ldgm_1080p"]["launches"]["gf2_parity"],
@@ -3233,6 +3545,8 @@ def main() -> int:
          "launches_sender_step": launches["gf2_parity"],
          "launches_audio_session": audio_l["gf2_parity"], "launches_replay_session": replay_l["gf2_parity"],
          "launches_duplex": duplex_l["gf2_parity"],
+         "launches_sharded_sender": par["launches_sharded_sender"]["gf2_parity"],
+         "launches_sharded_receiver": par["launches_sharded_receiver"]["gf2_parity"],
          "max_abs_err": k2_err, **{key: k2_t["1080p"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "device_ms": k2_t["1080p"]["device_ms"], "library_ms": None, "library": one_call,
          "at": "1080p step's parts, LDGM 256:26:5", "8k": k2_t["8K"],

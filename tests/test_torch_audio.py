@@ -512,8 +512,13 @@ def test_rs_200_240_loses_the_frame_with_a_full_packet():
 
 
 def test_encrypted_audio_from_the_reference_is_dropped_by_name(capsys):
+    """The reference's encrypted audio (PT 25 and, with RS, PT 36): without a
+    key the port drops the frame and says why; with the session's key the
+    port decrypts it to the frame sent."""
     pytest.importorskip("cryptography")
     from ultragrid_tpu.utils.crypto import PacketCrypto
+
+    from ultragrid_tpu_torch.utils.crypto import PacketCrypto as PortCrypto
 
     frame = seeded_frame("ref", 0, 480)
     for fec in ("none", "rs:4:6"):
@@ -522,7 +527,9 @@ def test_encrypted_audio_from_the_reference_is_dropped_by_name(capsys):
         tx.send_audio(sess, frame, "PCM", fec_spec=fec)
         assert {pt for pt, _, _ in sess.packets} <= {rt.PT_ENCRYPT_AUDIO, rt.PT_ENCRYPT_AUDIO_RS}
         assert audio_rx.AudioRxState().decode_frame(node_of("port", sess.packets)) is None
-    assert "crypto.py" in capsys.readouterr().err
+        out = audio_rx.AudioRxState(decryption=PortCrypto("sekrit")).decode_frame(node_of("port", sess.packets))
+        assert out is not None and same_frame(out, frame)
+    assert "no decryption key" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("tx_pkg,rx_pkg", [("port", "ref"), ("ref", "port")])

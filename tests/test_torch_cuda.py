@@ -3,7 +3,9 @@ receive path, the batched sender, the pixel formats, DXT, postprocess, the
 filters, the local loop, the stitcher, the H.264 device encoders, the
 wavelet and intra codecs and the audio RS parity on the card against the
 CPU, the import capture of a recording on the card, the standards-mode
-JPEG round trip (K1, RFC 2435, the decode) and thumbnailgen on the card.
+JPEG round trip (K1, RFC 2435, the decode), thumbnailgen, and the
+multi-device path (four row bands on one card: the sender step at 8K, the
+receiver step, the halo deinterlace, sharded H.264, the dry run) on the card.
 
 Needs a CUDA card and nvcc; skips without a card.  On the card's machine
 (which has no jax, so the JAX conftest must stay out):
@@ -703,3 +705,84 @@ def test_thumbnailgen_on_card_equals_cpu(cuda, tmp_path):
     assert jpeg_cuda.LAUNCHES.count >= 1
     write_thumbnail(960, 540, rgb, str(tmp_path / "cpu.jpg"), device="cpu")
     assert (tmp_path / "card.jpg").read_bytes() == (tmp_path / "cpu.jpg").read_bytes()
+
+
+# ---- the multi-device path: four row bands on one card ----
+
+
+def _par_bands(cuda, w, h, seed):
+    from ultragrid_tpu_torch.parallel import make_mesh, shard_frame_rows
+
+    mesh = make_mesh(devices=[cuda] * 4)
+    f = content(w, h, Codec.UYVY, seed)
+    return mesh, f, shard_frame_rows(torch.as_tensor(f).to(cuda), mesh)
+
+
+def test_sharded_sender_step_8k_on_card(cuda):
+    """The sender step at 8K UYVY as 4 bands of 7680x1080 with LDGM
+    256:26:5: K1 and K2 launch 4 times a step; each band's slots and parity
+    equal a single-band encode plus K2's plain version, and the CPU port's."""
+    from ultragrid_tpu_torch.parallel import make_mesh
+    from ultragrid_tpu_torch.parallel.sharded_jpeg import ShardedSenderStep
+
+    mesh, f, bands = _par_bands(cuda, 7680, 4320, 60)
+    step = ShardedSenderStep(7680, 4320, mesh, k=256, m=26, c=5)
+    jpeg_cuda.LAUNCHES.reset()
+    fec.LAUNCHES.reset()
+    outs = step(bands)
+    assert (jpeg_cuda.LAUNCHES.count, fec.LAUNCHES.count) == (4, 4)
+    single = JpegEncoder(7680, 1080, restart_interval=step.base.local.restart_interval)
+    cpu = ShardedSenderStep(7680, 4320, make_mesh(4, device="cpu"), k=256, m=26, c=5)(f)
+    for band, o, co in zip(bands, outs, cpu):
+        want = single._encode(band)
+        assert all(torch.equal(a, b) for a, b in zip(o[:6], want[:6])) and not bool(o[7])
+        assert torch.equal(o[6], step.parity.plain(*want[:6]).view(torch.uint8).reshape(26, step.ps))
+        assert all(a.is_cuda and torch.equal(a.cpu(), b) for a, b in zip(o[:7], co[:7]))
+
+
+def test_sharded_receiver_step_on_card(cuda):
+    """One data symbol erased per band: the peel on the card brings every
+    band back; the frame is within the decoder's tolerance of the CPU plain
+    path and of the unsharded decode."""
+    from ultragrid_tpu_torch.parallel import make_mesh
+    from ultragrid_tpu_torch.parallel.sharded_jpeg import ShardedReceiverStep, ShardedSenderStep, band_symbols
+
+    mesh, f, bands = _par_bands(cuda, 1920, 1088, 61)
+    step = ShardedSenderStep(1920, 1088, mesh, k=256, m=26, c=5)
+    outs = step(bands)
+    sym = np.stack([band_symbols(o, step.row_counts, step.ps, 256) for o in outs])
+    present = np.ones(sym.shape[:2], bool)
+    present[:, 5] = False
+    sym[:, 5] = 0
+    rx = ShardedReceiverStep(1920, 1088, mesh, k=256, m=26, c=5, wwords=step.base.local.wwords)
+    fec.LAUNCHES.reset()
+    got, ok = rx(sym, present)
+    assert ok.all() and all(b.is_cuda for b in got) and fec.LAUNCHES.count == sum(rx.rounds) >= 4
+    want, _ = ShardedReceiverStep(1920, 1088, make_mesh(4, device="cpu"), k=256, m=26, c=5,
+                                  wwords=step.base.local.wwords)(sym, present)
+    from ultragrid_tpu_torch.ops.jpeg import JpegDecoder
+
+    whole = JpegDecoder(cuda).decode_to_uyvy(bytes(step.base.encode(bands)))[0]
+    for ref in (torch.cat(want), whole):
+        diff = (torch.cat(got).cpu().to(torch.int16) - ref.cpu().to(torch.int16)).abs()
+        assert int(diff.max()) <= 1 and int((diff > 0).sum()) <= 0.001 * diff.numel()
+
+
+def test_sharded_deinterlace_h264_and_dryrun_on_card(cuda):
+    """The halo deinterlace at 8K equals ops/postprocess on the whole
+    frame; sharded H.264 at 1080p x 4 equals the CPU port's access unit;
+    the dry run's asserts hold on four bands of the card."""
+    from ultragrid_tpu_torch.ops import postprocess
+    from ultragrid_tpu_torch.parallel import make_mesh
+    from ultragrid_tpu_torch.parallel.dryrun import dryrun_multichip
+    from ultragrid_tpu_torch.parallel.sharded_h264 import ShardedH264Encoder
+    from ultragrid_tpu_torch.parallel.sharded_post import sharded_deinterlace
+
+    mesh, f, _ = _par_bands(cuda, 7680, 4320, 62)
+    frame = torch.as_tensor(f).to(cuda)
+    for kind, fn in (("blend", postprocess.deinterlace_blend), ("linear", postprocess.deinterlace_linear)):
+        assert torch.equal(torch.cat(sharded_deinterlace(frame, Codec.UYVY, mesh, kind=kind)), fn(frame, Codec.UYVY))
+    h = content(1920, 1080, Codec.UYVY, 63)
+    au = ShardedH264Encoder(1920, 1080, mesh).encode(torch.as_tensor(h).to(cuda))
+    assert au == ShardedH264Encoder(1920, 1080, make_mesh(4, device="cpu")).encode(h)
+    dryrun_multichip(4, devices=[cuda] * 4)

@@ -6,7 +6,10 @@ import of either, direct or indirect, fails) and drives the port with its own
 types, down to a live session over 127.0.0.1, the H.264 codec, the wavelet and
 intra codecs, audio with its record and replay (``audio/``, ``tools/``), and
 standards mode, RTSP capture, the duplex call, the preview socket and
-thumbnailgen on the CPU.  A source scan rejects any ``import`` of any of them in the port
+thumbnailgen, the multi-device path (``parallel/``: the mesh, the sharded
+JPEG + LDGM sender and receiver steps, sharded H.264, the halo deinterlace
+and the dry run), ``-e`` (``utils/crypto.py``) and the file modules
+(``modules/file_io.py``) on the CPU.  A source scan rejects any ``import`` of any of them in the port
 (``audio/`` and ``tools/`` included), ``chip_smoke.py``, ``chip_profile.py``
 and ``chip_phases.py``.
 """
@@ -306,6 +309,44 @@ disp.done()
 reader.close()
 thumbnailgen.write_thumbnail(w, h, data, os.path.join(rec, "t.jpg"), device="cpu")
 assert open(os.path.join(rec, "t.jpg"), "rb").read(2) == b"\xff\xd8"
+# the multi-device path on a mesh of four CPU entries, -e, and the file modules
+from ultragrid_tpu_torch.parallel import make_mesh, shard_frame_rows
+from ultragrid_tpu_torch.parallel.dryrun import dryrun_multichip
+from ultragrid_tpu_torch.parallel.sharded_h264 import ShardedH264Encoder
+from ultragrid_tpu_torch.parallel.sharded_jpeg import (ShardedJpegDecoder, ShardedJpegEncoder, ShardedReceiverStep,
+                                                       ShardedSenderStep, band_symbols)
+from ultragrid_tpu_torch.parallel.sharded_post import sharded_deinterlace
+if not torch.cuda.is_available():
+    try:
+        make_mesh(2)
+    except RuntimeError:
+        pass
+    else:
+        raise SystemExit("make_mesh() did not raise without a card")
+dryrun_multichip(4, device="cpu")
+mesh = make_mesh(devices=["cpu"] * 4)
+f8k = np.random.default_rng(3).integers(0, 256, (64, 2 * 96), dtype=np.uint8)
+step = ShardedSenderStep(96, 64, mesh, k=16, m=6, c=3)
+outs = step(shard_frame_rows(f8k, mesh))
+syms = np.stack([band_symbols(o, step.row_counts, step.ps, step.k) for o in outs])
+have = np.ones(syms.shape[:2], bool)
+have[:, 1] = False
+bands, ok = ShardedReceiverStep(96, 64, mesh, k=16, m=6, c=3)(syms, have)
+assert ok.all() and len(bands) == 4
+assert ShardedJpegDecoder(mesh).decode_to_uyvy(bytes(ShardedJpegEncoder(96, 64, mesh).encode(f8k)))[1:] == (64, 96)
+assert len(sharded_deinterlace(f8k, Codec.UYVY, mesh, kind="linear")) == 4
+assert ShardedH264Encoder(96, 64, mesh).encode(f8k)[:4] == b"\x00\x00\x00\x01"
+from ultragrid_tpu_torch.utils.crypto import PacketCrypto
+pc = PacketCrypto("k:cipher=cbc")
+assert pc.decrypt(pc.encrypt(b"payload", b"hdr"), b"hdr") == b"payload"
+from ultragrid_tpu_torch.modules import file_io
+y4m = os.path.join(rec, "t.y4m")
+run_local_pipeline("testcard:s=64x32:f=1000:c=UYVY", "y4m:" + y4m, 2, device="cpu")
+cap = initialize_video_capture("file:" + y4m, device="cpu")
+assert cap.grab()[0].data.numel() == 64 * 32 * 3 // 2
+cap.done()
+mix = initialize_video_capture("swmix:64:32:30#testcard:s=64x32:c=UYVY#testcard:s=64x32:c=RGB", device="cpu")
+assert mix.grab()[0].data.shape == (32, 192)
 loaded = [m for m, mod in sys.modules.items()
           if m.split(".")[0] in ("jax", "ultragrid_tpu", "PIL") and mod is not None]
 assert not loaded, loaded
@@ -334,7 +375,7 @@ def test_port_sources_never_name_jax():
     sources = [p for p in pkg.rglob("*.py") if "build" not in p.relative_to(pkg).parts]
     sources += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py", ROOT / "chip_phases.py"]
     walked = {p.relative_to(pkg).parts[0] for p in sources if pkg in p.parents}
-    assert {"audio", "tools", "net", "utils", "ops", "modules", "pipeline"} <= walked, walked
+    assert {"audio", "tools", "net", "utils", "ops", "modules", "pipeline", "parallel"} <= walked, walked
     pil_at = set()
     for path in sources:
         where = ""

@@ -489,9 +489,10 @@ def test_registry_uses_the_reference_names():
                            "jpegxs", "none", "openapv", "uyvy"],
         L.VIDEO_DECOMPRESS: ["cineform", "cmpto_j2k", "dxt", "h264_own", "i420", "jpeg", "jpeg_to_dxt", "jpegxs",
                              "openapv"],
-        L.VIDEO_CAPTURE: ["gpustitch", "import", "noise", "rtsp", "stitch", "testcard", "testcard2"],
-        L.VIDEO_DISPLAY: ["aggregate", "blend", "caca", "conference", "dummy", "dump", "file",
-                          "null", "pano", "pipe", "preview", "unix_sock", "unix_socket"],
+        L.VIDEO_CAPTURE: ["aggregate", "file", "gpustitch", "import", "noise", "rtsp", "stitch", "switcher",
+                          "swmix", "testcard", "testcard2"],
+        L.VIDEO_DISPLAY: ["aggregate", "blend", "caca", "conference", "dummy", "dump", "file", "multiplier",
+                          "null", "pano", "pipe", "preview", "unix_sock", "unix_socket", "y4m"],
         L.AUDIO_CAPTURE: ["aes67", "alsa", "fluidsynth", "midi", "none", "testcard", "wav"],
         L.AUDIO_PLAYBACK: ["alsa", "dummy", "none", "wav"],
     }

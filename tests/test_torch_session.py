@@ -327,7 +327,6 @@ def test_cli_parses_reference_argv(argv):
 
 _REFUSED = [
     (["-t", "testcard", "-A", "Opus", "h"], "lavc_codecs.py"),
-    (["-t", "testcard", "-e", "secret", "h"], "crypto.py"),
     (["-t", "testcard", "-N", "h"], "nat.py"),
     (["-t", "testcard", "-x", "mpegts", "h"], "mpegts.py"),
     (["-d", "dummy", "--window-title", "x"], "windowed display"),
@@ -342,7 +341,7 @@ def test_cli_refuses_options_outside_the_port_by_name(argv, name, capsys):
 
 
 # options refused until their modules landed (audio, -E and -I; standards
-# mode, RTSP, iHDTV, duplex and echo cancellation): accepted now, and parsed
+# mode, RTSP, iHDTV, duplex and echo cancellation; -e): accepted now, and parsed
 # as the reference parses them
 _ACCEPTED = [
     ["-t", "testcard", "-s", "testcard", "h"],
@@ -356,6 +355,7 @@ _ACCEPTED = [
     ["-t", "testcard", "-x", "ihdtv", "h"],
     ["-t", "testcard", "-d", "dummy", "h"],
     ["-t", "testcard", "-s", "testcard", "--echo-cancellation", "h"],
+    ["-t", "testcard", "-e", "secret:cipher=cbc", "h"],
 ]
 
 

@@ -18,10 +18,10 @@ Run a sender ``python -m ultragrid_tpu_torch -t testcard -c jpeg -f ldgm
 <host>``, a receiver ``python -m ultragrid_tpu_torch -d dummy``, both on the
 card unless ``--device cpu`` is given; ``-t ... -d ... <peer>`` is a
 full-duplex call (``pipeline/duplex.py``, with ``--echo-cancellation``).
-Options whose modules are not in the port yet (encryption, the libavcodec
-audio codecs, NAT traversal, mpegts and the SDK protocols, windowed
-displays) are refused with an error that names the missing module; none is
-accepted and ignored.  The reference's ``~/.ug.rc`` aliases are not read.
+``-e`` needs the Python package ``cryptography``.  Options whose modules
+are not in the port yet (the libavcodec audio codecs, NAT traversal,
+mpegts and the SDK protocols, windowed displays) are refused with an error
+that names the missing module; none is accepted and ignored.  The reference's ``~/.ug.rc`` aliases are not read.
 """
 
 from __future__ import annotations
@@ -38,7 +38,6 @@ from ultragrid_tpu_torch.utils.params import print_param_doc, set_commandline_pa
 _NOT_PORTED = {
     "window_title": "--window-title needs a windowed display (gl, x11, drm)",
     "nat_traverse": "-N/--nat-traverse needs ultragrid_tpu/net/nat.py",
-    "encryption": "-e/--encryption needs ultragrid_tpu/utils/crypto.py",
 }
 
 _PROTOCOLS_NOT_PORTED = {
@@ -63,6 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-f", "--fec", action="append", default=None,
                    help="FEC: [A:|V:]{none|mult:N|ldgm:k:m:c|ldgm:P%%|rs:k:n} "
                         "(A:/V: select the medium; ref: main.cpp:824-839)")
+    p.add_argument("-e", "--encryption", default=None,
+                   help="AES passphrase[:cipher=gcm|cbc|ctr|cfb] (needs the package cryptography)")
     p.add_argument("-l", "--limit-bitrate", default="auto",
                    help="auto|dynamic|unlimited|<num>[kMG][!][E] "
                         "(ref: parse_bitrate, rtp_common.c:777)")
@@ -151,7 +152,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-N", "--nat-traverse", nargs="?", const="auto", default=None, help=argparse.SUPPRESS)
     p.add_argument("--audio-protocol", default=None, help=argparse.SUPPRESS)
     p.add_argument("--video-protocol", default=None, help=argparse.SUPPRESS)
-    p.add_argument("-e", "--encryption", default=None, help=argparse.SUPPRESS)
     p.add_argument("host", nargs="?", default=None, help="receiver address (sender mode)")
     return p
 

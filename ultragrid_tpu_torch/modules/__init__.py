@@ -22,6 +22,7 @@ import ultragrid_tpu_torch.modules.extra_displays  # noqa: E402,F401
 import ultragrid_tpu_torch.modules.stitch  # noqa: E402,F401
 import ultragrid_tpu_torch.modules.ipc_display  # noqa: E402,F401
 import ultragrid_tpu_torch.modules.rtsp_capture  # noqa: E402,F401
+import ultragrid_tpu_torch.modules.file_io  # noqa: E402,F401
 import ultragrid_tpu_torch.utils.export  # noqa: E402,F401  (registers the 'import' capture device)
 # the audio devices register too, so --list-modules sees them; these are
 # imports by module name only (audio/capture.py imports its sibling devices

@@ -27,17 +27,42 @@ log = Logger("audio_rx")
 MAX_AUDIO_FRAME_LEN = 1 << 24
 
 
-AUDIO_ENCRYPTED_PTS = (rt.PT_ENCRYPT_AUDIO, rt.PT_ENCRYPT_AUDIO_RS)
+AUDIO_ENCRYPTED_PTS = {
+    rt.PT_ENCRYPT_AUDIO: rt.PT_AUDIO,
+    rt.PT_ENCRYPT_AUDIO_RS: rt.PT_AUDIO_RS,
+}
 
 
 class AudioRxState:
-    """Reassembly and decode of one audio stream.  Encrypted audio (PT 25/36)
-    needs ``ultragrid_tpu/utils/crypto.py``, which is not in the port yet:
-    such a frame is dropped with an error naming it, as the reference drops
-    it when no key is set."""
+    """Reassembly and decode of one audio stream.  Encrypted audio (PT 25/36,
+    ``-e``) is decrypted with ``decryption`` (a ``utils/crypto.PacketCrypto``);
+    without a key its frames are dropped, as in the reference."""
 
-    def __init__(self) -> None:
+    def __init__(self, decryption=None) -> None:
         self.frames_ok = 0
+        self.decryption = decryption
+
+    def _maybe_decrypt(self, node: PbufNode) -> bool:
+        """Decrypt PT 25/36 packet payloads in place (ref: the audio leg of
+        the per-packet AES scheme, rtp_types.h:75-80); False on a missing
+        key or a failed check."""
+        plain = AUDIO_ENCRYPTED_PTS.get(node.packets[0].pt)
+        if plain is None:
+            return True
+        if self.decryption is None:
+            log.warning("received encrypted audio but no decryption key set")
+            return False
+        for pkt in node.packets:
+            if getattr(pkt, "_decrypted", False):
+                continue
+            hdr = bytes(pkt.payload[: rt.AUDIO_PAYLOAD_HDR_LEN])  # the payload may be a view
+            data = self.decryption.decrypt(bytes(pkt.payload[rt.AUDIO_PAYLOAD_HDR_LEN + 4:]), hdr)
+            if data is None:
+                return False
+            pkt.payload = hdr + data
+            pkt.pt = plain
+            pkt._decrypted = True
+        return True
 
     def _decode_g711_standard(self, node: PbufNode) -> Optional[AudioFrame]:
         """RFC 3551 static payloads: PT 0 = PCMU, PT 8 = PCMA (8 kHz mono,
@@ -58,9 +83,7 @@ class AudioRxState:
             return None
         if node.packets[0].pt in (0, 8):
             return self._decode_g711_standard(node)
-        if node.packets[0].pt in AUDIO_ENCRYPTED_PTS:
-            log.warning("received encrypted audio: decryption needs ultragrid_tpu/utils/crypto.py, "
-                        "not in the port yet")
+        if not self._maybe_decrypt(node):
             return None
         channels: Dict[int, np.ndarray] = {}
         got: Dict[int, np.ndarray] = {}

@@ -15,8 +15,11 @@ optionally Reed-Solomon protected with the parity product on the Tx's
 device.  Standards mode (``Tx(rfc2435=True)``) sends a JPEG frame as RFC 2435
 fragments on PT 26 (``net/rtpdec_jpeg.py``), one unpaced ``send_data_hdr``
 per packet; :meth:`Tx.send_audio_standard` is the reference's G.711 API (PT
-0 at 8 kHz), which its sender never calls either.  Not in the port yet, and
-refused by name: per-packet encryption (``utils/crypto.py``).
+0 at 8 kHz), which its sender never calls either.  ``encryption`` (a
+``utils/crypto.PacketCrypto``, ``-e``) encrypts each packet's payload with
+its payload header as the AAD, appends the crypto word to the header and
+sends the encrypted payload types (ref: transmit.c:789-802); video still
+goes out through the C batch sender.
 """
 
 from __future__ import annotations
@@ -147,10 +150,12 @@ class Tx:
         bitrate: int = RATE_AUTO,
         mult_count: int = 1,
         bitrate_fixed: bool = False,
+        encryption=None,
         rfc2435: bool = False,
         device="cuda",
     ):
         self.mtu = mtu
+        self.encryption = encryption
         self.bitrate = bitrate
         self.bitrate_fixed = bitrate_fixed
         self.device = get_device(device)
@@ -218,13 +223,17 @@ class Tx:
             else:
                 data, fec_desc = fec.encode(np.concatenate([np.frombuffer(video_hdr, np.uint8), data]))
 
+        enc = self.encryption is not None
         netto = self.mtu - (IPV4_HDR_LEN + UDP_HDR_LEN + rt.RTP_HDR_LEN)
         if fec_desc is not None:
             netto -= rt.FEC_PAYLOAD_HDR_LEN
-            pt = rt.fec_pt(fec_desc.type)
+            pt = rt.fec_pt(fec_desc.type, enc)
         else:
             netto -= rt.VIDEO_PAYLOAD_HDR_LEN
-            pt = rt.PT_VIDEO
+            pt = rt.fec_pt("none", enc) if enc else rt.PT_VIDEO
+        if enc:
+            # crypto hdr word + fixed overhead (len+IV+tag/crc)
+            netto -= 4 + 36 + 15
 
         sizes = get_packet_sizes(data.size, desc.color_spec, desc.width, fec_desc, netto)
         npkt = len(sizes) * self.mult_count
@@ -244,6 +253,8 @@ class Tx:
         hdrs = np.tile(np.frombuffer(proto, np.uint8), (len(sizes), 1))
         # word 1 (bytes 4..8) is the per-packet frame offset, big-endian
         hdrs[:, 4:8] = offsets.astype(">u4").view(np.uint8).reshape(-1, 4)
+        if enc:
+            hdrs, data, offsets, szs = self._encrypted(hdrs, data, offsets, szs)
         total = 0
         for m_iter in range(self.mult_count):
             last_round = m_iter == self.mult_count - 1
@@ -253,6 +264,18 @@ class Tx:
                 pace_ns=int(packet_rate * 1e9),
             )
         return total
+
+    def _encrypted(self, hdrs: np.ndarray, data: np.ndarray, offsets: np.ndarray, sizes: np.ndarray):
+        """A batch with each packet's payload encrypted, its payload header
+        the AAD, and the crypto word appended to each header: (headers,
+        payload, offsets, sizes)."""
+        crypto = self.encryption
+        payloads = [crypto.encrypt(data[o: o + n].tobytes(), h.tobytes()) for h, o, n in zip(hdrs, offsets, sizes)]
+        lens = np.array([len(p) for p in payloads], np.int32)
+        word = np.frombuffer(crypto.crypto_header(), np.uint8)
+        return (np.concatenate([hdrs, np.broadcast_to(word, (len(hdrs), word.size))], axis=1),
+                np.frombuffer(b"".join(payloads), np.uint8),
+                np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64), lens)
 
     def send_audio_standard(self, session: RtpSession, frame) -> int:
         """Standards-mode G.711 audio: the RFC 3551 static payload PT 0
@@ -320,7 +343,14 @@ class Tx:
                 self.fec_spec = fec_spec
             rs = self._fec
             pt = rt.PT_AUDIO_RS
+        enc = self.encryption is not None
+        if enc:
+            # per-packet AES like video (ref: PT_ENCRYPT_AUDIO[_RS],
+            # rtp_types.h:75-80, and the transmit.c:789-802 encrypt hook)
+            pt = rt.PT_ENCRYPT_AUDIO_RS if rs is not None else rt.PT_ENCRYPT_AUDIO
         netto = self.mtu - (IPV4_HDR_LEN + UDP_HDR_LEN + rt.RTP_HDR_LEN + rt.AUDIO_PAYLOAD_HDR_LEN)
+        if enc:
+            netto -= 4 + 36 + 15  # crypto hdr word + len+IV+tag/crc overhead
         sent = 0
         nch = len(frame.channels)
         for ch, data in enumerate(frame.channels):
@@ -342,7 +372,11 @@ class Tx:
                 # M only on the whole frame's (= last channel's) final packet,
                 # else the playout buffer decodes before all channels arrive
                 last = ch == nch - 1 and pos + chunk.size >= n
-                session.send_data_hdr(ts, pt, last, hdr, chunk.tobytes())
+                payload = chunk.tobytes()
+                if enc:
+                    payload = self.encryption.encrypt(payload, hdr)
+                    hdr = hdr + self.encryption.crypto_header()
+                session.send_data_hdr(ts, pt, last, hdr, payload)
                 pos += max(chunk.size, 1)
                 sent += 1
         self.buffer = (self.buffer + 1) & 0x3FFFFF

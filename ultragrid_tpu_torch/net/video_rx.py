@@ -10,9 +10,11 @@ display-owned framebuffer on the card is filled by one upload per frame.
 The standards payloads bypass the C fast depacketizer and are reassembled
 here in Python, packet by packet: RFC 2435 (PT 26) into a JFIF file
 (``Codec.JPEG``, decoded on the card by the receiver's ``JpegDecompress``)
-and RFC 6184 (PT 96) into an Annex-B access unit (``Codec.H264``).  Not in
-the port yet, and dropped with a warning that names the missing module:
-encrypted payloads (``utils/crypto.py``).
+and RFC 6184 (PT 96) into an Annex-B access unit (``Codec.H264``).
+Encrypted payloads (``-e``: PT 24, 29 and 30) are decrypted
+in place with ``decryption`` (a ``utils/crypto.PacketCrypto``) before the
+reassembly; without a key, or where a packet fails its check, the frame is
+dropped, as in the reference.
 """
 
 from __future__ import annotations
@@ -74,11 +76,10 @@ log = Logger("video_rx")
 MAX_FRAME_LEN = 1 << 28
 
 
-# payload types whose decoder module is not in the port yet
-_NOT_PORTED_PTS = {
-    rt.PT_ENCRYPT_VIDEO: "utils/crypto.py (-e)",
-    rt.PT_ENCRYPT_VIDEO_LDGM: "utils/crypto.py (-e)",
-    rt.PT_ENCRYPT_VIDEO_RS: "utils/crypto.py (-e)",
+ENCRYPTED_PTS = {
+    rt.PT_ENCRYPT_VIDEO: rt.PT_VIDEO,
+    rt.PT_ENCRYPT_VIDEO_LDGM: rt.PT_VIDEO_LDGM,
+    rt.PT_ENCRYPT_VIDEO_RS: rt.PT_VIDEO_RS,
 }
 
 
@@ -100,11 +101,13 @@ class FecJob:
 
 class VideoRxState:
     """``device``: where ``--param ldgm-device=device`` runs the peel (the
-    card unless the caller names another)."""
+    card unless the caller names another); ``decryption``: the session's
+    ``PacketCrypto`` under ``-e``."""
 
-    def __init__(self, device="cuda") -> None:
+    def __init__(self, device="cuda", decryption=None) -> None:
         self._fec_cache: Dict[Tuple, object] = {}
         self.device = device
+        self.decryption = decryption
         self.frames_ok = 0
         self.frames_missing_data = 0
         self.fec_jobs = 0
@@ -113,7 +116,6 @@ class VideoRxState:
         # whose buffer the reassembly writes into (the reference's
         # LINE_DECODER path, video_decoders.cpp:1707-1796)
         self.framebuffer_provider = None
-        self._warned: set = set()
         self._h264_dep = None
 
     def _get_fec(self, kind: str, k: int, m: int, c: int, seed: int):
@@ -126,6 +128,29 @@ class VideoRxState:
                 sess = RsSession(k, k + m)
             self._fec_cache[key] = sess
         return sess
+
+    def _maybe_decrypt(self, node: PbufNode) -> Optional[int]:
+        """Decrypt packet payloads in place; returns the effective (plain)
+        payload type, or None on a failed check or a missing key."""
+        pt = node.packets[0].pt
+        plain = ENCRYPTED_PTS.get(pt)
+        if plain is None:
+            return pt
+        if self.decryption is None:
+            log.warning("received encrypted stream but no decryption key set")
+            return None
+        hdr_len = (rt.FEC_PAYLOAD_HDR_LEN if plain in (rt.PT_VIDEO_LDGM, rt.PT_VIDEO_RS)
+                   else rt.VIDEO_PAYLOAD_HDR_LEN)
+        for pkt in node.packets:
+            if getattr(pkt, "_decrypted", False):
+                continue
+            hdr = bytes(pkt.payload[:hdr_len])  # the payload may be a memoryview
+            data = self.decryption.decrypt(bytes(pkt.payload[hdr_len + 4:]), hdr)  # past the crypto word
+            if data is None:
+                return None
+            pkt.payload = hdr + data
+            pkt._decrypted = True
+        return plain
 
     def decode_frame(self, node: PbufNode) -> Optional[VideoFrame]:
         """Reassemble one pbuf node into a VideoFrame (compressed or raw).
@@ -144,12 +169,8 @@ class VideoRxState:
         None."""
         if not node.packets:
             return None
-        pt = node.packets[0].pt
-        if pt in _NOT_PORTED_PTS:
-            if pt not in self._warned:
-                self._warned.add(pt)
-                log.warning(f"payload type {pt} needs {_NOT_PORTED_PTS[pt]}, "
-                            "not ported yet; dropping its frames")
+        pt = self._maybe_decrypt(node)
+        if pt is None:
             return None
         if pt == rt.PT_VIDEO:
             frame = self._decode_plain(node)

@@ -59,6 +59,7 @@ def run_duplex(args) -> int:
         force_ip_version=args.force_ip_version,
         mcast_if=args.mcast_if,
         audio_host=args.audio_host,
+        encryption=args.encryption,
         device=args.device,
     )
     receiver = VideoReceiver(
@@ -74,6 +75,7 @@ def run_duplex(args) -> int:
         mcast_if=args.mcast_if,
         audio_delay_ms=args.audio_delay or 0,
         audio_scale=args.audio_scale,
+        encryption=args.encryption,
         device=args.device,
     )
 

@@ -196,6 +196,11 @@ def run_ihdtv_receiver(display_spec: str, frame_limit: Optional[int] = None,
     dev = get_device(device)
     disp = initialize_video_display(display_spec, device=dev)
     disp.reconfigure(IHDTV_DESC)
+    # bring the card up (CUDA's start-up takes about a second) before the
+    # sockets are bound: at the first frame, the sender's datagrams would
+    # overflow the socket buffers meanwhile (no FEC: a frame that loses one
+    # is lost)
+    torch.zeros(BYTES_PER_FRAME, dtype=torch.uint8).to(dev)
     conn = IhdtvConnection(mtu=mtu, ports=ports)
     conn.init_rx()
     shown = 0

@@ -23,7 +23,9 @@ The standards payloads (RFC 2435 JPEG on PT 26, RFC 6184 H.264 on PT 96)
 take the Python playout-buffer path; their frames are decoded on the card
 like any compressed frame.
 
-Not in the port yet, and refused by name: decryption (``-e``).
+``-e`` (``encryption``) decrypts the encrypted payload types of video and
+audio (``utils/crypto.PacketCrypto``, imported in the set-up as in the
+reference).
 """
 
 from __future__ import annotations
@@ -93,6 +95,7 @@ class VideoReceiver:
         root: Optional[Module] = None,
         mcast_if: Optional[str] = None,
         audio_scale: Optional[str] = None,
+        encryption: Optional[str] = None,
         device="cuda",
     ):
         if audio_scale not in (None, "", "none", "auto"):
@@ -138,7 +141,14 @@ class VideoReceiver:
             self.audio_rx = AudioRxState()
             self._audio_desc = None
         self.pbuf = PlayoutBuffer(playout_delay + max(-audio_delay_ms, 0) / 1000.0)
-        self.rx_state = VideoRxState(device=self.device)
+        crypto = None
+        if encryption:
+            from ultragrid_tpu_torch.utils.crypto import PacketCrypto
+
+            crypto = PacketCrypto(encryption)
+        self.rx_state = VideoRxState(device=self.device, decryption=crypto)
+        if self.audio_playback is not None:
+            self.audio_rx.decryption = crypto
         self.frame_limit = frame_limit
         self.timeout = timeout
         self.should_exit = False  # external stop (embedding, keyboard 'q')
@@ -489,6 +499,7 @@ def run_receiver(args) -> int:
         mcast_if=args.mcast_if,
         audio_delay_ms=args.audio_delay or 0,
         audio_scale=args.audio_scale,
+        encryption=args.encryption,
         device=args.device,
     )
 

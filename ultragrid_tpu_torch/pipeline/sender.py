@@ -32,7 +32,9 @@ them to the end of the process.
 ``echo`` (set by the duplex session for ``--echo-cancellation``) cleans the
 captured audio before it is filtered and sent.
 
-Not in the port yet, and refused by name: encryption (``-e``).
+``-e`` (``encryption``) encrypts every video and audio packet
+(``utils/crypto.PacketCrypto``, imported in the set-up as in the reference;
+it raises where the package ``cryptography`` is missing).
 """
 
 from __future__ import annotations
@@ -107,6 +109,7 @@ class VideoSender:
         force_ip_version: int = 0,
         mcast_if=None,
         audio_host: Optional[str] = None,
+        encryption: Optional[str] = None,
         device="cuda",
     ):
         self.device = get_device(device)
@@ -162,6 +165,14 @@ class VideoSender:
                                   mtu=mtu, ttl=ttl, rtcp=True,
                                   force_ip_version=force_ip_version,
                                   mcast_if=mcast_if)
+        self.crypto = None
+        if encryption:
+            from ultragrid_tpu_torch.utils.crypto import PacketCrypto
+
+            self.crypto = PacketCrypto(encryption)
+        if self.crypto is not None and self.audio_session is not None:
+            # audio rides the same per-packet AES (PT 25/36)
+            self.audio_tx.encryption = self.crypto
         self.rfc2435 = rtp_standard
         self.tx = self._new_tx(fec_spec, mtu, bitrate, bitrate_fixed)
         self.sdp_server = None
@@ -210,7 +221,7 @@ class VideoSender:
 
     def _new_tx(self, fec_spec: str, mtu: int, bitrate: int, bitrate_fixed: bool) -> Tx:
         return Tx(mtu=mtu, fec_spec=fec_spec, bitrate=bitrate, bitrate_fixed=bitrate_fixed,
-                  rfc2435=self.rfc2435, device=self.device)
+                  encryption=self.crypto, rfc2435=self.rfc2435, device=self.device)
 
     def _swap_tx(self, fec_spec: str) -> None:
         """Single-reference swap: the next frame uses the new Tx."""
@@ -466,6 +477,7 @@ def run_sender(args) -> int:
         audio_host=args.audio_host,
         rtp_standard=args.rtp_standard,
         rtsp=args.rtsp,
+        encryption=args.encryption,
         device=args.device,
     )
     n = sender.run()
