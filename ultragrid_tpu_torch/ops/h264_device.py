@@ -31,7 +31,7 @@ S8).
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -586,16 +586,31 @@ def _pick(xc, want):
     return torch.where((xc - 1) % 4 == want, xc - 1, xc + 1)
 
 
+# the stage ablation's exits, in graph order (ref ``_stop_after``)
+STOP_STAGES = ("coarse", "extract", "halfpel", "chroma", "residual")
+
+
 def make_device_encode_p(width: int, height: int, qp: int, search: int = 8, wwords: int = 80,
-                         subpel: str = "half", device="cuda"):
+                         _stop_after: Optional[str] = None, subpel: str = "half", device="cuda"):
     """The P-frame encode (ref ``make_device_encode_p``, 630-1268): padded
     planes (y, cb, cr) and the reference picture (ry, rcb, rcr), u8 tensors
     on ``device`` -> (words, bit counts, overflow, recon y, cb, cr).
 
     ``subpel``: "half" (default) or "quarter" (an 8-candidate quarter-pel
-    refine around the half-pel best, spec 8.4.2.2.2 averaging)."""
+    refine around the half-pel best, spec 8.4.2.2.2 averaging).
+
+    ``_stop_after`` (a stage of :data:`STOP_STAGES`) ends the graph early for
+    the stage ablation of ``tools/bench_h264_enc_dev.py`` and returns the
+    reference's tuple in its layout: ``(ci,)`` the coarse candidate
+    [mbh, mbw]; ``(W20,)`` u8 [4, mbh, 20, mbw, 20]; ``(pred_y8, mvx, mvy)``
+    with the luma prediction u8 [mbh, 16, mbw, 16]; ``(pred_y, pred_cb,
+    pred_cr, mvx, mvy)`` int32 [mbh, 16|8, mbw, 16|8]; ``(cbp, zz_l, mvx,
+    mvy)``.  Without a search only "residual" is reached, as in the
+    reference."""
     if search > 10:
         raise ValueError("search range > 10 exceeds the MC_PAD window")
+    if _stop_after is not None and _stop_after not in STOP_STAGES:
+        raise ValueError(f"_stop_after={_stop_after!r}: expected one of {STOP_STAGES}")
     device = get_device(device) if isinstance(device, str) else device
     mbw, mbh = (width + 15) // 16, (height + 15) // 16
     nmb = mbw * mbh
@@ -693,6 +708,8 @@ def make_device_encode_p(width: int, height: int, qp: int, search: int = 8, wwor
             d = (cand - cur_h).abs().reshape(-1, mbh, 8, mbw, 8)
             s = d.sum((2, 4), dtype=_I32)[order]
             _, ci = _first_min(s)
+            if _stop_after == "coarse":
+                return (ci.to(_I32),)
             ty0 = 2 * off_y[ci]
             tx0 = 2 * off_x[ci]
 
@@ -705,6 +722,8 @@ def make_device_encode_p(width: int, height: int, qp: int, search: int = 8, wwor
             W20 = torch.stack([W25[..., 2:22, 2:22], torch.clamp((w_b1[..., 2:22, :] + 16) >> 5, 0, 255),
                                torch.clamp((w_h1[..., :, 2:22] + 16) >> 5, 0, 255),
                                torch.clamp((w_j1 + 512) >> 10, 0, 255)])   # [4, mbh, mbw, 20, 20]
+            if _stop_after == "extract":
+                return (W20.permute(0, 1, 3, 2, 4).to(torch.uint8).contiguous(),)
 
             # (3a) +-1 integer refine; W20[p] is plane p at (16my+ty0-2+r, 16mx+tx0-2+c)
             cands = torch.stack([W20[0, :, :, 2 + dy:18 + dy, 2 + dx:18 + dx] for dx, dy in deltas])
@@ -770,6 +789,8 @@ def make_device_encode_p(width: int, height: int, qp: int, search: int = 8, wwor
                 qsel = qc.gather(0, qi.long()[None, :, :, None, None].expand(1, -1, -1, 16, 16))[0]
                 pred_y8 = torch.where(take[..., None, None], qsel, pred_y8)
 
+            if _stop_after == "halfpel":
+                return (pred_y8.permute(0, 2, 1, 3).to(torch.uint8).contiguous(), mvx, mvy)
             # the zero MV wins ties (skip bias)
             mz = _sad16(cur_b, refb) <= best
             mvx = torch.where(mz, 0, mvx)
@@ -787,6 +808,8 @@ def make_device_encode_p(width: int, height: int, qp: int, search: int = 8, wwor
                 c_, d_ = W9[..., 1:9, :8], W9[..., 1:9, 1:9]
                 pred_c.append(((8 - wxf) * (8 - wyf) * a_ + wxf * (8 - wyf) * b_
                                + (8 - wxf) * wyf * c_ + wxf * wyf * d_ + 32) >> 6)
+            if _stop_after == "chroma":
+                return tuple(p.permute(0, 2, 1, 3).contiguous() for p in (pred_y, *pred_c)) + (mvx, mvy)
 
         # ---- luma residual: 16-coefficient blocks ----
         b44 = (cur_b - pred_y).reshape(mbh, mbw, 4, 4, 4, 4).permute(0, 1, 2, 4, 3, 5)
@@ -810,6 +833,8 @@ def make_device_encode_p(width: int, height: int, qp: int, search: int = 8, wwor
         any_cdc = (cdc_lv[0] != 0).reshape(mbh, mbw, -1).any(2) | (cdc_lv[1] != 0).reshape(mbh, mbw, -1).any(2)
         cbp_chroma = torch.where(any_cac, 2, torch.where(any_cdc, 1, 0)).to(_I32)
         cbp = cbp_luma | (cbp_chroma << 4)
+        if _stop_after == "residual":
+            return cbp, zz_l, mvx, mvy
 
         # ---- MV prediction and skip (spec 8.4.1.3, 8.4.1.1) ----
         pm = []
