@@ -58,9 +58,15 @@ table, the card's name and power limit, and ``{"ok": true, "device":
 and K2 per band, the peel per band) against single-band encodes, K2's plain
 version, the CPU port and the unsharded decode, ``ShardedJpegDecoder``, the
 halo deinterlace, sharded H.264 at 1080p x 4, the dry run, and the file
-capture and display modules.  ``python3 chip_smoke.py --only standards``
-(or ``--only parallel``) builds the kernels and runs that phase alone,
-printing no result line.
+capture and display modules.  Phase ``tools`` runs the port's bench tools
+(``ultragrid_tpu_torch/tools/bench_*.py``) at the reference tools' own
+sizes, each kernel row against its plain version and each tool's output
+against the CPU port's, with bench_latency's two-process 1080p60 session
+gated on every frame shown; then the screen capture from a mock X server,
+``ug_input`` fed by an uncompressed sender, v4l2's probe and the hardware
+stubs.  ``python3 chip_smoke.py --only standards`` (or ``--only parallel``,
+``--only tools``) builds the kernels and runs that phase alone, printing no
+result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2804,8 +2810,286 @@ def phase_parallel(dev):
         "host_decode_one_band": split,
         "note": "medians of 5 calls; device_decode_ms includes the upload; device_ms by the profiler, "
                 "the median of single-call profiles showing every peel launch"}
+    # K2 over one band's container: its bound from the bytes it must move,
+    # beside its device time in the sharded step's profile (4 launches)
+    b_k2, ops_k2 = k2_work(step.parity)
+    bms, by = bound_ms(b_k2, ops_k2)
+    k2_prof = [v for n, v in out["timing"]["sharded_sender"]["kernels_per_call"].items() if "gf2_parity" in n]
+    band_ms = sum(ms for _, ms in k2_prof) / sum(c for c, _ in k2_prof)
+    out["timing"]["k2_band"] = {"device_ms": band_ms, "bound_ms": bms, "bound_by": by,
+                                "share_of_bound": bms / band_ms, "mbytes": b_k2 / 1e6, "xors": ops_k2}
     out["launches_sharded_sender"] = sender_l
     out["launches_sharded_receiver"] = receiver_l
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---- the bench tools and the remaining captures ----
+
+TOOLS_LATENCY = (1920, 1080, 60, 300)  # bench_latency's session: width, height, fps, frames
+TOOLS_RECEIVER_FRAMES = 30
+TOOLS_CAPTURE_FRAMES = 30
+TOOLS_V4L2_FRAMES = 10
+
+
+def counted(fn):
+    """(fn(), every hand kernel's launches while it ran)."""
+    reset_kernel_counts()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, kernel_counts()
+
+
+def tools_bench_pipeline(dev):
+    """bench_pipeline's ten rows on the card at the reference's sizes, K1 and
+    K2 counted per row; the last call of each K1 row against its plain
+    version on the card (slot words, the pipelined JPEG body, the 8K LDGM
+    buffer rebuilt from ``encode_plain``)."""
+    from ultragrid_tpu_torch.tools import bench_pipeline
+
+    rows = {}
+    by_config = {}
+    for row in bench_pipeline.build_rows(dev):
+        _, launches = counted(row.run)
+        rows[row.config] = {"ms_per_frame": row.seconds * 1e3, "launches": launches}
+        by_config[row.config] = row
+        if (launches["jpeg_encode"] > 0) != (row.plain is not None) or launches["gf2_parity"]:
+            raise RuntimeError(f"bench_pipeline {row.config!r}: launches {launches}")
+    for config, row in by_config.items():
+        if row.plain is None:
+            continue
+        plain = row.plain()
+        if isinstance(plain, tuple):
+            d = differing_blocks(row.last, plain)
+            if d or bool(row.last[6]) != bool(plain[6]) or not row.last[0].is_cuda:
+                raise RuntimeError(f"bench_pipeline {config!r}: {d} blocks differ from the plain version")
+            rows[config]["differing_blocks_vs_plain"] = d
+        else:
+            if row.last.tobytes() != plain.tobytes():
+                raise RuntimeError(f"bench_pipeline {config!r}: bytes differ from the plain version's")
+            rows[config]["bytes_equal_plain"] = len(plain)
+    return rows
+
+
+def tools_captures(dev):
+    """Screen capture from a mock X server at 1080p (card against CPU,
+    upload ms), ``ug_input`` fed by a 1080p60 ``-c none`` sender, v4l2's
+    probe (or frames), every hardware stub's message."""
+    import glob
+
+    from tests.torch_x11_mock import MockXServer
+    from ultragrid_tpu_torch.modules import hw_stubs, screen_capture, ug_input
+    from ultragrid_tpu_torch.modules.registry import LibraryClass, load_library
+    from ultragrid_tpu_torch.modules.v4l2_capture import V4l2Capture
+    from ultragrid_tpu_torch.modules.video_capture import TestcardCapture
+    from ultragrid_tpu_torch.pipeline.sender import VideoSender
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_x11_")
+    rng = np.random.default_rng(12)
+    alpha = rng.integers(0, 256, (32, 32)).astype(np.uint32)
+    rgb = (rng.integers(0, 256, (32, 32, 3)) * alpha[..., None] // 255).astype(np.uint32)
+    cursor = (900, 500, 32, 32, 4, 4, (alpha << 24) | (rgb[..., 0] << 16) | (rgb[..., 1] << 8) | rgb[..., 2])
+    srv = MockXServer(os.path.join(tmp, "X0"), width=W1080, height=H1080, with_xfixes=True, cursor=cursor)
+    try:
+        cpu_cap = screen_capture.ScreenCapture(f"display={srv.path}", device="cpu")
+        want = cpu_cap.grab()[0].data
+        cpu_cap.done()
+        cap = screen_capture.ScreenCapture(f"display={srv.path}", device=dev)
+        grab_ms = []
+        try:
+            for i in range(TOOLS_CAPTURE_FRAMES):
+                t0 = time.perf_counter()
+                frame = cap.grab()[0]
+                torch.cuda.synchronize()
+                grab_ms.append((time.perf_counter() - t0) * 1e3)
+                if frame is None or not frame.data.is_cuda or not torch.equal(frame.data.cpu(), want):
+                    raise RuntimeError(f"screen capture: frame {i} is not the CPU capture's, on the card")
+        finally:
+            cap.done()
+    finally:
+        srv.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    host = want.numpy()
+    upload_ms = []
+    for _ in range(TOOLS_CAPTURE_FRAMES):
+        t0 = time.perf_counter()
+        torch.from_numpy(host).to(dev)
+        torch.cuda.synchronize()
+        upload_ms.append((time.perf_counter() - t0) * 1e3)
+    out["screen"] = {"geometry": f"{W1080}x{H1080} RGB, a 32x32 translucent cursor", "frames": TOOLS_CAPTURE_FRAMES,
+                     "byte_equal_cpu": True, "grab_ms_median": float(np.median(grab_ms)),
+                     "upload_ms_median": float(np.median(upload_ms)), "upload_ms_min": min(upload_ms),
+                     "mbytes_a_frame": host.nbytes / 1e6}
+
+    port = free_port_pair()
+    spec = f"testcard:s={W1080}x{H1080}:f=60:c=UYVY:still=1"
+    sent = TestcardCapture(spec.partition(":")[2], device=dev).grab()[0].data
+    cap = ug_input.UgInputCapture(f"port={port}", device=dev)
+    sender = VideoSender(spec, "127.0.0.1", compress_spec="none", tx_port=port, mtu=9000,
+                         frame_limit=TOOLS_CAPTURE_FRAMES + 60, device=dev)
+    t = threading.Thread(target=sender.run, daemon=True)
+    t0 = time.perf_counter()
+    t.start()
+    try:
+        # the first frame lacks the datagrams of its first receive batch,
+        # zeros at its top, as in the reference (ROADMAP F12): held to that
+        first = cap.grab()[0]
+        if first is None or not first.data.is_cuda or first.data.shape != sent.shape:
+            raise RuntimeError("ug_input: no first frame on the card")
+        bad = (first.data != sent).any(1).nonzero().reshape(-1).tolist()
+        if bad != list(range(len(bad))) or bool(first.data[:len(bad)].any()):
+            raise RuntimeError(f"ug_input: the first frame differs beyond a leading run of zero rows: {bad[:8]}")
+        for i in range(TOOLS_CAPTURE_FRAMES):
+            frame = cap.grab()[0]
+            if frame is None or not frame.data.is_cuda or not torch.equal(frame.data, sent):
+                raise RuntimeError(f"ug_input: frame {i + 1} is not the testcard sent, on the card")
+        seconds = time.perf_counter() - t0
+    finally:
+        sender.should_exit.set()
+        t.join(timeout=20)
+        cap.done()
+    out["ug_input"] = {"sender": f"{spec} -c none, MTU 9000", "frames_equal_sent": TOOLS_CAPTURE_FRAMES,
+                       "first_frame_zero_rows": len(bad), "seconds_from_sender_start": seconds}
+
+    devs = glob.glob("/dev/video*")
+    if devs:
+        cap = V4l2Capture("", device=dev)
+        try:
+            got = [cap.grab()[0] for _ in range(TOOLS_V4L2_FRAMES)]
+        finally:
+            cap.done()
+        if any(f is None or not f.data.is_cuda for f in got):
+            raise RuntimeError("v4l2: a frame missing or off the card")
+        out["v4l2"] = {"devices": devs, "frames": len(got)}
+    else:
+        try:
+            V4l2Capture("", device=dev)
+        except RuntimeError as e:
+            out["v4l2"] = {"devices": [], "probe": str(e)}
+        else:
+            raise RuntimeError("v4l2: a capture opened without a /dev/video device")
+    stubs = {}
+    for cls, names in ((LibraryClass.VIDEO_CAPTURE, ("decklink", "ndi", "aja")),
+                       (LibraryClass.VIDEO_DISPLAY, ("decklink", "ndi", "sdl", "openxr_gl", "vulkan")),
+                       (LibraryClass.AUDIO_CAPTURE, ("pipewire", "jack", "portaudio", "pulse", "coreaudio",
+                                                     "wasapi", "sdi"))):
+        for name in names:
+            try:
+                load_library(name, cls)("")
+            except RuntimeError as e:
+                if name not in str(e):
+                    raise
+                stubs[f"{cls.value}/{name}"] = str(e)
+            else:
+                raise RuntimeError(f"{cls.value}/{name}: the stub opened")
+    if load_library("alsa", LibraryClass.AUDIO_CAPTURE).__name__ != "AlsaAudioCapture":
+        raise RuntimeError("-s alsa no longer reaches audio/alsa.py")
+    stubs["alsa (the stub's message, not registered)"] = hw_stubs._audio_probe_msg("alsa")
+    out["stubs"] = stubs
+    return out
+
+
+def phase_tools(dev):
+    """This slice's path on the card: the port's bench tools at the
+    reference tools' own sizes (bench_pipeline's ten rows, bench_northstar at
+    7680x2160, bench_jpeg_dev and bench_scan_decode at 4K, bench_h264_enc_dev
+    at 1080p qp 26, bench_latency's two-process 1080p60 session of 300
+    frames, bench_receiver for 30 frames), every kernel row against its plain
+    version and every tool's output against the CPU port's; then the screen
+    capture, ug_input, v4l2 and the hardware stubs.  K1 and K2 are counted
+    per tool (the receiver child of bench_latency is uncounted)."""
+    from ultragrid_tpu_torch.ops.h264_device import STOP_STAGES, make_device_encode_p
+    from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
+    from ultragrid_tpu_torch.tools import (bench_h264_enc_dev, bench_jpeg_dev, bench_latency, bench_northstar,
+                                           bench_receiver, bench_scan_decode)
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    out = {"phase": "tools", "card": nvidia_smi_line()}
+    launches = {}
+    seconds = {}
+
+    t0 = time.perf_counter()
+    out["bench_pipeline"] = tools_bench_pipeline(dev)
+    launches["bench_pipeline"] = {k: sum(r["launches"][k] for r in out["bench_pipeline"].values())
+                                  for k in ("jpeg_encode", "gf2_parity")}
+    seconds["bench_pipeline"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ns, launches["bench_northstar"] = counted(lambda: bench_northstar.run(W8K, H8K, 24, dev))
+    pipe, frame = ns["pipe"], ns["frame"]
+    step, step_l = counted(lambda: pipe(frame))
+    if step_l["jpeg_encode"] != 1 or step_l["gf2_parity"] != 1:
+        raise RuntimeError(f"bench_northstar: a step launched {step_l}, expected one K1 and one K2")
+    plain = plain_step(pipe, frame)
+    d = differing_blocks(step, plain)
+    if d or not torch.equal(step[6], plain[6]):
+        raise RuntimeError(f"bench_northstar: the step differs from K1's and K2's plain versions ({d} blocks)")
+    out["bench_northstar"] = {"geometry": f"{W8K}x{H8K} UYVY q80 4:2:2 + {FEC}", "launches_per_step": step_l,
+                              "equal_plain": True, **{k: v for k, v in ns.items() if k.endswith("_ms")}}
+    seconds["bench_northstar"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    _, launches["bench_jpeg_dev"] = counted(lambda: bench_jpeg_dev.main([]))
+    enc4 = JpegEncoder(*bench_jpeg_dev.SIZE)
+    f4 = bench_jpeg_dev.make_frame(*bench_jpeg_dev.SIZE, device=dev)
+    d = differing_blocks(enc4.encode_device(f4), enc4.encode_plain(f4))
+    if d:
+        raise RuntimeError(f"bench_jpeg_dev: {d} blocks differ from the plain version")
+    out["bench_jpeg_dev"] = {"ms": bench_jpeg_dev.timeit(enc4.encode_device, f4, 20), "differing_blocks_vs_plain": d}
+    seconds["bench_jpeg_dev"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    sc, launches["bench_scan_decode"] = counted(lambda: bench_scan_decode.run(W4K, H4K, 80, 8, dev))
+    base = sc[1][2]
+    for n, (_, _, coeffs) in sc.items():
+        if not all(np.array_equal(a, b) for a, b in zip(base, coeffs)):
+            raise RuntimeError(f"bench_scan_decode: {n} threads' coefficients differ from 1 thread's")
+    if bench_scan_decode.make_stream(W4K, H4K, 80, dev) != bench_scan_decode.make_stream(W4K, H4K, 80, cpu):
+        raise RuntimeError("bench_scan_decode: the card's stream differs from the CPU port's")
+    out["bench_scan_decode"] = {"threads": {n: {"min_ms": a, "median_ms": b} for n, (a, b, _) in sc.items()},
+                                "coefficients_equal_every_thread_count": True, "stream_equal_cpu": True}
+    seconds["bench_scan_decode"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    hr = bench_h264_enc_dev.run(W1080, H1080, 26, dev)
+    cpu_args = tuple(torch.from_numpy(a) for a in bench_h264_enc_dev.frames(W1080, H1080))
+    for stage in STOP_STAGES:
+        want = make_device_encode_p(W1080, H1080, 26, 8, wwords=32, _stop_after=stage, device="cpu")(*cpu_args)
+        got = hr["stage_outputs"][stage]
+        if len(got) != len(want) or not all(g.is_cuda and torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            raise RuntimeError(f"bench_h264_enc_dev: stage {stage}'s outputs on the card differ from the CPU's")
+    out["bench_h264_enc_dev"] = {"geometry": f"{W1080}x{H1080} qp 26 search 8", "p_ms": hr["p"],
+                                 "stages_ms": hr["stages"], "intra_ms": hr["intra"], "stages_equal_cpu": True}
+    seconds["bench_h264_enc_dev"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    w, h, fps, n = TOOLS_LATENCY
+    bench_latency.warm_graphs(w, h, "jpeg", dev)
+    port = free_port_pair()
+    (lat, shown), launches["bench_latency"] = counted(
+        lambda: bench_latency.run_session(w, h, fps, n, "jpeg", FEC, port=port, device=dev))
+    if len(lat) != n:
+        raise RuntimeError(f"bench_latency: {len(lat)} of {n} frames displayed")
+    summary = bench_latency.summarize(w, h, fps, "jpeg", FEC, lat, shown)
+    emit(summary)  # the tool's own --json line
+    out["bench_latency"] = {**summary, "displayed": len(lat), "frames_sent": n + 60}
+    seconds["bench_latency"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rr, launches["bench_receiver"] = counted(
+        lambda: bench_receiver.run(W1080, H1080, TOOLS_RECEIVER_FRAMES, dev, port=free_port_pair()))
+    if rr["frames"] < 3:
+        raise RuntimeError(f"bench_receiver: {rr['frames']} frames shown")
+    out["bench_receiver"] = {k: v for k, v in rr.items() if k != "latencies_ms"}
+    seconds["bench_receiver"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    out.update(tools_captures(dev))
+    seconds["captures"] = time.perf_counter() - t0
+    out["launches"] = {k: {tool: launches[tool][k] for tool in launches} for k in ("jpeg_encode", "gf2_parity")}
+    out["seconds_by_part"] = seconds
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -2884,6 +3168,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--only", "parallel"]:
         emit(phase_parallel(dev))
+        return 0
+    if sys.argv[1:] == ["--only", "tools"]:
+        emit(phase_tools(dev))
         return 0
 
     def frame_for(enc, seed, noise=False):
@@ -3485,6 +3772,9 @@ def main() -> int:
     # read around its own sender and receiver steps
     par = phase_parallel(dev)
     emit(par)
+    # the bench tools and the remaining captures, their counts read per tool
+    tools = phase_tools(dev)
+    emit(tools)
 
     one_call = "none: no single PyTorch call computes this function"
     live_l = live["jpeg_ldgm_1080p"]["launches"]
@@ -3502,7 +3792,9 @@ def main() -> int:
                         " frames; launches_duplex: the duplex call through cli.main, " + str(DUPLEX_FRAMES) +
                         " frames; launches_thumbnails: -F preview and thumbnailgen's " + str(THUMBNAILS) +
                         " thumbnails (960x544 RGB 4:4:4); launches_sharded_sender / launches_sharded_receiver: "
-                        "one 8K x 4-band sender step and one receiver step (phase parallel)",
+                        "one 8K x 4-band sender step and one receiver step (phase parallel); "
+                        "launches_tools: each bench tool's run in phase tools (bench_latency's sender; "
+                        "its receiver child uncounted)",
          "launches_sender_step": launches["jpeg_encode"],
          "launches_audio_session": audio_l["jpeg_encode"], "launches_replay_session": replay_l["jpeg_encode"],
          "launches_standards_session": std["standards_session"]["launches"]["jpeg_encode"],
@@ -3511,6 +3803,7 @@ def main() -> int:
          "launches_thumbnails": std["preview"]["launches"]["jpeg_encode"],
          "launches_sharded_sender": par["launches_sharded_sender"]["jpeg_encode"],
          "launches_sharded_receiver": par["launches_sharded_receiver"]["jpeg_encode"],
+         "launches_tools": tools["launches"]["jpeg_encode"],
          "thumbnail_960x544_rgb": std["preview"]["k1_thumbnail_rgb"],
          "max_abs_err": k1_err, **{key: k1_t["1080p"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "device_ms": k1_t["1080p"]["device_ms"], "library_ms": None, "library": one_call,
@@ -3535,7 +3828,8 @@ def main() -> int:
                         "call through cli.main, jpeg + LDGM, one data packet of each frame dropped; "
                         "launches_sharded_sender / launches_sharded_receiver: one 8K x 4-band sender step "
                         "(K2 per band) and one receiver step with a data symbol erased per band (the peel's "
-                        "rounds per band; phase parallel)",
+                        "rounds per band; phase parallel); launches_tools: each bench tool's run in phase "
+                        "tools (bench_northstar's steps; no tool's session loses a packet, so no peel)",
          "launches_h264_live": live["h264_inter_ldgm_1080p"]["launches"]["gf2_parity"],
          "peel_h264_max_abs_err": live["h264_k2_peel"]["max_abs_err"],
          "launches_codec_live": {spec: {"launches": live[f"{spec}_ldgm_1080p"]["launches"]["gf2_parity"],
@@ -3547,6 +3841,8 @@ def main() -> int:
          "launches_duplex": duplex_l["gf2_parity"],
          "launches_sharded_sender": par["launches_sharded_sender"]["gf2_parity"],
          "launches_sharded_receiver": par["launches_sharded_receiver"]["gf2_parity"],
+         "launches_tools": tools["launches"]["gf2_parity"],
+         "k2_band_8k_x4": par["timing"]["k2_band"],
          "max_abs_err": k2_err, **{key: k2_t["1080p"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "device_ms": k2_t["1080p"]["device_ms"], "library_ms": None, "library": one_call,
          "at": "1080p step's parts, LDGM 256:26:5", "8k": k2_t["8K"],

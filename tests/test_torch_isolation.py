@@ -8,10 +8,13 @@ intra codecs, audio with its record and replay (``audio/``, ``tools/``), and
 standards mode, RTSP capture, the duplex call, the preview socket and
 thumbnailgen, the multi-device path (``parallel/``: the mesh, the sharded
 JPEG + LDGM sender and receiver steps, sharded H.264, the halo deinterlace
-and the dry run), ``-e`` (``utils/crypto.py``) and the file modules
-(``modules/file_io.py``) on the CPU.  A source scan rejects any ``import`` of any of them in the port
-(``audio/`` and ``tools/`` included), ``chip_smoke.py``, ``chip_profile.py``
-and ``chip_phases.py``.
+and the dry run), ``-e`` (``utils/crypto.py``), the file modules
+(``modules/file_io.py``), the bench tools (``tools/bench_*.py``), the X11
+client (``net/x11.py``) and the screen, v4l2, ``ug_input`` and hardware-stub
+captures on the CPU.  A source scan rejects any ``import`` of any of them in
+the port (``audio/`` and ``tools/`` included), ``chip_smoke.py``,
+``chip_profile.py``, ``chip_phases.py`` and the jax-free mock X server
+``tests/torch_x11_mock.py``.
 """
 
 import os
@@ -347,6 +350,57 @@ assert cap.grab()[0].data.numel() == 64 * 32 * 3 // 2
 cap.done()
 mix = initialize_video_capture("swmix:64:32:30#testcard:s=64x32:c=UYVY#testcard:s=64x32:c=RGB", device="cpu")
 assert mix.grab()[0].data.shape == (32, 192)
+# the bench tools, the X11 client and the remaining captures on the CPU;
+# each tool and capture defaults to the card
+import glob
+from ultragrid_tpu_torch.net import x11
+from ultragrid_tpu_torch.modules import hw_stubs, screen_capture, ug_input, v4l2_capture
+from ultragrid_tpu_torch.tools import (bench_h264_enc_dev, bench_jpeg_dev, bench_latency, bench_northstar,
+                                       bench_pipeline, bench_receiver, bench_scan_decode)
+from tests import torch_x11_mock
+srv = torch_x11_mock.MockXServer(os.path.join(rec, "X0"))
+if not torch.cuda.is_available():
+    for make in (bench_pipeline.main, bench_northstar.main, bench_jpeg_dev.main, bench_scan_decode.main,
+                 bench_h264_enc_dev.main, bench_latency.main, bench_receiver.main,
+                 lambda: screen_capture.ScreenCapture("display=" + srv.path),
+                 lambda: v4l2_capture.V4l2Capture(""), lambda: ug_input.UgInputCapture("port=0")):
+        try:
+            make()
+        except RuntimeError:
+            pass
+        else:
+            raise SystemExit("a bench tool or capture ran without a card on its default device")
+cpu = torch.device("cpu")
+rows = bench_pipeline.run(cpu, {"1080p": (64, 32), "4K": (64, 32), "8K": (64, 32)})
+assert len(rows) == 10 and all(r.seconds > 0 for r in rows)
+assert bench_northstar.run(128, 64, 1, cpu)["out"][6].shape[0] == 26
+assert bench_jpeg_dev.timeit(JpegEncoder(64, 32).encode_device, bench_jpeg_dev.make_frame(64, 32, cpu), 1, 1) > 0
+assert sorted(bench_scan_decode.run(64, 32, 80, 1, cpu)) == [1, 2, 4, 8]
+assert len(bench_h264_enc_dev.run(32, 32, 26, cpu, iters=1, batches=1)["stage_outputs"]) == 5
+bench_latency.warm_graphs(64, 32, "jpeg", cpu, decode_side=True)
+assert bench_receiver.run(64, 32, 3, cpu, port=port)["frames"] >= 3
+cap = screen_capture.ScreenCapture("display=" + srv.path, device="cpu")
+assert np.array_equal(cap.grab()[0].data.numpy().reshape(32, 64, 3), srv.fb_rgb)
+cap.done()
+srv.close()
+if not glob.glob("/dev/video*"):
+    try:
+        v4l2_capture.V4l2Capture("", device="cpu")
+    except RuntimeError as e:
+        assert "no /dev/video" in str(e)
+    else:
+        raise SystemExit("v4l2 opened a device that is not there")
+for name in ("decklink", "ndi", "aja"):
+    try:
+        registry.load_library(name, registry.LibraryClass.VIDEO_CAPTURE)("")
+    except RuntimeError as e:
+        assert name in str(e)
+cap = ug_input.UgInputCapture(f"port={port}", device="cpu")
+sender.VideoSender("testcard:s=64x32:f=30:c=UYVY:still=1", "127.0.0.1", tx_port=port, frame_limit=4,
+                   device="cpu").run()
+got = cap.grab()[0]
+cap.done()
+assert got is not None and tuple(got.data.shape) == (32, 128)
 loaded = [m for m, mod in sys.modules.items()
           if m.split(".")[0] in ("jax", "ultragrid_tpu", "PIL") and mod is not None]
 assert not loaded, loaded
@@ -373,7 +427,8 @@ def test_port_sources_never_name_jax():
     pkg = ROOT / "ultragrid_tpu_torch"
     # build/ holds compiled kernels (and may hold an unpacked checkout)
     sources = [p for p in pkg.rglob("*.py") if "build" not in p.relative_to(pkg).parts]
-    sources += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py", ROOT / "chip_phases.py"]
+    sources += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py", ROOT / "chip_phases.py",
+                ROOT / "tests" / "torch_x11_mock.py"]
     walked = {p.relative_to(pkg).parts[0] for p in sources if pkg in p.parents}
     assert {"audio", "tools", "net", "utils", "ops", "modules", "pipeline", "parallel"} <= walked, walked
     pil_at = set()

@@ -489,12 +489,15 @@ def test_registry_uses_the_reference_names():
                            "jpegxs", "none", "openapv", "uyvy"],
         L.VIDEO_DECOMPRESS: ["cineform", "cmpto_j2k", "dxt", "h264_own", "i420", "jpeg", "jpeg_to_dxt", "jpegxs",
                              "openapv"],
-        L.VIDEO_CAPTURE: ["aggregate", "file", "gpustitch", "import", "noise", "rtsp", "stitch", "switcher",
-                          "swmix", "testcard", "testcard2"],
-        L.VIDEO_DISPLAY: ["aggregate", "blend", "caca", "conference", "dummy", "dump", "file", "multiplier",
-                          "null", "pano", "pipe", "preview", "unix_sock", "unix_socket", "y4m"],
-        L.AUDIO_CAPTURE: ["aes67", "alsa", "fluidsynth", "midi", "none", "testcard", "wav"],
-        L.AUDIO_PLAYBACK: ["alsa", "dummy", "none", "wav"],
+        L.VIDEO_CAPTURE: ["aggregate", "aja", "decklink", "file", "gpustitch", "import", "ndi", "noise", "rtsp",
+                          "screen", "stitch", "switcher", "swmix", "testcard", "testcard2", "ug_input", "v4l2"],
+        L.VIDEO_DISPLAY: ["aggregate", "blend", "caca", "conference", "decklink", "dummy", "dump", "file",
+                          "multiplier", "ndi", "null", "openxr_gl", "pano", "pipe", "preview", "sdl", "unix_sock",
+                          "unix_socket", "vulkan", "y4m"],
+        L.AUDIO_CAPTURE: ["aes67", "alsa", "coreaudio", "fluidsynth", "jack", "midi", "none", "pipewire",
+                          "portaudio", "pulse", "sdi", "testcard", "wasapi", "wav"],
+        L.AUDIO_PLAYBACK: ["alsa", "coreaudio", "dummy", "jack", "none", "pipewire", "portaudio", "pulse", "sdi",
+                           "wasapi", "wav"],
     }
     for cls, names in expected.items():
         assert registry.list_modules(cls) == names

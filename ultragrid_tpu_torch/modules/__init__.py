@@ -1,5 +1,6 @@
 """The port's modules: registry, capture, filters, displays, compression,
-and the import capture and audio devices registered beside them.
+the hardware probe stubs, and the import capture and audio devices
+registered beside them.
 
 Importing the package registers every built-in module in the port's own
 registry (ref: constructor-time REGISTER_MODULE, src/lib_common.h:124-143),
@@ -23,6 +24,12 @@ import ultragrid_tpu_torch.modules.stitch  # noqa: E402,F401
 import ultragrid_tpu_torch.modules.ipc_display  # noqa: E402,F401
 import ultragrid_tpu_torch.modules.rtsp_capture  # noqa: E402,F401
 import ultragrid_tpu_torch.modules.file_io  # noqa: E402,F401
+import ultragrid_tpu_torch.modules.v4l2_capture  # noqa: E402,F401
+import ultragrid_tpu_torch.modules.screen_capture  # noqa: E402,F401
+# the hardware probe stubs register before the audio devices below, so the
+# real ``alsa`` replaces its stub (the reference's order)
+import ultragrid_tpu_torch.modules.hw_stubs  # noqa: E402,F401
+import ultragrid_tpu_torch.modules.ug_input  # noqa: E402,F401
 import ultragrid_tpu_torch.utils.export  # noqa: E402,F401  (registers the 'import' capture device)
 # the audio devices register too, so --list-modules sees them; these are
 # imports by module name only (audio/capture.py imports its sibling devices

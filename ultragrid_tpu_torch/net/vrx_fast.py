@@ -82,7 +82,7 @@ class FastVideoRx:
 
     def __init__(self, session, rx_state: VideoRxState,
                  framebuffer_provider: Optional[Callable] = None,
-                 initial_cap: int = 1 << 18):
+                 initial_cap: int = 1 << 18, stamp_last_arrival: bool = False):
         lib = video_rx_fast_lib()
         self.lib = lib
         self.session = session
@@ -110,6 +110,13 @@ class FastVideoRx:
         self._ovf = np.empty((VRX_BATCH, RTP_MAX_PACKET_LEN), np.uint8)
         self._ovf_lens = np.empty(VRX_BATCH, np.int32)
         self._pending: dict = {}  # (ssrc, ts) -> _PendingFrame
+        # with ``stamp_last_arrival``: (ssrc, ts) -> the arrival stamp of the
+        # recvmmsg batch that brought the frame's latest datagram, handed on
+        # as the frame's ``callbacks["last_arrival"]`` (the last packet ->
+        # display latency of tools/bench_receiver.py); (gen, slot) -> the
+        # slot's datagram count at the last look
+        self._last_arrival: Optional[dict] = {} if stamp_last_arrival else None
+        self._pkts_seen: dict = {}
         self._rtcp_snapshot: list = []
         self._stats_out = np.zeros(8, np.uint64)
         if session.rtcp is not None:
@@ -145,6 +152,8 @@ class FastVideoRx:
             timeout = 0.0  # only the first batch may wait
             if n <= 0:
                 break
+            if self._last_arrival is not None:
+                self._stamp_arrivals(now)
             if n_ovf.value:
                 self._parse_overflow(overflow, n_ovf.value, now)
             if flags.value & 2 and need_cap.value:  # NEED_CAP
@@ -159,6 +168,19 @@ class FastVideoRx:
         self.session.bytes_received = int(by.value)
         self._snapshot_rtcp()
         return overflow
+
+    def _stamp_arrivals(self, now: float) -> None:
+        """Stamp ``now`` on every frame whose slot took datagrams in the
+        batch just drained (its datagram count moved)."""
+        self.lib.vrx_poll(self.state, self._meta.ctypes.data)
+        meta = self._meta.reshape(self.nslots, META_WORDS)
+        for i in range(self.nslots):
+            if not int(meta[i, 0]):
+                continue
+            key, pkts = (int(meta[i, 1]), i), int(meta[i, 8])
+            if self._pkts_seen.get(key) != pkts:
+                self._pkts_seen[key] = pkts
+                self._last_arrival[(int(meta[i, 2]), int(meta[i, 3]))] = now
 
     def _parse_overflow(self, out: List[RtpPacket], n: int,
                         arrival: float) -> None:
@@ -274,9 +296,17 @@ class FastVideoRx:
             return None
         pt = int(meta[slots[0], 5])
         allow_fb = pt == rt.PT_VIDEO and len(slots) == 1
+        last = None
+        if self._last_arrival is not None:
+            last = self._last_arrival.pop((pf.ssrc, pf.ts), pf.arrival)
+            for s in slots:
+                self._pkts_seen.pop((pf.gens[s], s), None)
         try:
             if pt == rt.PT_VIDEO:
-                return self._take_video(pf, slots, meta)
+                frame = self._take_video(pf, slots, meta)
+                if last is not None:
+                    frame.callbacks["last_arrival"] = last
+                return frame
             return self._take_fec(pf, slots[0], meta,
                                   "ldgm" if pt == rt.PT_VIDEO_LDGM else "rs")
         finally:

@@ -772,6 +772,16 @@ class JpegEncoder:
             np.frombuffer(b"\xff\xd9", dtype=np.uint8),
         ])
 
+    def encode_device(self, frame, device="cuda"):
+        """The device half without a host sync (reference ``encode_device``,
+        ops/jpeg.py:854): (ys, ybits, us, ubits, vs, vbits, overflow).  A
+        tensor is encoded on its own device; an array is copied to
+        ``device`` (the card unless the caller names another).  Callers check
+        the overflow flag when they fetch the parts."""
+        if not isinstance(frame, torch.Tensor):
+            frame = torch.as_tensor(np.asarray(frame), device=get_device(device))
+        return self._encode(frame)
+
     def assemble(self, ys, ybits, us, ubits, vs, vbits) -> np.ndarray:
         """Merge per-block slots into the stuffed entropy stream with the
         shared C assembler (``native/jpeg_assemble.c``)."""

@@ -152,6 +152,10 @@ class VideoReceiver:
         self.frame_limit = frame_limit
         self.timeout = timeout
         self.should_exit = False  # external stop (embedding, keyboard 'q')
+        # set before run(): each frame the C fast path takes without FEC
+        # carries the arrival of its last datagram as
+        # callbacks["last_arrival"] (tools/bench_receiver.py)
+        self.stamp_last_arrival = False
         self.frames_displayed = 0
         self._decompress = None
         self._decomp_out: Optional[Codec] = None
@@ -404,7 +408,8 @@ class VideoReceiver:
         fast = None
         if fast_mode == "auto":
             fast = FastVideoRx(self.session, self.rx_state,
-                               framebuffer_provider=self._framebuffer_provider)
+                               framebuffer_provider=self._framebuffer_provider,
+                               stamp_last_arrival=self.stamp_last_arrival)
         else:
             self.session.start_recv_thread()
         self._fast = fast
