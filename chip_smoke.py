@@ -64,9 +64,15 @@ sizes, each kernel row against its plain version and each tool's output
 against the CPU port's, with bench_latency's two-process 1080p60 session
 gated on every frame shown; then the screen capture from a mock X server,
 ``ug_input`` fed by an uncompressed sender, v4l2's probe and the hardware
-stubs.  ``python3 chip_smoke.py --only standards`` (or ``--only parallel``,
-``--only tools``) builds the kernels and runs that phase alone, printing no
-result line.
+stubs.  Phase ``remaining`` runs the last slice: the 1080p60 JPEG + LDGM
+session with loss into ``-d x11`` against the mock X server (every window
+image the CPU port's rendering of the CPU decode of its file),
+``hd_rum_translator`` with a ``-c jpeg`` and a raw client, ``tools/convert.py``
+at 4K against the CPU, the libavcodec rows where libavcodec's headers are
+present (one line saying they are absent otherwise), and ``-t camera``
+through a ``.ug.rc`` alias.  ``python3 chip_smoke.py --only standards`` (or
+``--only parallel``, ``--only tools``, ``--only remaining``) builds the
+kernels and runs that phase alone, printing no result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -673,6 +679,17 @@ def reset_kernel_counts():
         c.reset()
 
 
+def udp_rcvbuf_errors() -> int:
+    """The kernel's count of UDP datagrams dropped for a full socket receive
+    buffer (``RcvbufErrors`` of /proc/net/snmp), or -1 where it is not read."""
+    try:
+        with open("/proc/net/snmp") as fh:
+            rows = [ln.split() for ln in fh if ln.startswith("Udp:")]
+        return int(rows[1][rows[0].index("RcvbufErrors")])
+    except (OSError, IndexError, ValueError):
+        return -1
+
+
 def free_port_pair(count: int = 2) -> int:
     """A UDP port p with p + 1 .. p + count - 1 free too, from the OS: RTP
     and RTCP, and with ``count=3`` the audio session at p + 2."""
@@ -718,10 +735,10 @@ def drop_data_packets(session, per_frame: int, seed: int, k: int, m: int):
 def live_run(dev, capture: str, compress: str, fec: str, frames: int, mtu: int = 1500, loss: int = 0,
              keep_every: int = 0, profile_it: bool = False, tap=None, grace_s: float = LIVE_GRACE_S,
              idle_s: float = LIVE_GRACE_S, audio_capture=None, audio_fec: str = "none", audio_loss: int = 0,
-             sender_kw=None, on_shown=None):
+             sender_kw=None, on_shown=None, display: str = "dummy", after_shown=None):
     """One session on 127.0.0.1 through the port's entry points: VideoSender
     and VideoReceiver on the card (``--param ldgm-device=device``), a dummy
-    display.  The kernels' launch counts are set to 0 just before the
+    display unless ``display`` names another.  The kernels' launch counts are set to 0 just before the
     sender runs and read just after the receiver stops.  ``tap(sender)``
     runs before the sender does.  After the sender's last frame the
     receiver gets ``grace_s`` to catch up, less where it shows nothing new
@@ -729,7 +746,8 @@ def live_run(dev, capture: str, compress: str, fec: str, frames: int, mtu: int =
     (``-s``, ``-f A:<audio_fec>``, ``-r wav:<tmp>``), ``audio_loss`` packets
     of every audio frame dropped: every audio frame played must equal the
     one sent under its RTP timestamp.  ``sender_kw`` goes to VideoSender as
-    it is; ``on_shown(frame)`` sees every displayed frame.  Returns the
+    it is; ``on_shown(frame)`` sees every displayed frame before the display
+    shows it, ``after_shown(frame, display)`` after.  Returns the
     session's numbers and the frames kept (every ``keep_every``-th shown,
     from the first)."""
     from ultragrid_tpu_torch.pipeline.receiver import VideoReceiver
@@ -739,7 +757,7 @@ def live_run(dev, capture: str, compress: str, fec: str, frames: int, mtu: int =
     params.set_commandline_param("ldgm-device", "device")
     port = free_port_pair(3)
     wav_dir = tempfile.mkdtemp(prefix="chip_smoke_audio_") if audio_capture else None
-    recv = VideoReceiver("dummy", rx_port=port, device=dev,
+    recv = VideoReceiver(display, rx_port=port, device=dev,
                          audio_playback=f"wav:{wav_dir}/played.wav" if audio_capture else None)
     shown, kept, lat, off_card = [], [], [], [0]
     orig = recv.display.put_frame
@@ -756,6 +774,8 @@ def live_run(dev, capture: str, compress: str, fec: str, frames: int, mtu: int =
             if on_shown is not None:
                 on_shown(frame)
         orig(frame, blocking)
+        if frame is not None and after_shown is not None:
+            after_shown(frame, recv.display)
 
     recv.display.put_frame = put
     rt = threading.Thread(target=recv.run, name="receiver", daemon=True)
@@ -1426,7 +1446,7 @@ def phase_codecs(dev):
         src_dev = frames["bars"].to(dev)
         frame = VideoFrame(desc, [src_dev])
         stream = comp.compress(frame)
-        runs = 1 if spec == "cineform:100" else 3
+        runs = 1  # one timed call a row: the host entropy takes 0.04-1.3 s a 1080p frame
         enc_stage, dec_stage = codec_stages(spec, comp, src_dev, np.asarray(stream.data), dev)
         for what, fn, stage in (("encode", lambda: comp.compress(frame), enc_stage),
                                 ("decode", lambda: dec.decompress(stream, out_codec), dec_stage)):
@@ -2523,12 +2543,15 @@ def phase_standards(dev):
     JpegDecompress(device=dev).decompress(
         VideoFrame(VideoDesc(W1080, H1080, Codec.JPEG, 60.0), [JpegEncoder(W1080, H1080).encode(ring[0])]), Codec.UYVY)
     torch.cuda.synchronize()
-    out["standards_session"] = standards_session(dev, cpu_decode)
-    out["rtsp_jpeg"] = rtsp_jpeg_capture(dev, cpu_decode)
-    out["rtsp_h264"] = rtsp_h264_capture(dev)
-    out["duplex"] = duplex_calls(dev)
-    out["preview"] = preview_thumbnails(dev)
-    out["ihdtv"] = ihdtv_session(dev)
+    # each row with the UDP datagrams the kernel dropped for full receive
+    # buffers while it ran (any socket of this machine)
+    for key, row in (("standards_session", lambda: standards_session(dev, cpu_decode)),
+                     ("rtsp_jpeg", lambda: rtsp_jpeg_capture(dev, cpu_decode)),
+                     ("rtsp_h264", lambda: rtsp_h264_capture(dev)), ("duplex", lambda: duplex_calls(dev)),
+                     ("preview", lambda: preview_thumbnails(dev)), ("ihdtv", lambda: ihdtv_session(dev))):
+        drops = udp_rcvbuf_errors()
+        out[key] = row()
+        out[key]["udp_rcvbuf_errors"] = udp_rcvbuf_errors() - drops
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -3094,6 +3117,301 @@ def phase_tools(dev):
     return out
 
 
+# ---- phase remaining: the last slice ----
+
+REM_FRAMES = 60  # row (a): 1 s of the 1080p60 session into a windowed display
+REM_XLATE_FRAMES = 5  # row (b): uncompressed 1080p frames into the translator
+REM_CAMERA_FRAMES = 10  # row (e)
+
+
+def remaining_windowed(dev):
+    """(a) the 1080p60 JPEG q80 + LDGM 256:26:5 session with one seeded data
+    packet lost a frame (the peel on the card) into ``-d x11`` against the
+    mock X server: every shown window image byte-equal to the CPU port's x11
+    rendering of the CPU decode of the file sent under that frame's RTP
+    timestamp.  ``-d gl`` is not run: the card's machine has no libEGL.so.1
+    (PERF.md, PR 13)."""
+    from tests.torch_x11_mock import MockXServer
+    from ultragrid_tpu_torch.modules.video_decompress import JpegDecompress
+    from ultragrid_tpu_torch.modules.x11_display import X11Display
+    from ultragrid_tpu_torch.ops.jpeg import _parse_headers
+    from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rem_")
+    files, packets, shown = {}, [], []
+    srv = MockXServer(os.path.join(tmp, "X0"), width=W1080, height=H1080)
+    cpu_srv = MockXServer(os.path.join(tmp, "X1"), width=W1080, height=H1080)
+    try:
+        def after(frame, display):
+            img = next(iter(srv.windows.values()))
+            shown.append((int(round(frame.timestamp * 90000)) & 0xFFFFFFFF, frame.data.is_cuda,
+                          int(frame.desc.color_spec), img.tobytes()))
+
+        t0 = time.perf_counter()
+        run, _, _ = live_run(dev, LIVE_CAPTURE, "jpeg:80", FEC, REM_FRAMES, loss=LIVE_LOSS,
+                             display=f"x11:display={srv.path}", after_shown=after,
+                             tap=lambda sender: tap_sent_files(sender, files, packets))
+        seconds = time.perf_counter() - t0
+        # the CPU port's rendering of each distinct file: the CPU decode to
+        # RGB, shown by the port's x11 display on the CPU
+        cpu_dec = JpegDecompress(device="cpu")
+        cpu_disp = X11Display(f"display={cpu_srv.path}", device="cpu")
+        cpu_disp.reconfigure(VideoDesc(W1080, H1080, Codec.RGB, 60.0))
+        rendered = {}
+        for ts, on_card, codec, img in shown:
+            if ts not in files:
+                raise RuntimeError(f"remaining (a): a shown frame has no sent file under RTP ts {ts}")
+            f = files[ts]
+            if f not in rendered:
+                hdr = _parse_headers(f)
+                jf = VideoFrame(VideoDesc(hdr["w"], hdr["h"], Codec.JPEG, 60.0), [np.frombuffer(f, np.uint8)])
+                cpu_disp.put_frame(cpu_dec.decompress(jf, Codec.RGB))
+                rendered[f] = next(iter(cpu_srv.windows.values())).tobytes()
+            if not on_card or codec != int(Codec.RGB) or img != rendered[f]:
+                raise RuntimeError(f"remaining (a): a shown window image is not the CPU port's rendering "
+                                   f"(on the card {on_card}, codec {codec})")
+        cpu_disp.done()
+    finally:
+        srv.close()
+        cpu_srv.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if len(shown) < REM_FRAMES // 4 or run["launches"]["jpeg_encode"] < 1 or run["launches"]["gf2_parity"] < 1:
+        raise RuntimeError(f"remaining (a): {len(shown)} frames shown, {run}")
+    keep = ("frames_sent", "frames_displayed", "frames_per_s", "latency_ms_p50", "latency_ms_p95",
+            "packets_dropped", "fec_jobs", "fec_jobs_recovered", "launches")
+    return {**{k: run[k] for k in keep}, "display": "x11 (mock X server, 1920x1080 PutImage)",
+            "frames_checked": len(shown), "distinct_files": len(set(files.values())),
+            "equal_to_cpu_rendering": True, "seconds": seconds,
+            "gl": "not run: no libEGL.so.1 on the card's machine (PERF.md, PR 13)"}
+
+
+def remaining_translator(dev):
+    """(b) ``hd_rum_translator`` on the card: uncompressed 1080p UYVY in, one
+    client with ``-c jpeg`` (K1 on the card) and one raw; the JPEG client's
+    files equal the CPU port's ``jpeg`` encode of the frames sent, the raw
+    client's frames equal them."""
+    from ultragrid_tpu_torch.modules.video_capture import initialize_video_capture
+    from ultragrid_tpu_torch.modules.video_compress import compress_init
+    from ultragrid_tpu_torch.net.pbuf import PlayoutBuffer
+    from ultragrid_tpu_torch.net.rtp import RtpSession
+    from ultragrid_tpu_torch.net.transmit import Tx
+    from ultragrid_tpu_torch.net.video_rx import VideoRxState
+    from ultragrid_tpu_torch.tools.hd_rum_translator import HdRumTranslator
+    from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame
+
+    ring = initialize_video_capture(LIVE_CAPTURE, device="cpu").frames
+    sent = [ring[i % len(ring)] for i in range(REM_XLATE_FRAMES)]
+    rx_port, jpeg_port, raw_port = free_port_pair(), free_port_pair(), free_port_pair()
+    got = {jpeg_port: {}, raw_port: {}}
+    stop = threading.Event()
+
+    def client(port):
+        sess = RtpSession(addr=None, rx_port=port, tx_port=0)
+        pbuf, state = PlayoutBuffer(), VideoRxState(device="cpu")
+
+        def handle(node):
+            frame = state.decode_frame(node)
+            if frame is not None:
+                data = frame.data.cpu().numpy() if isinstance(frame.data, torch.Tensor) else np.asarray(frame.data)
+                got[port][node.ts] = (int(frame.desc.color_spec), data.tobytes())
+            return frame is not None
+
+        try:
+            while not stop.is_set():
+                for pkt in sess.recv_many(timeout=0.001, max_pkts=256):
+                    pbuf.insert(pkt)
+                now = time.monotonic()
+                pbuf.decode(now, handle)
+                pbuf.remove_old(now)
+        finally:
+            sess.close()
+
+    threads = [threading.Thread(target=client, args=(p,), daemon=True) for p in (jpeg_port, raw_port)]
+    for t in threads:
+        t.start()
+    translator = HdRumTranslator(rx_port, [("127.0.0.1", jpeg_port, "jpeg"), ("127.0.0.1", raw_port, "none")],
+                                 device=dev)
+    tt = threading.Thread(target=translator.run, kwargs={"frame_limit": REM_XLATE_FRAMES, "timeout": 60},
+                          daemon=True)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    tt.start()
+    sender = RtpSession(addr="127.0.0.1", rx_port=0, tx_port=rx_port)
+    tx = Tx(mtu=9000, device="cpu")
+    # paced as a 5 frames/s source: the Tx spreads a frame's packets over its
+    # period, and each end's Python receive loop reads 1080p uncompressed
+    # (the raw client's 2,765 packets a frame at MTU 1500) as they come
+    desc = VideoDesc(W1080, H1080, Codec.UYVY, 5.0)
+    for i, f in enumerate(sent):
+        frame = VideoFrame(desc, [f])
+        frame.timestamp = i / 5.0
+        tx.send_video(sender, frame)
+        time.sleep(0.2)
+    tt.join(timeout=60)
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline and min(len(v) for v in got.values()) < REM_XLATE_FRAMES:
+        time.sleep(0.05)
+    stop.set()
+    for t in threads:
+        t.join(timeout=5)
+    sender.close()
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    seconds = time.perf_counter() - t0
+    cpu_jpeg = compress_init("jpeg", device="cpu")
+    want_jpeg = {cpu_jpeg.compress(VideoFrame(desc, [f])).data.tobytes() for f in sent}
+    want_raw = {f.numpy().tobytes() for f in sent}
+    jpegs, raws = list(got[jpeg_port].values()), list(got[raw_port].values())
+    if (translator.frames_forwarded < REM_XLATE_FRAMES or len(jpegs) < REM_XLATE_FRAMES
+            or len(raws) < REM_XLATE_FRAMES or launches["jpeg_encode"] < REM_XLATE_FRAMES):
+        raise RuntimeError(f"remaining (b): forwarded {translator.frames_forwarded}, jpeg client {len(jpegs)}, "
+                           f"raw client {len(raws)}, launches {launches}")
+    if any(c != int(Codec.JPEG) or d not in want_jpeg for c, d in jpegs):
+        raise RuntimeError("remaining (b): a JPEG client file is not the CPU port's encode of a sent frame")
+    if any(c != int(Codec.UYVY) or d not in want_raw for c, d in raws):
+        raise RuntimeError("remaining (b): a raw client frame is not a sent frame")
+    return {"frames_sent": REM_XLATE_FRAMES, "frames_forwarded": translator.frames_forwarded,
+            "jpeg_client_files": len(jpegs), "raw_client_frames": len(raws), "jpeg_equal_to_cpu_encode": True,
+            "raw_equal_to_input": True, "launches": launches, "seconds": seconds}
+
+
+def remaining_convert(dev):
+    """(c) ``tools/convert.py`` on the card (its default) and on the CPU: 4K
+    UYVY -> RGB and v210 -> UYVY, the output files byte-equal."""
+    from ultragrid_tpu_torch.tools import convert
+    from ultragrid_tpu_torch.types import Codec, vc_get_linesize
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_convert_")
+    out = {}
+    try:
+        for a, b in (("UYVY", "RGB"), ("v210", "UYVY")):
+            src = os.path.join(tmp, f"in.{a}")
+            np.random.default_rng(31).integers(0, 256, (H4K, vc_get_linesize(W4K, Codec[a])),
+                                               dtype=np.uint8).tofile(src)
+            t0 = time.perf_counter()
+            rc_card = convert.main([f"{W4K}x{H4K}", a, src, b, src + ".card"])
+            card_s = time.perf_counter() - t0
+            rc_cpu = convert.main([f"{W4K}x{H4K}", a, src, b, src + ".cpu", "--device", "cpu"])
+            with open(src + ".card", "rb") as f1, open(src + ".cpu", "rb") as f2:
+                card, cpu = f1.read(), f2.read()
+            if rc_card or rc_cpu or card != cpu or len(card) != vc_get_linesize(W4K, Codec[b]) * H4K:
+                raise RuntimeError(f"remaining (c): convert {a} -> {b}: rc {rc_card}/{rc_cpu}, "
+                                   f"{len(card)} / {len(cpu)} bytes, equal {card == cpu}")
+            out[f"{a}->{b}"] = {"bytes": len(card), "byte_equal_to_cpu": True, "card_command_s": card_s}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def remaining_lavc(dev):
+    """(d) where libavcodec is present: ``-c libavcodec:codec=H.264`` 1080p
+    to a receiver with ``--param h264-decoder=lavc`` (frames on the card,
+    equal to the CPU port's decode), ``-x mpegts`` (30 frames), ``-A opus``
+    through the session, ``bench_h264_decode`` at its default size.  Where
+    its headers are absent: one line that says so."""
+    from ultragrid_tpu_torch.modules.lavc import LavcDecompress, lavc_available
+
+    if not lavc_available():
+        return {"libavcodec": "absent: cc finds no libavcodec/avcodec.h on this machine; row (d) not run"}
+    from ultragrid_tpu_torch.pipeline.mpegts import MpegTsReceiver, MpegTsSender
+    from ultragrid_tpu_torch.tools import bench_h264_decode
+    from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame
+    from ultragrid_tpu_torch.utils import params
+
+    out = {"libavcodec": "present"}
+    files, packets, shown = {}, [], []
+
+    def on_shown(frame):
+        shown.append((int(round(frame.timestamp * 90000)) & 0xFFFFFFFF, frame.data.is_cuda, frame.data.cpu()))
+
+    params.set_commandline_param("h264-decoder", "lavc")
+    run, _, _ = live_run(dev, LIVE_CAPTURE, "libavcodec:codec=H.264", "none", 60, on_shown=on_shown,
+                         tap=lambda sender: tap_sent_files(sender, files, packets))
+    cpu_dec = LavcDecompress(device="cpu")
+    cpu = {}
+    for ts in sorted(files):
+        f = cpu_dec.decompress(VideoFrame(VideoDesc(W1080, H1080, Codec.H264, 60.0),
+                                          [np.frombuffer(files[ts], np.uint8)]), Codec.UYVY)
+        if f is not None:
+            cpu[ts] = f.data
+    if not shown or any(not c or ts not in cpu or not torch.equal(d, cpu[ts]) for ts, c, d in shown):
+        raise RuntimeError(f"remaining (d): lavc H.264 session, {len(shown)} shown, not the CPU port's decode")
+    out["h264_lavc_session"] = {k: run[k] for k in ("frames_sent", "frames_displayed", "frames_per_s")}
+    port = free_port_pair()
+    recv = MpegTsReceiver("dummy", port=port, frame_limit=30, timeout=5.0, device=dev)
+    rt = threading.Thread(target=recv.run, daemon=True)
+    rt.start()
+    time.sleep(0.3)
+    MpegTsSender(LIVE_CAPTURE, "127.0.0.1", port, frame_limit=30, device=dev).run()
+    rt.join(timeout=60)
+    if recv.frames_displayed < 1:
+        raise RuntimeError("remaining (d): mpegts showed no frame")
+    out["mpegts"] = {"frames_sent": 30, "frames_displayed": recv.frames_displayed}
+    audio, _, _ = live_run(dev, LIVE_CAPTURE, "jpeg:80", FEC, 30, audio_capture="testcard",
+                           sender_kw={"audio_codec": "Opus"})
+    if audio["audio"]["frames_played"] < 1:
+        raise RuntimeError(f"remaining (d): -A Opus played no audio frame: {audio['audio']}")
+    out["opus_session"] = {"frames_sent": audio["frames_sent"], "frames_displayed": audio["frames_displayed"],
+                           "audio_frames_sent": audio["audio"]["frames_sent"],
+                           "audio_frames_played": audio["audio"]["frames_played"]}
+    out["bench_h264_decode_rc"] = bench_h264_decode.main(["--device", str(dev)])
+    return out
+
+
+def remaining_camera_alias(dev):
+    """(e) ``-t camera`` through ``cli.main`` with ``HOME`` at a temporary
+    ``.ug.rc`` that aliases ``camera`` to the 1080p testcard: the frames
+    shown are on the card and equal to the testcard's."""
+    from ultragrid_tpu_torch import cli
+    from ultragrid_tpu_torch.modules import extra_displays
+    from ultragrid_tpu_torch.modules.video_capture import initialize_video_capture
+
+    home = tempfile.mkdtemp(prefix="chip_smoke_home_")
+    with open(os.path.join(home, ".ug.rc"), "w") as fh:
+        fh.write("alias capture camera testcard:s=1920x1080\n")
+    got = []
+    extra_displays.register_pipe_delegate("chip_smoke_ugrc", got.append)
+    saved = os.environ.get("HOME")
+    os.environ["HOME"] = home
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["-t", "camera", "-d", "pipe:chip_smoke_ugrc", "--frames", str(REM_CAMERA_FRAMES)])
+        seconds = time.perf_counter() - t0
+    finally:
+        os.environ["HOME"] = saved if saved is not None else home
+        if saved is None:
+            del os.environ["HOME"]
+        shutil.rmtree(home, ignore_errors=True)
+    frames = [f for f in got if f is not None]
+    ring = [f.cpu() for f in initialize_video_capture("testcard:s=1920x1080", device=dev).frames]
+    if rc != 0 or len(frames) != REM_CAMERA_FRAMES or not all(f.data.is_cuda for f in frames):
+        raise RuntimeError(f"remaining (e): rc {rc}, {len(frames)} frames, on the card "
+                           f"{[f.data.is_cuda for f in frames]}")
+    if not all(any(torch.equal(f.data.cpu(), r) for r in ring) for f in frames):
+        raise RuntimeError("remaining (e): a frame is not the 1920x1080 testcard's")
+    return {"frames": len(frames), "on_card": True, "equal_to_testcard": True,
+            "geometry": f"{frames[0].desc.width}x{frames[0].desc.height}", "seconds": seconds}
+
+
+def phase_remaining(dev):
+    """The last slice's card path: (a) the 1080p60 JPEG + LDGM session with
+    loss into ``-d x11``, (b) ``hd_rum_translator`` with a ``-c jpeg`` and a
+    raw client, (c) ``tools/convert.py`` at 4K, (d) the libavcodec rows where
+    libavcodec is present, (e) ``-t camera`` through a ``.ug.rc`` alias.
+    K1 and K2 counted in (a) and (b)."""
+    t_phase = time.perf_counter()
+    out = {"phase": "remaining", "card": nvidia_smi_line()}
+    out["windowed_x11"] = remaining_windowed(dev)
+    out["translator"] = remaining_translator(dev)
+    out["convert_4k"] = remaining_convert(dev)
+    out["lavc"] = remaining_lavc(dev)
+    out["camera_alias"] = remaining_camera_alias(dev)
+    out["launches"] = {k: out["windowed_x11"]["launches"][k] + out["translator"]["launches"][k]
+                       for k in ("jpeg_encode", "gf2_parity")}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def coeff_entry_timing(dev):
     """K1's coefficient entry at 1080p UYVY 4:4:4 q80: CUDA events, profiler
     device time, its plain version (symbols and pack on the card), and its
@@ -3171,6 +3489,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--only", "tools"]:
         emit(phase_tools(dev))
+        return 0
+    if sys.argv[1:] == ["--only", "remaining"]:
+        emit(phase_remaining(dev))
         return 0
 
     def frame_for(enc, seed, noise=False):
@@ -3775,6 +4096,9 @@ def main() -> int:
     # the bench tools and the remaining captures, their counts read per tool
     tools = phase_tools(dev)
     emit(tools)
+    # the last slice: windowed display, translator, convert, libavcodec, ~/.ug.rc
+    rem = phase_remaining(dev)
+    emit(rem)
 
     one_call = "none: no single PyTorch call computes this function"
     live_l = live["jpeg_ldgm_1080p"]["launches"]
@@ -3794,7 +4118,9 @@ def main() -> int:
                         " thumbnails (960x544 RGB 4:4:4); launches_sharded_sender / launches_sharded_receiver: "
                         "one 8K x 4-band sender step and one receiver step (phase parallel); "
                         "launches_tools: each bench tool's run in phase tools (bench_latency's sender; "
-                        "its receiver child uncounted)",
+                        "its receiver child uncounted); launches_remaining: phase remaining's 1080p60 jpeg + "
+                        "LDGM session into -d x11 (" + str(REM_FRAMES) + " frames) and hd_rum_translator's "
+                        "-c jpeg client (" + str(REM_XLATE_FRAMES) + " frames)",
          "launches_sender_step": launches["jpeg_encode"],
          "launches_audio_session": audio_l["jpeg_encode"], "launches_replay_session": replay_l["jpeg_encode"],
          "launches_standards_session": std["standards_session"]["launches"]["jpeg_encode"],
@@ -3804,6 +4130,7 @@ def main() -> int:
          "launches_sharded_sender": par["launches_sharded_sender"]["jpeg_encode"],
          "launches_sharded_receiver": par["launches_sharded_receiver"]["jpeg_encode"],
          "launches_tools": tools["launches"]["jpeg_encode"],
+         "launches_remaining": rem["launches"]["jpeg_encode"],
          "thumbnail_960x544_rgb": std["preview"]["k1_thumbnail_rgb"],
          "max_abs_err": k1_err, **{key: k1_t["1080p"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "device_ms": k1_t["1080p"]["device_ms"], "library_ms": None, "library": one_call,
@@ -3829,7 +4156,9 @@ def main() -> int:
                         "launches_sharded_sender / launches_sharded_receiver: one 8K x 4-band sender step "
                         "(K2 per band) and one receiver step with a data symbol erased per band (the peel's "
                         "rounds per band; phase parallel); launches_tools: each bench tool's run in phase "
-                        "tools (bench_northstar's steps; no tool's session loses a packet, so no peel)",
+                        "tools (bench_northstar's steps; no tool's session loses a packet, so no peel); "
+                        "launches_remaining: phase remaining's 1080p60 jpeg + LDGM session with loss into "
+                        "-d x11 (the receiver's peel)",
          "launches_h264_live": live["h264_inter_ldgm_1080p"]["launches"]["gf2_parity"],
          "peel_h264_max_abs_err": live["h264_k2_peel"]["max_abs_err"],
          "launches_codec_live": {spec: {"launches": live[f"{spec}_ldgm_1080p"]["launches"]["gf2_parity"],
@@ -3842,6 +4171,7 @@ def main() -> int:
          "launches_sharded_sender": par["launches_sharded_sender"]["gf2_parity"],
          "launches_sharded_receiver": par["launches_sharded_receiver"]["gf2_parity"],
          "launches_tools": tools["launches"]["gf2_parity"],
+         "launches_remaining": rem["launches"]["gf2_parity"],
          "k2_band_8k_x4": par["timing"]["k2_band"],
          "max_abs_err": k2_err, **{key: k2_t["1080p"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "device_ms": k2_t["1080p"]["device_ms"], "library_ms": None, "library": one_call,

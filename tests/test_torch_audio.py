@@ -41,6 +41,7 @@ from ultragrid_tpu.net import transmit as ref_transmit  # noqa: E402
 from ultragrid_tpu.net.rtsp_client import parse_sdp as ref_parse_sdp  # noqa: E402
 
 import ultragrid_tpu_torch.modules  # noqa: E402,F401  (registers the port's modules)
+from ultragrid_tpu_torch import native  # noqa: E402
 from ultragrid_tpu_torch.audio import aes67, capture, codecs, echo, filters, midi_synth  # noqa: E402
 from ultragrid_tpu_torch.audio import playback, resampler, types, volume  # noqa: E402
 from ultragrid_tpu_torch.modules import registry  # noqa: E402
@@ -127,8 +128,23 @@ def test_codec_roundtrip_equals_reference(name):
 
 @pytest.mark.parametrize("name", codecs.LAVC_AUDIO_CODECS)
 def test_lavc_codecs_refused_by_name(name):
-    with pytest.raises(ValueError, match="lavc_codecs.py"):
-        codecs.get_audio_codec(name)
+    """The libavcodec codecs, registered under the reference's names: where
+    libavcodec is present, three audio cycles encode to the reference's
+    packets and decode to its samples, byte for byte (one fresh instance in
+    each package); where it is absent, building one names libavcodec."""
+    cls = codecs._CODECS[name]
+    if not native.lavc_headers_present():
+        with pytest.raises(ValueError, match="libavcodec"):
+            cls()
+        return
+    port, ref = cls(), ref_codecs._CODECS[name]()
+    for seq in range(3):
+        frame, ref_frame = both_read(48000 // 25, frequency=440 + 100 * seq)
+        got, want = port.compress_multi(frame), ref.compress_multi(ref_frame)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert same_frame(g, w)
+            assert same_frame(port.decompress(g), ref.decompress(w))
 
 
 # ---------------------------------------------------------------------------

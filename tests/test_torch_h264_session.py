@@ -6,7 +6,7 @@ in-loop deblocking signal, rate control and the ``-l`` hook -- gives the
 reference module's access units and frame types; ``OwnH264Decompress``
 (``h264_own``) gives the reference decoder's UYVY frames, through the C and
 the Python decoder; ``decompress_init`` picks it; the CLI takes ``-c h264``
-and refuses ``--param h264-decoder=lavc`` by name; ``--protocol loopback``
+and ``--param h264-decoder=lavc``; ``--protocol loopback``
 and a live session over 127.0.0.1 with LDGM and one packet dropped per frame
 show the same frames as the reference, in both directions.  Inputs are made
 from a seed with numpy.  Each reference graph is built once per module
@@ -36,6 +36,7 @@ from ultragrid_tpu.utils import params as ref_params  # noqa: E402
 import ultragrid_tpu_torch.modules  # noqa: E402,F401  (registers the port's modules)
 from ultragrid_tpu_torch import cli  # noqa: E402
 from ultragrid_tpu_torch.modules import extra_displays  # noqa: E402
+from ultragrid_tpu_torch.modules.lavc import lavc_available  # noqa: E402
 from ultragrid_tpu_torch.modules.video_compress import H264Compress, compress_init  # noqa: E402
 from ultragrid_tpu_torch.modules.video_decompress import OwnH264Decompress, decompress_init  # noqa: E402
 from ultragrid_tpu_torch.ops.h264_device import InterEncoderDevice  # noqa: E402
@@ -192,27 +193,61 @@ def test_own_h264_decompress_equals_reference(spec, mode):
 
 
 def test_own_h264_decompress_returns_none_out_of_its_envelope():
-    """A P frame with no IDR before it, and bytes that are no AU: None, as
-    the reference gives where libavcodec is absent."""
+    """A P frame with no IDR before it, and bytes that are no AU: None, as in
+    the reference.  Where libavcodec is present the stream is handed to it
+    for good (the reference's takeover), and it decodes the next IDR to the
+    own decoder's picture; where it is absent the own decoder recovers at the
+    next IDR.
+    ``--param h264-decoder=lavc`` hands the stream over from its first
+    frame: the port's takeover decodes that frame, the reference's loses it
+    (its GOP cache is still empty when it hands over)."""
     comp = H264Compress("mode=inter:gop=10", device="cpu")
     aus = [bytes(_host(comp.compress(VideoFrame(VideoDesc(W, H, Codec.UYVY, 30.0), [torch.as_tensor(f)])).data))
            for f in moving(2, W, H)]
     garbage = b"\x00\x00\x00\x01\x65" + bytes(range(7, 200))
+
+    def vf(au, pkg=None):
+        desc = (RefDesc(W, H, RefCodec.H264, 30.0) if pkg else VideoDesc(W, H, Codec.H264, 30.0))
+        return (RefFrame if pkg else VideoFrame)(desc, [np.frombuffer(au, np.uint8)])
+
     dec = OwnH264Decompress(device="cpu")
     for au in (aus[1], garbage):
-        assert dec.decompress(VideoFrame(VideoDesc(W, H, Codec.H264, 30.0), [np.frombuffer(au, np.uint8)]),
-                              Codec.UYVY) is None
-    # the stream recovers at the next IDR
-    assert dec.decompress(VideoFrame(VideoDesc(W, H, Codec.H264, 30.0), [np.frombuffer(aus[0], np.uint8)]),
-                          Codec.UYVY) is not None
+        assert dec.decompress(vf(au), Codec.UYVY) is None
+    got = dec.decompress(vf(aus[0]), Codec.UYVY)
+    assert got is not None  # the stream recovers at the next IDR
+    # through libavcodec (or the own decoder, where it is absent): the own
+    # decoder's picture (the reference's lavc gives None here, F1)
+    own = OwnH264Decompress(device="cpu").decompress(vf(aus[0]), Codec.UYVY)
+    assert np.array_equal(_host(got.data), _host(own.data))
+    ref = RefOwnH264()
+    for au in (aus[1], garbage):
+        assert ref.decompress(vf(au, "ref"), RefCodec.UYVY) is None
     params.set_commandline_param("h264-decoder", "lavc")
-    with pytest.raises(NotImplementedError, match="libavcodec"):
-        OwnH264Decompress(device="cpu")
+    ref_params.set_commandline_param("h264-decoder", "lavc")
+    forced = OwnH264Decompress(device="cpu")
+    if not lavc_available():
+        assert forced.decompress(vf(aus[0]), Codec.UYVY) is None
+        return
+    ref = RefOwnH264()
+    assert ref.decompress(vf(aus[0], "ref"), RefCodec.UYVY) is None
+    first = forced.decompress(vf(aus[0]), Codec.UYVY)
+    assert type(forced._delegate).__name__ == "LavcDecompress"
+    assert np.array_equal(_host(first.data), _host(got.data))
+    assert forced.decompress(vf(aus[1]), Codec.UYVY) is not None
 
 
 def test_decompress_init_picks_the_own_h264_decoder():
-    dec, out = decompress_init(Codec.H264, [Codec.RGB, Codec.UYVY], device="cpu")
+    """The own decoder for H.264 to UYVY; for a display that asks RGB first,
+    the reference's probe order (libavcodec last, the output candidates
+    outermost) gives libavcodec's RGB where it is present, the own UYVY
+    where it is absent."""
+    dec, out = decompress_init(Codec.H264, [Codec.UYVY, Codec.RGB], device="cpu")
     assert isinstance(dec, OwnH264Decompress) and out == Codec.UYVY
+    dec, out = decompress_init(Codec.H264, [Codec.RGB, Codec.UYVY], device="cpu")
+    if lavc_available():
+        assert type(dec).__name__ == "LavcDecompress" and out == Codec.RGB
+    else:
+        assert isinstance(dec, OwnH264Decompress) and out == Codec.UYVY
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             decompress_init(Codec.H264, [Codec.UYVY])
@@ -224,11 +259,13 @@ def test_decompress_init_picks_the_own_h264_decoder():
 
 
 def test_cli_takes_h264_and_refuses_the_lavc_decoder_by_name(capsys):
+    """``-c h264`` and ``--param h264-decoder=lavc`` are both taken now (the
+    lavc decoder is the port's); the latter is refused by name only where
+    libavcodec is absent, when the decoder is built."""
     args = cli.build_parser().parse_args(["-t", "testcard", "-c", "h264:mode=inter:accel=device", "127.0.0.1"])
     assert cli.refusal(args) == "" and args.compress == "h264:mode=inter:accel=device"
     assert "h264" in cli.build_parser().format_help()
-    assert cli.main(["-d", "dummy", "--param", "h264-decoder=lavc"]) == 1
-    assert "libavcodec" in capsys.readouterr().err
+    assert cli.refusal(cli.build_parser().parse_args(["-d", "dummy", "--param", "h264-decoder=lavc"])) == ""
     assert cli.main(["-t", f"testcard:s={W}x{H}:f=1000:c=UYVY", "-d", "dummy", "-x", "loopback", "-c",
                      "h264:mode=inter:accel=device:gop=2", "--frames", "3", "--device", "cpu"]) == 0
     assert "3 frames processed (loopback)" in capsys.readouterr().out

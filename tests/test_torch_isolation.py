@@ -11,7 +11,10 @@ JPEG + LDGM sender and receiver steps, sharded H.264, the halo deinterlace
 and the dry run), ``-e`` (``utils/crypto.py``), the file modules
 (``modules/file_io.py``), the bench tools (``tools/bench_*.py``), the X11
 client (``net/x11.py``) and the screen, v4l2, ``ug_input`` and hardware-stub
-captures on the CPU.  A source scan rejects any ``import`` of any of them in
+captures, and the last slice (the x11 and gl displays, libavcodec, the
+libavcodec audio codecs, ``convert``, NAT traversal and its helper,
+``~/.ug.rc``; the drm display, mpegts and the other tools imported) on the
+CPU.  A source scan rejects any ``import`` of any of them in
 the port (``audio/`` and ``tools/`` included), ``chip_smoke.py``,
 ``chip_profile.py``, ``chip_phases.py`` and the jax-free mock X server
 ``tests/torch_x11_mock.py``.
@@ -231,12 +234,18 @@ if not torch.cuda.is_available():
             pass
         else:
             raise SystemExit("an audio entry point ran without a card on its default device")
-try:
-    codecs.get_audio_codec("Opus")
-except ValueError as e:
-    assert "lavc_codecs.py" in str(e)
+from ultragrid_tpu_torch.audio import lavc_codecs
+if native.lavc_headers_present():
+    opus = codecs.get_audio_codec("Opus")
+    pkts = [p for _ in range(3) for p in opus.compress_multi(capture.TestcardAudioCapture().read(1920))]
+    assert pkts and opus.decompress(pkts[0]).desc.codec == "PCM"
 else:
-    raise SystemExit("a libavcodec audio codec was accepted")
+    try:
+        codecs.get_audio_codec("Opus")
+    except ValueError as e:
+        assert "libavcodec" in str(e)
+    else:
+        raise SystemExit("a libavcodec audio codec was built without libavcodec")
 played = []
 rx = receiver.VideoReceiver("dummy", rx_port=port, timeout=20.0, audio_playback="dummy", device="cpu")
 put = rx.audio_playback.put_frame
@@ -401,6 +410,69 @@ sender.VideoSender("testcard:s=64x32:f=30:c=UYVY:still=1", "127.0.0.1", tx_port=
 got = cap.grab()[0]
 cap.done()
 assert got is not None and tuple(got.data.shape) == (32, 128)
+# the last slice: the windowed displays against the mock X server (gl where
+# Mesa's EGL makes a context), libavcodec with mpegts, NAT traversal,
+# ~/.ug.rc and the remaining tools; each entry point defaults to the card
+from ultragrid_tpu_torch.modules import drm_display, gl_display, lavc, x11_display
+from ultragrid_tpu_torch.net import nat
+from ultragrid_tpu_torch.pipeline import mpegts
+from ultragrid_tpu_torch.tools import (bench_h264_decode, convert, extract_cabac_tables, hd_rum, hd_rum_translator,
+                                       mux_ivf, nat_helper, uyvy2yuv422p, webui)
+from ultragrid_tpu_torch.utils import config_file, glctx
+raw = os.path.join(rec, "in.uyvy")
+frame.tofile(raw)
+if not torch.cuda.is_available():
+    makers = [lambda: convert.main(["64x32", "UYVY", raw, "RGB", raw + ".rgb"]),
+              lambda: hd_rum_translator.HdRumTranslator(0, [])]
+    if native.lavc_headers_present():
+        makers += [lambda: lavc.LavcCompress("codec=H.264"), lambda: lavc.LavcDecompress(),
+                   lambda: mpegts.MpegTsReceiver("dummy", 0)]
+    for make in makers:
+        try:
+            make()
+        except RuntimeError:
+            pass
+        else:
+            raise SystemExit("a slice-13 entry point ran without a card on its default device")
+assert convert.main(["64x32", "UYVY", raw, "RGB", raw + ".rgb", "--device", "cpu"]) == 0
+assert os.path.getsize(raw + ".rgb") == 32 * 192
+if native.lavc_headers_present():
+    enc = lavc.LavcCompress("codec=H.264:bitrate=1M", device="cpu")
+    au = enc.compress(VideoFrame(desc, [torch.as_tensor(frame)]))
+    shown = lavc.LavcDecompress(device="cpu").decompress(au, Codec.UYVY)
+    assert shown.data.device.type == "cpu" and tuple(shown.data.shape) == (32, 128)
+    enc.done()
+else:
+    try:
+        lavc.LavcCompress("codec=H.264", device="cpu")
+    except ValueError as e:
+        assert "libavcodec" in str(e)
+    else:
+        raise SystemExit("LavcCompress was built without libavcodec")
+srv = torch_x11_mock.MockXServer(os.path.join(rec, "X1"))
+disp = x11_display.X11Display(f"display={srv.path}", device="cpu")
+disp.reconfigure(desc_rgb)
+disp.put_frame(VideoFrame(desc_rgb, [torch.full((32, 192), 7, dtype=torch.uint8)]))
+assert (next(iter(srv.windows.values())) == 7).all()
+disp.done()
+srv.close()
+try:
+    gl = gl_display.GlDisplay("", device="cpu")
+except RuntimeError as e:
+    assert "gl" in str(e)
+else:
+    gl.reconfigure(desc_rgb)
+    gl.put_frame(VideoFrame(desc_rgb, [torch.full((32, 192), 9, dtype=torch.uint8)]))
+    assert (gl.last_rgb() == 9).all()
+    gl.done()
+cf_path = os.path.join(rec, "ug.rc")
+with open(cf_path, "w") as fh:
+    fh.write("alias capture camera testcard:s=64x32\n")
+assert config_file.ConfigFile(cf_path).resolve_device("capture", "camera") == ("testcard:s=64x32", None)
+assert nat.parse_holepunch_conf("holepunch:room=r:server=127.0.0.1")["room"] == "r"
+hub = nat_helper.NatHelperServer(port=0, host="127.0.0.1")
+hub.start()
+hub.close()
 loaded = [m for m, mod in sys.modules.items()
           if m.split(".")[0] in ("jax", "ultragrid_tpu", "PIL") and mod is not None]
 assert not loaded, loaded
@@ -416,11 +488,12 @@ def test_port_imports_and_encodes_without_jax():
     assert "ISOLATED-OK" in res.stdout
 
 
-# Pillow may render text where the JAX package renders it with Pillow too,
-# each with its fallback where Pillow is absent (the card's machine has
-# none): the text filter's label and testcard2's banner, (file, function).
-# Nothing else of the port imports it.
-PIL_OPTIONAL = {("modules/filters.py", "_render_mask"), ("modules/video_capture.py", "_banner")}
+# Pillow may render text, and encode the web UI's preview JPEG, where the
+# JAX package does so with Pillow too, each with its fallback where Pillow is
+# absent: the text filter's label, testcard2's banner and the web UI's
+# preview, (file, function).  Nothing else of the port imports it.
+PIL_OPTIONAL = {("modules/filters.py", "_render_mask"), ("modules/video_capture.py", "_banner"),
+                ("tools/webui.py", "_encode")}
 
 
 def test_port_sources_never_name_jax():

@@ -486,14 +486,14 @@ def test_registry_uses_the_reference_names():
         {c.value: v for c, v in ref_registry.ABI_VERSIONS.items()}
     expected = {
         L.VIDEO_COMPRESS: ["apv", "cineform", "cmpto_j2k", "cuda_dxt", "dxt", "gpujpeg", "h264", "j2k", "jpeg",
-                           "jpegxs", "none", "openapv", "uyvy"],
+                           "jpegxs", "lavc", "libavcodec", "none", "openapv", "uyvy"],
         L.VIDEO_DECOMPRESS: ["cineform", "cmpto_j2k", "dxt", "h264_own", "i420", "jpeg", "jpeg_to_dxt", "jpegxs",
-                             "openapv"],
+                             "libavcodec", "openapv"],
         L.VIDEO_CAPTURE: ["aggregate", "aja", "decklink", "file", "gpustitch", "import", "ndi", "noise", "rtsp",
                           "screen", "stitch", "switcher", "swmix", "testcard", "testcard2", "ug_input", "v4l2"],
-        L.VIDEO_DISPLAY: ["aggregate", "blend", "caca", "conference", "decklink", "dummy", "dump", "file",
-                          "multiplier", "ndi", "null", "openxr_gl", "pano", "pipe", "preview", "sdl", "unix_sock",
-                          "unix_socket", "vulkan", "y4m"],
+        L.VIDEO_DISPLAY: ["aggregate", "blend", "caca", "conference", "decklink", "drm", "dummy", "dump", "file",
+                          "gl", "multiplier", "ndi", "null", "openxr_gl", "pano", "pipe", "preview", "sdl", "unix_sock",
+                          "unix_socket", "vulkan", "x11", "y4m"],
         L.AUDIO_CAPTURE: ["aes67", "alsa", "coreaudio", "fluidsynth", "jack", "midi", "none", "pipewire",
                           "portaudio", "pulse", "sdi", "testcard", "wasapi", "wav"],
         L.AUDIO_PLAYBACK: ["alsa", "coreaudio", "dummy", "jack", "none", "pipewire", "portaudio", "pulse", "sdi",

@@ -31,6 +31,7 @@ from ultragrid_tpu import cli as ref_cli  # noqa: E402
 from ultragrid_tpu.modules import extra_displays as ref_extra  # noqa: E402
 from ultragrid_tpu.modules import messaging as ref_msg  # noqa: E402
 from ultragrid_tpu.modules import video_compress as ref_vc  # noqa: E402
+from ultragrid_tpu.modules import video_decompress as ref_vd  # noqa: E402
 from ultragrid_tpu.ops import jpeg as ref_jpeg  # noqa: E402
 from ultragrid_tpu.pipeline.loopback import LoopbackRxTx as RefLoopback  # noqa: E402
 from ultragrid_tpu.types import Codec as RefCodec  # noqa: E402
@@ -40,6 +41,7 @@ from ultragrid_tpu.types import VideoFrame as RefFrame  # noqa: E402
 import ultragrid_tpu_torch.modules  # noqa: E402,F401  (registers the port's modules)
 from ultragrid_tpu_torch import cli  # noqa: E402
 from ultragrid_tpu_torch.modules import extra_displays  # noqa: E402
+from ultragrid_tpu_torch.modules.lavc import lavc_available  # noqa: E402
 from ultragrid_tpu_torch.modules.messaging import Module, MsgChangeCompress, send_message  # noqa: E402
 from ultragrid_tpu_torch.modules.video_compress import CompressDriver, JpegCompress, compress_init  # noqa: E402
 from ultragrid_tpu_torch.modules.video_decompress import JpegDecompress, decompress_init  # noqa: E402
@@ -259,8 +261,13 @@ def test_compress_driver_runtime_swap_equals_reference():
 
 
 def test_compress_init_refuses_unknown_names():
-    with pytest.raises(ValueError, match="unknown compression 'libavcodec'"):
-        compress_init("libavcodec:codec=H.265", device="cpu")
+    with pytest.raises(ValueError, match="unknown compression 'nosuchcodec'"):
+        compress_init("nosuchcodec:codec=H.265", device="cpu")
+    if lavc_available():
+        assert type(compress_init("libavcodec:codec=H.265", device="cpu")).__name__ == "LavcCompress"
+    else:
+        with pytest.raises(ValueError, match="libavcodec"):
+            compress_init("libavcodec:codec=H.265", device="cpu")
     assert isinstance(compress_init("GPUJPEG:70", device="cpu"), JpegCompress)
     assert type(compress_init("h264:qp=26", device="cpu")).__name__ == "H264Compress"
 
@@ -277,8 +284,16 @@ def test_decompress_init_selects_and_refuses_by_name():
                                    (Codec.J2K, Codec.RGB, "J2kDecompress")):
         dec, out = decompress_init(codec, [Codec.UYVY, Codec.RGB], device="cpu")
         assert type(dec).__name__ == name and out == out_codec
-    with pytest.raises(NotImplementedError, match="libavcodec"):
-        decompress_init(Codec.VP9, [Codec.UYVY], device="cpu")
+    # libavcodec's decoder last, for what no own decoder reads (ref
+    # decompress_init); refused by name where libavcodec is absent
+    if lavc_available():
+        dec, out = decompress_init(Codec.VP9, [Codec.UYVY], device="cpu")
+        assert type(dec).__name__ == "LavcDecompress" and out == Codec.UYVY
+        ref_dec, ref_out = ref_vd.decompress_init(RefCodec.VP9, [RefCodec.UYVY])
+        assert type(ref_dec).__name__ == "LavcDecompress" and int(ref_out) == int(out)
+    else:
+        with pytest.raises(NotImplementedError, match="libavcodec"):
+            decompress_init(Codec.VP9, [Codec.UYVY], device="cpu")
 
 
 @pytest.mark.parametrize("compress", ["none", "jpeg:80", "dxt"])
@@ -326,18 +341,32 @@ def test_cli_parses_reference_argv(argv):
 
 
 _REFUSED = [
-    (["-t", "testcard", "-A", "Opus", "h"], "lavc_codecs.py"),
-    (["-t", "testcard", "-N", "h"], "nat.py"),
-    (["-t", "testcard", "-x", "mpegts", "h"], "mpegts.py"),
-    (["-d", "dummy", "--window-title", "x"], "windowed display"),
-    (["-d", "dummy", "--param", "h264-decoder=lavc"], "lavc.py"),
+    (["-t", "testcard", "-A", "Opus", "h"], ""),
+    (["-t", "testcard", "-N", "h"], ""),
+    (["-t", "testcard", "-x", "mpegts", "h"], ""),
+    (["-d", "dummy", "--window-title", "x"], ""),
+    (["-d", "dummy", "--param", "h264-decoder=lavc"], ""),
+    (["-t", "testcard", "-x", "sage", "h"], "SAGE SDK"),
+    (["-t", "testcard", "-x", "omt", "h"], "Open Media Transport SDK"),
 ]
 
 
 @pytest.mark.parametrize("argv,name", _REFUSED, ids=[a[-2] if len(a) > 2 else a[0] for a, _ in _REFUSED])
 def test_cli_refuses_options_outside_the_port_by_name(argv, name, capsys):
-    assert cli.main(argv) == 1
-    assert name in capsys.readouterr().err
+    """The libavcodec audio codecs, -N, mpegts, --window-title and the lavc
+    H.264 decoder are the port's now: parsed as the reference parses them and
+    accepted.  Only sage and omt, whose SDKs are absent, are refused by
+    name, as the reference refuses them (ref cli.py:319-325)."""
+    args = cli.build_parser().parse_args(argv)
+    if name:
+        assert cli.main(argv) == 1
+        assert name in capsys.readouterr().err
+        return
+    assert cli.refusal(args) == ""
+    ref = vars(ref_cli.build_parser().parse_args(argv))
+    for key, val in vars(args).items():
+        if key in ref and val is not None:
+            assert val == ref[key], key
 
 
 # options refused until their modules landed (audio, -E and -I; standards

@@ -1,12 +1,15 @@
-"""A mock X server for the port's screen capture, with no JAX in its imports.
+"""A mock X server for the port's screen capture and X11 displays, with no
+JAX in its imports.
 
-A copy of the capture slice of ``MockXServer`` in
-``tests/test_screen_capture.py`` (the setup handshake, QueryExtension,
-GetGeometry, GetImage ZPixmap, GetInputFocus, XFIXES QueryVersion and
-GetCursorImage), serving a seeded depth-24 / bpp-32 LSB-first framebuffer
-over a unix socket.  That file imports the JAX package, so ``chip_smoke.py``
-and the isolation test take this one; ``tests/test_torch_captures.py`` holds
-it to the original.
+A copy of ``MockXServer`` in ``tests/test_screen_capture.py``: the capture
+side (the setup handshake, QueryExtension, GetGeometry, GetImage ZPixmap,
+GetInputFocus, XFIXES QueryVersion and GetCursorImage), serving a seeded
+depth-24 / bpp-32 LSB-first framebuffer over a unix socket, and the display
+side (CreateWindow, MapWindow, DestroyWindow, ChangeProperty WM_NAME,
+CreateGC, PutImage ZPixmap), keeping each window's contents as RGB.  That
+file imports the JAX package, so ``chip_smoke.py`` and the isolation test
+take this one; ``tests/test_torch_captures.py`` and
+``tests/test_torch_displays.py`` hold it to the original.
 """
 
 import os
@@ -37,6 +40,12 @@ class MockXServer(threading.Thread):
         self.fb_rgb = rng.integers(0, 256, (height, width, 3), dtype=np.uint8)
         self.cursor = cursor  # (x, y, w, h, xhot, yhot, argb_np [h,w] u32)
         self.auth_seen = None
+        # display-side state (CreateWindow/PutImage from the x11 display)
+        self.windows = {}  # wid -> np [h, w, 3] RGB contents
+        self.mapped = set()
+        self.titles = {}
+        self.gcs = set()
+        self.put_count = 0
         self.sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
         self.sock.bind(path)
         self.sock.listen(2)
@@ -105,6 +114,35 @@ class MockXServer(threading.Thread):
                     bgrx[:, :, 2] = region[:, :, 0]
                     raw = bgrx.tobytes()
                     conn.sendall(struct.pack("<BBHII20x", 1, 24, seq, len(raw) // 4, 0x21) + raw)
+                elif opcode == 1:  # CreateWindow
+                    wid, parent, x, y, w, h = struct.unpack("<IIhhHH", rest[:16])
+                    self.windows[wid] = np.zeros((h, w, 3), np.uint8)
+                elif opcode == 8:  # MapWindow
+                    (wid,) = struct.unpack("<I", rest[:4])
+                    self.mapped.add(wid)
+                elif opcode == 4:  # DestroyWindow
+                    (wid,) = struct.unpack("<I", rest[:4])
+                    self.windows.pop(wid, None)
+                    self.mapped.discard(wid)
+                elif opcode == 18:  # ChangeProperty (WM_NAME)
+                    wid, prop, ptype = struct.unpack("<III", rest[:12])
+                    (nlen,) = struct.unpack("<I", rest[16:20])
+                    if prop == 39:
+                        self.titles[wid] = rest[20 : 20 + nlen].decode()
+                elif opcode == 55:  # CreateGC
+                    (gc,) = struct.unpack("<I", rest[:4])
+                    self.gcs.add(gc)
+                elif opcode == 72:  # PutImage (ZPixmap, bpp 32)
+                    drawable, gc, w, h, dx, dy = struct.unpack("<IIHHhh", rest[:16])
+                    raw = np.frombuffer(rest[20 : 20 + w * h * 4], np.uint8)
+                    px = raw.reshape(h, w, 4)
+                    fb = self.windows.get(drawable)
+                    if fb is not None:
+                        # LSB-first BGRX -> RGB
+                        fb[dy : dy + h, dx : dx + w, 0] = px[:, :, 2]
+                        fb[dy : dy + h, dx : dx + w, 1] = px[:, :, 1]
+                        fb[dy : dy + h, dx : dx + w, 2] = px[:, :, 0]
+                    self.put_count += 1
                 elif opcode == 43:  # GetInputFocus (sync barrier)
                     conn.sendall(struct.pack("<BBHII20x", 1, 0, seq, 0, 0))
                 elif opcode == XFIXES_OP and detail == 0:  # XFixesQueryVersion

@@ -1,11 +1,10 @@
 """Audio codecs: PCM passthrough + G.711 A-law/u-law (exact ITU tables).
 
-The port's copy of ``ultragrid_tpu/audio/codecs.py`` (ref: src/audio/codec.{h,c}).
-The reference also registers the libavcodec-backed codecs of
-``ultragrid_tpu/audio/lavc_codecs.py`` (Opus, G.722, Speex, MP3, AAC, FLAC)
-where ``native/lavc_shim.c`` builds; they are not in the port yet, and
-:func:`get_audio_codec` refuses each by that module's name rather than
-sending PCM in its place.
+The port's copy of ``ultragrid_tpu/audio/codecs.py`` (ref: src/audio/codec.{h,c}),
+with the libavcodec-backed codecs of ``audio/lavc_codecs.py`` (Opus, G.722,
+Speex, MP3, AAC, FLAC) registered beside PCM, A-law and mu-law (ref
+``lavc_codecs.py:247-254``); where libavcodec is absent, building one of
+them raises an error that names it rather than sending PCM in its place.
 """
 
 from __future__ import annotations
@@ -150,15 +149,8 @@ _CODECS: Dict[str, Type[AudioCodec]] = {
 _INSTANCES: Dict[str, AudioCodec] = {}
 
 
-# the reference's libavcodec-backed codecs (ultragrid_tpu/audio/lavc_codecs.py)
-LAVC_AUDIO_CODECS = ("Opus", "G722", "speex", "MP3", "AAC", "FLAC")
-
-
 def get_audio_codec(name: str) -> AudioCodec:
     cls = _CODECS.get(name)
-    if cls is None and name in LAVC_AUDIO_CODECS:
-        raise ValueError(f"audio codec {name!r} is not in the port yet: it needs libavcodec "
-                         "(ultragrid_tpu/audio/lavc_codecs.py)")
     if cls is None:
         raise ValueError(
             f"audio codec {name!r} unavailable (supported: {sorted(_CODECS)})"
@@ -170,3 +162,10 @@ def get_audio_codec(name: str) -> AudioCodec:
         inst = _INSTANCES[name] = cls()
     return inst
 
+
+# the libavcodec-backed codecs (audio/lavc_codecs.py)
+from ultragrid_tpu_torch.audio.lavc_codecs import LAVC_CODECS  # noqa: E402
+
+LAVC_AUDIO_CODECS = tuple(cls.NAME for cls in LAVC_CODECS)
+for _cls in LAVC_CODECS:
+    _CODECS.setdefault(_cls.NAME, _cls)

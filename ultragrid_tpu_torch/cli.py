@@ -1,27 +1,33 @@
 """CLI entry point of the port, the analogue of the reference's ``uv`` binary.
 
-The port of ``ultragrid_tpu/cli.py``: the same option grammar for what the
-port holds (src/main.cpp:690-740):
+The port of ``ultragrid_tpu/cli.py``: the same option grammar
+(src/main.cpp:690-740):
 
-  -t DEVICE[:cfg]    capture device (testcard, testcard2, noise)
-  -d DISPLAY[:cfg]   display (dummy, null, dump, file, conference, ...)
-  -c COMPRESS[:opts] video compression (none, uyvy, dxt, jpeg[:rate=], h264[:opts])
+  -t DEVICE[:cfg]    capture device (testcard, testcard2, noise, file, screen, rtsp, ...)
+  -d DISPLAY[:cfg]   display (dummy, null, dump, file, conference, x11, gl, drm, ...)
+  -c COMPRESS[:opts] video compression (none, uyvy, dxt, jpeg[:rate=], h264[:opts], libavcodec, ...)
   -f FEC             forward error correction ([A:|V:]none|mult:N|ldgm:...|rs:k:n)
-  -s / -r / -A       audio capture, playback and codec (PCM, alaw, ulaw)
+  -s / -r / -A       audio capture, playback and codec (PCM, alaw, ulaw, Opus, G722, ...)
   -E DIR / -I DIR    record the session / replay a recording as the capture
-  -x PROTOCOL        ultragrid_rtp (default), loopback or ihdtv
+  -x PROTOCOL        ultragrid_rtp (default), loopback, mpegts or ihdtv
+  -N [MODE]          map the RTP ports at the NAT (auto|pcp|natpmp|upnp) or
+                     holepunch:room=R:server=H through a nat-helper room
   --rtp-standard     send JPEG as RFC 2435 on PT 26 and serve its SDP over HTTP
   --rtsp             serve the session over RTSP (implies --rtp-standard)
+  --window-title T   the title of a windowed display's window
   --device DEV       where frames live and kernels run: cuda (default) or cpu
 
 Run a sender ``python -m ultragrid_tpu_torch -t testcard -c jpeg -f ldgm
 <host>``, a receiver ``python -m ultragrid_tpu_torch -d dummy``, both on the
 card unless ``--device cpu`` is given; ``-t ... -d ... <peer>`` is a
 full-duplex call (``pipeline/duplex.py``, with ``--echo-cancellation``).
-``-e`` needs the Python package ``cryptography``.  Options whose modules
-are not in the port yet (the libavcodec audio codecs, NAT traversal,
-mpegts and the SDK protocols, windowed displays) are refused with an error
-that names the missing module; none is accepted and ignored.  The reference's ``~/.ug.rc`` aliases are not read.
+``-e`` needs the Python package ``cryptography``; the libavcodec modules
+(``-c libavcodec``, ``-A Opus`` and the other lavc audio codecs, ``-x
+mpegts``, ``--param h264-decoder=lavc``) need FFmpeg's headers and refuse
+with an error that names libavcodec without them.  ``-t`` and ``-d`` names
+are resolved through the aliases of ``~/.ug.rc`` (``utils/config_file.py``).
+``-x sage`` and ``-x omt`` need SDKs that are absent, and are refused as in
+the reference.
 """
 
 from __future__ import annotations
@@ -29,22 +35,12 @@ from __future__ import annotations
 import argparse
 import sys
 
-from ultragrid_tpu_torch.audio.codecs import LAVC_AUDIO_CODECS
 from ultragrid_tpu_torch.modules.registry import LibraryClass, list_modules
 from ultragrid_tpu_torch.utils import log as _log
 from ultragrid_tpu_torch.utils.params import print_param_doc, set_commandline_param
 
-# option dest -> the module of the reference it needs, not ported yet
-_NOT_PORTED = {
-    "window_title": "--window-title needs a windowed display (gl, x11, drm)",
-    "nat_traverse": "-N/--nat-traverse needs ultragrid_tpu/net/nat.py",
-}
-
-_PROTOCOLS_NOT_PORTED = {
-    "mpegts": "ultragrid_tpu/pipeline/mpegts.py",
-    "sage": "the SAGE SDK",
-    "omt": "the Open Media Transport SDK",
-}
+# protocols whose SDKs are absent (ref: src/rxtx/sage.cpp, omt.cpp)
+_SDK_PROTOCOLS = {"sage": "SAGE", "omt": "Open Media Transport"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -101,7 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", "--postprocess", default="", help="display postprocess chain")
     p.add_argument("--frames", type=int, default=None, help="stop after N frames")
     p.add_argument("-x", "--protocol", default="ultragrid_rtp",
-                   help="rxtx protocol: ultragrid_rtp | loopback | ihdtv (ref: --protocol)")
+                   help="rxtx protocol: ultragrid_rtp | loopback | mpegts | ihdtv (sage/omt need their "
+                        "SDKs, absent here; ref: --protocol)")
     p.add_argument("-L", "--list-modules", action="store_true")
     p.add_argument("-b", "--capabilities", action="store_true",
                    help="print machine-readable capabilities JSON (GUI contract)")
@@ -133,8 +130,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="audio capture (testcard, wav:FILE, none, embedded, ...)")
     p.add_argument("-r", "--audio-playback", default=None, help="audio playback (dummy, wav:FILE)")
     p.add_argument("-A", "--audio-codec", default="PCM",
-                   help="audio codec: PCM|alaw|ulaw (Opus, G722, speex, MP3, AAC, FLAC need "
-                        "libavcodec, not in the port yet)")
+                   help="audio codec: PCM|alaw|ulaw|Opus|G722|speex|MP3|AAC|FLAC (the last six need libavcodec)")
     p.add_argument("-i", "--audio-filter", default=None,
                    help="<filter>[:<config>][#<filter>...] — gain/delay/"
                         "silence/discard/channel_remap/controlport_stats "
@@ -146,10 +142,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve the session over RTSP (implies --rtp-standard for JPEG)")
     p.add_argument("--rtp-standard", action="store_true",
                    help="send JPEG as standards-compliant RFC 2435 / PT 26 (interop mode)")
-    # the reference's options whose modules the port does not hold yet:
-    # parsed, so that using one is refused by name (see _NOT_PORTED)
-    p.add_argument("--window-title", default=None, help=argparse.SUPPRESS)
-    p.add_argument("-N", "--nat-traverse", nargs="?", const="auto", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--window-title", default=None,
+                   help="window title for windowed displays (ref: OPT_WINDOW_TITLE)")
+    p.add_argument("-N", "--nat-traverse", nargs="?", const="auto", default=None, metavar="MODE",
+                   help="map RTP ports at the NAT: auto|pcp|natpmp|upnp, or "
+                        "holepunch:room=R:server=H[:port] (ref: -N/--nat-traverse, utils/nat.c)")
     p.add_argument("--audio-protocol", default=None, help=argparse.SUPPRESS)
     p.add_argument("--video-protocol", default=None, help=argparse.SUPPRESS)
     p.add_argument("host", nargs="?", default=None, help="receiver address (sender mode)")
@@ -161,19 +158,12 @@ def refusal(args) -> str:
     if args.audio_protocol or args.video_protocol:
         # the reference removed per-medium protocols too (main.cpp:630-636)
         return "Separate audio and video protocol setting no longer available!"
-    for dest, why in _NOT_PORTED.items():
-        if getattr(args, dest) is not None:
-            return f"not in the port yet: {why}"
-    if args.audio_codec in LAVC_AUDIO_CODECS:
-        return (f"not in the port yet: -A {args.audio_codec} needs libavcodec "
-                "(ultragrid_tpu/audio/lavc_codecs.py)")
-    for kv in args.param:
-        key, _, val = kv.partition("=")
-        if key == "h264-decoder" and val == "lavc":
-            return "not in the port yet: --param h264-decoder=lavc needs libavcodec (ultragrid_tpu/modules/lavc.py)"
-    if args.protocol in _PROTOCOLS_NOT_PORTED:
-        return f"not in the port yet: --protocol {args.protocol} needs {_PROTOCOLS_NOT_PORTED[args.protocol]}"
-    if args.protocol not in ("ultragrid_rtp", "loopback", "ihdtv"):
+    if args.protocol in _SDK_PROTOCOLS:
+        # the reference gates these modules behind their SDKs (ref:
+        # src/rxtx/sage.cpp, omt.cpp); neither SDK exists here
+        return (f"{args.protocol}: requires the {_SDK_PROTOCOLS[args.protocol]} SDK, "
+                "which is not present on this system")
+    if args.protocol not in ("ultragrid_rtp", "loopback", "mpegts", "ihdtv"):
         return f"unknown protocol {args.protocol!r}"
     return ""
 
@@ -238,6 +228,9 @@ def main(argv=None) -> int:
             print(f"--conv-policy: {e}", file=sys.stderr)
             return 1
 
+    if args.window_title:
+        set_commandline_param("window-title", args.window_title)
+
     if args.capabilities:
         from ultragrid_tpu_torch.utils.capabilities import print_capabilities
 
@@ -287,6 +280,72 @@ def main(argv=None) -> int:
 
     profiler.maybe_enable_from_params()
 
+    # ~/.ug.rc device aliases (ref: src/utils/config_file.cpp + the alias
+    # substitution in video_capture_params.c)
+    from ultragrid_tpu_torch.utils.config_file import ConfigFile
+
+    cf = ConfigFile()
+    if args.capture:
+        args.capture, alias_filter = cf.resolve_device("capture", args.capture)
+        if alias_filter:
+            args.capture_filter = f"{args.capture_filter},{alias_filter}" if args.capture_filter else alias_filter
+    if args.display:
+        args.display, _ = cf.resolve_device("display", args.display)
+
+    if args.nat_traverse and args.nat_traverse.startswith("holepunch"):
+        # pair through a nat-helper room and punch, then run the normal
+        # session toward the punched peer (ref: udp_holepunch.cpp +
+        # adjust_params_holepunch, main.cpp:1033-1075)
+        from ultragrid_tpu_torch.net.nat import holepunch_establish, parse_holepunch_conf
+
+        try:
+            conf = parse_holepunch_conf(args.nat_traverse)
+            rx = int(str(args.ports).split(":")[0])
+            peer_host, peer_port = holepunch_establish(conf, rx)
+        except (ValueError, OSError, ConnectionError) as e:
+            print(f"holepunch failed: {e}", file=sys.stderr)
+            return 1
+        args.host = peer_host
+        args.ports = f"{rx}:{peer_port}"
+        # a receive-only invocation still needs a sender for the punched
+        # path to stay open (ref: adjust_params_holepunch testcard:2:2)
+        if not args.capture and args.display:
+            args.capture = "testcard:s=2x2:f=1"
+        print(f"holepunch: session to {peer_host}:{peer_port}", file=sys.stderr)
+    elif args.nat_traverse:
+        # map the RTP rx ports at the NAT before any socket binds
+        # (ref: start_nat_traverse, main.cpp:1300; utils/nat.c order)
+        from ultragrid_tpu_torch.net.nat import setup_nat_traverse
+
+        rx = int(str(args.ports).split(":")[0])
+        audio_rx = rx + 2 if (args.audio_playback or args.audio_capture) else 0
+        res = setup_nat_traverse(rx, audio_rx, mode=args.nat_traverse)
+        if not res["mode"]:
+            # the reference aborts on a failed -N mapping (main.cpp
+            # start_nat_traverse failure -> exit_uv) so scripts can detect it
+            print("NAT traversal failed (no PCP/NAT-PMP/UPnP gateway reachable)", file=sys.stderr)
+            return 1
+        print(f"NAT: mapped via {res['mode']}: {res['mappings']}", file=sys.stderr)
+
+    if args.protocol == "mpegts":
+        # H.264-in-TS over UDP (ref: src/rxtx/mpegts.c); playable by any TS
+        # receiver (VLC/ffplay)
+        from ultragrid_tpu_torch.pipeline.mpegts import MpegTsReceiver, MpegTsSender
+
+        port = int(str(args.ports).split(":")[0])
+        try:
+            if args.capture and args.host:
+                s = MpegTsSender(args.capture, args.host, port, frame_limit=args.frames,
+                                 capture_filter=args.capture_filter, device=args.device)
+                print(f"sent {s.run()} frames (mpegts)")
+                return 0
+            if args.display:
+                r = MpegTsReceiver(args.display, port, frame_limit=args.frames, device=args.device)
+                print(f"displayed {r.run()} frames (mpegts)")
+                return 0
+        except ValueError as e:
+            print(f"mpegts: {e}", file=sys.stderr)
+            return 1
     if args.protocol == "ihdtv":
         # legacy dual-stream raw v210 transport (ref: src/rxtx/ihdtv.cpp)
         from ultragrid_tpu_torch.pipeline.ihdtv import run_ihdtv_receiver, run_ihdtv_sender

@@ -8,18 +8,22 @@ frame uploaded once to the capture's device (the card unless the caller
 names another); Y4M carries I420, which the ``y4m`` display makes from UYVY
 on the frame's device (``ops/planar.py``) and copies to the host once.
 ``swmix`` converts, scales and composites its inputs on its device.  A file
-that is neither raw (``file:PATH:WxH:FPS:CODEC``) nor Y4M needs
-libavformat, which the reference reaches through ``modules/lavc.py``'s
-shim: not in the port yet, and refused with an error that names it.
+that is neither raw (``file:PATH:WxH:FPS:CODEC``) nor Y4M is any container
+that libavformat reads (ref: video_capture/file.c is libavformat-based for
+exactly this), through the shim of ``modules/lavc.py``: decoded to UYVY on
+the host and uploaded once, as the other files are; without libavcodec it
+is refused with an error that names it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import time
 
 import numpy as np
 import torch
 
+from ultragrid_tpu_torch import native
 from ultragrid_tpu_torch.modules.registry import LibraryClass, register_module
 from ultragrid_tpu_torch.modules.video_capture import VideoCapture, initialize_video_capture
 from ultragrid_tpu_torch.modules.video_display import VideoDisplay, initialize_video_display
@@ -45,6 +49,7 @@ class RawFileCapture(VideoCapture):
         super().__init__(cfg, device)
         parts = cfg.split(":")
         self.path = parts[0]
+        self._lavf = None
         self._fh = open(self.path, "rb")
         magic = self._fh.read(9)
         self._fh.seek(0)
@@ -56,12 +61,26 @@ class RawFileCapture(VideoCapture):
             self._y4m = False
         else:
             self._fh.close()
-            raise ValueError(f"cannot read {self.path!r}: a container file needs libavformat "
-                             "(ultragrid_tpu/modules/lavc.py), not in the port yet; give "
-                             "file:PATH:WxH:FPS:CODEC for raw frames, or a Y4M file")
+            self._fh = None
+            self._init_lavf()
         self.count = 0
         self.start = None
         self.loop = "loop" in parts
+
+    def _init_lavf(self) -> None:
+        if not native.lavc_headers_present():
+            raise ValueError(f"cannot read {self.path!r}: a container file needs libavformat, and libavcodec's "
+                             "FFmpeg headers are absent; give file:PATH:WxH:FPS:CODEC for raw frames, or a Y4M file")
+        lib = native.lavc_shim_lib()
+        h = lib.lavf_open(self.path.encode())
+        if not h:
+            raise ValueError(f"libavformat cannot open {self.path!r}")
+        w, hh, fps = ctypes.c_int(), ctypes.c_int(), ctypes.c_double()
+        lib.lavf_info(h, ctypes.byref(w), ctypes.byref(hh), ctypes.byref(fps))
+        self._lavf = (lib, h)
+        self._y4m = False
+        self.desc = VideoDesc(w.value, hh.value, Codec.UYVY, fps.value or 30.0)
+        self._lavf_buf = np.empty(w.value * hh.value * 2, np.uint8)
 
     def _init_y4m(self) -> None:
         header = b""
@@ -87,6 +106,16 @@ class RawFileCapture(VideoCapture):
         deadline = self.start + self.count / self.desc.fps
         if now < deadline:
             time.sleep(deadline - now)
+        if self._lavf is not None:
+            lib, h = self._lavf
+            n = lib.lavf_read_frame(h, 0, self._lavf_buf.ctypes.data, self._lavf_buf.size)
+            if n <= 0:
+                return self._eof()
+            self.count += 1
+            data = torch.from_numpy(self._lavf_buf[:n].reshape(self.desc.height, self.desc.width * 2))
+            frame = VideoFrame(self.desc, [data.to(self.device, copy=True)])
+            frame.timestamp = now
+            return frame, None
         if self._y4m:
             line = b""
             while not line.endswith(b"\n"):
@@ -112,6 +141,10 @@ class RawFileCapture(VideoCapture):
 
     def _eof(self):
         if self.loop:
+            if self._lavf is not None:
+                lib, h = self._lavf
+                lib.lavf_seek_start(h)
+                return self.grab()
             self._fh.seek(0)
             if self._y4m:
                 self._init_y4m()
@@ -119,7 +152,12 @@ class RawFileCapture(VideoCapture):
         return None, None
 
     def done(self) -> None:
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()
+        if self._lavf is not None:
+            lib, h = self._lavf
+            lib.lavf_close(h)
+            self._lavf = None
 
 
 class Y4mDisplay(VideoDisplay):

@@ -13,10 +13,11 @@ sender emits in standards mode, and what an IP camera sends.  Frames are
 decoded to raw pixels on the capture's device by default, through
 ``decompress_init``: JPEG by ``JpegDecompress`` (host scan decode, the rest
 on the card), H.264 by ``OwnH264Decompress`` first, as the reference's
-``decompress_init`` orders it.  A stream outside the own decoder's envelope
-decodes to None with its error naming libavcodec; an output no port module
-gives (H.264 to RGB) passes the compressed frames through with an error,
-as the reference does where no decompressor is found.  ``decompress=no``
+``decompress_init`` orders it; a stream outside the own decoder's envelope,
+and H.264 to RGB, go to libavcodec where it is present.  Where no module
+gives the output, the compressed frames pass through with an error, as in
+the reference.  The RTP socket asks for the session's receive buffer
+(``RECV_BUF``), so that datagrams wait while the rx thread decodes.  ``decompress=no``
 passes the compressed frames through.  The rx thread decodes, so it enters
 the capture's stream (the stream current where the capture was built).
 """
@@ -46,16 +47,32 @@ from ultragrid_tpu_torch.utils.log import Logger
 log = Logger("vidcap.rtsp")
 
 
+# the receive buffer the port's RtpSession asks for (net/rtp.py; ref:
+# doc/PERFORMANCE-TUNING.md:18-22): the rx thread decodes between reads, and
+# a 1080p JPEG frame is about 30 datagrams, an H.264 IDR 145
+RECV_BUF = 4 * 1024 * 1024
+
+
+def _rtp_socket() -> socket.socket:
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, RECV_BUF)
+    except OSError:
+        pass
+    return s
+
+
 def _bind_even_udp() -> Tuple[socket.socket, int]:
-    """Bind a UDP socket on an even ephemeral port (RTP convention)."""
+    """Bind a UDP socket on an even ephemeral port (RTP convention), with
+    the session's receive buffer."""
     for _ in range(64):
-        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        s = _rtp_socket()
         s.bind(("", 0))
         port = s.getsockname()[1]
         if port % 2 == 0:
             return s, port
         even = port - 1 if port % 2 else port
-        s2 = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        s2 = _rtp_socket()
         try:
             s2.bind(("", even))
             s.close()
@@ -194,9 +211,8 @@ class RtspCapture(VideoCapture):
         if self._decomp is None:
             self._decomp, self._out_codec = decompress_init(self._codec, [out_codec], self.device)
             if self._decomp is None:
-                log.error(f"no decompressor for {self._codec.name} -> {out_codec.name} in the port "
-                          "(libavcodec, which the reference may pick, is not ported); passing the "
-                          "compressed frames through")
+                log.error(f"no decompressor for {self._codec.name} -> {out_codec.name} (libavcodec absent); "
+                          "passing the compressed frames through")
                 self.decompress = "no"
                 return frame
         try:

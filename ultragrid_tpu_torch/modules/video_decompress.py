@@ -9,6 +9,9 @@ Counterparts of ``VideoDecompress``, ``DxtDecompress``, ``I420Decompress``,
 the port's registry under the reference's names, and ``decompress_init``
 (reference lines 423-443).  Each runs on ``device``, the card unless the
 caller names another; the output frame's data is a uint8 tensor there.
+Where libavcodec is present, ``modules/lavc.py``'s decoder comes last in the
+probe order and takes the streams the own decoders leave out, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ultragrid_tpu_torch import native
 from ultragrid_tpu_torch.device import get_device, on_device
 from ultragrid_tpu_torch.modules.registry import LibraryClass, register_module
 from ultragrid_tpu_torch.ops import dxt as dxt_ops
@@ -39,8 +43,16 @@ from ultragrid_tpu_torch.utils.params import add_to_param, get_commandline_param
 log = Logger("decompress")
 
 add_to_param("h264-decoder",
-             "H.264 decode path: own (default; the C entropy + reconstruction "
-             "stage) | python (the Python decoder); lavc is not ported")
+             "H.264 decode path: own (default; C entropy+recon, lavc "
+             "fallback out of envelope) | lavc | python")
+
+
+def _lavc_decompress(device):
+    """libavcodec's decoder on ``device``, or None where libavcodec is absent
+    (modules/lavc.py imports this module, so it is imported here)."""
+    from ultragrid_tpu_torch.modules.lavc import LavcDecompress
+
+    return LavcDecompress(device) if native.lavc_headers_present() else None
 
 
 def stream_bytes(data) -> bytes:
@@ -142,38 +154,82 @@ class OwnH264Decompress(VideoDecompress):
     (``ops/h264_dec.py``).  Each decoded picture crosses to the module's
     device once, as I420 (1.5 bytes a pixel), and becomes UYVY there.
 
-    The reference hands a stream outside the decoder's envelope
-    (interlace, scaling lists, temporal direct) to libavcodec; the port has
-    no libavcodec, so such a frame decodes to None with an error, which is
-    what the reference does where libavcodec is absent.
+    A stream outside the decoder's envelope (interlace, scaling lists,
+    temporal direct) is handed to libavcodec for good, with the GOP so far
+    replayed into it (reference lines 158-184); ``--param
+    h264-decoder=lavc`` hands it over from the first frame.  Where
+    libavcodec is absent such a frame decodes to None with an error, as in
+    the reference.
     """
 
     SUPPORTS = [(Codec.H264, Codec.UYVY)]
 
+    GOP_CACHE_CAP = 512  # AUs kept since the last IDR for the lavc takeover
+
     def __init__(self, device="cuda"):
         super().__init__(device)
-        mode = get_commandline_param("h264-decoder")
-        if mode == "lavc":
-            raise NotImplementedError("--param h264-decoder=lavc needs libavcodec (ref "
-                                      "ultragrid_tpu/modules/lavc.py), which is not ported")
         self._stream = None
+        self._delegate = None  # lavc takes over after UnsupportedStream
+        self._gop_cache: List[bytes] = []  # raw AUs since the last IDR
+
+    @staticmethod
+    def _has_idr(au: bytes) -> bool:
+        """Whether an Annex B access unit holds an IDR slice (NAL type 5);
+        emulation prevention keeps 00 00 01 out of NAL payloads."""
+        i = au.find(b"\x00\x00\x01")
+        while 0 <= i < len(au) - 3:
+            if au[i + 3] & 0x1F == 5:
+                return True
+            i = au.find(b"\x00\x00\x01", i + 3)
+        return False
+
+    def _cache_au(self, au: bytes) -> None:
+        if not native.lavc_headers_present():
+            return  # no libavcodec to hand the GOP to
+        if self._has_idr(au):
+            self._gop_cache = []
+        if len(self._gop_cache) < self.GOP_CACHE_CAP:
+            self._gop_cache.append(au)
+
+    def _lavc_takeover(self, frame: VideoFrame, out_codec: Codec, why) -> Optional[VideoFrame]:
+        self._delegate = _lavc_decompress(self.device)
+        if self._delegate is None:
+            log.error(f"own H.264 decoder: stream out of envelope ({why}); libavcodec, which "
+                      "takes such streams over, is absent")
+            return None
+        log.notice(f"own H.264 decoder: stream out of envelope ({why}); libavcodec takes over")
+        # replay the GOP so far (SPS/PPS and the IDR the own decoder consumed)
+        # so that lavc has the references; return the freshest output
+        out = None
+        for au in self._gop_cache:
+            vf = VideoFrame(frame.desc, [np.frombuffer(au, np.uint8)], frame.timestamp)
+            got = self._delegate.decompress(vf, out_codec)
+            if got is not None:
+                out = got
+        self._gop_cache = []
+        return out
 
     def decompress(self, frame: VideoFrame, out_codec: Codec) -> Optional[VideoFrame]:
         if out_codec != Codec.UYVY:
             return None
+        if self._delegate is not None:
+            return self._delegate.decompress(frame, out_codec)
+        au = stream_bytes(frame.data)
         if self._stream is None:
+            if get_commandline_param("h264-decoder") == "lavc":
+                self._gop_cache = [au]
+                return self._lavc_takeover(frame, out_codec, "forced by --param")
             try:
                 if get_commandline_param("h264-decoder") == "python":
                     raise UnsupportedStream("forced python decoder")
                 self._stream = FastStreamDecoder()
             except UnsupportedStream:
                 self._stream = StreamDecoder()
+        self._cache_au(au)
         try:
-            got = self._stream.decode_au(stream_bytes(frame.data))
+            got = self._stream.decode_au(au)
         except (UnsupportedStream, IndexError, KeyError) as exc:
-            log.error(f"own H.264 decoder: stream out of envelope ({exc}); libavcodec, which "
-                      "the reference hands it to, is not ported")
-            return None
+            return self._lavc_takeover(frame, out_codec, exc)
         if got is None:
             return None  # B-stream display reorder still priming
         y, cb, cr = got
@@ -257,15 +313,16 @@ class CineformDecompress(VideoDecompress):
     interleave run on the module's device); UCF1 through ``ops/cineform.py``
     (the inverse wavelet on the device).
 
-    The reference hands a stream that neither parses to libavcodec's cfhd
-    decoder; the port has no libavcodec, so such a frame decodes to None
-    with an error, as the reference does where libavcodec is absent."""
+    A stream that neither parses goes to libavcodec's cfhd decoder; where
+    libavcodec is absent it decodes to None with an error, as in the
+    reference."""
 
     SUPPORTS = [(Codec.CFHD, Codec.UYVY)]
 
     def __init__(self, device="cuda"):
         super().__init__(device)
         self.codec = CineformCodec(device=self.device)
+        self._lavc = None
 
     def decompress(self, frame: VideoFrame, out_codec: Codec) -> Optional[VideoFrame]:
         if out_codec != Codec.UYVY:
@@ -281,9 +338,13 @@ class CineformDecompress(VideoDecompress):
         else:
             why = "no complete Y, U and V channels"
         if planes is None:
-            log.error(f"cineform: a CFHD stream the own decoder cannot parse ({why}); libavcodec, which the "
-                      "reference hands it to, is not ported")
-            return None
+            if self._lavc is None:
+                self._lavc = _lavc_decompress(self.device)
+            if self._lavc is None:
+                log.error(f"cineform: a CFHD stream the own decoder cannot parse ({why}) and no libavcodec")
+                return None
+            log.notice(f"cineform: a CFHD stream the own decoder cannot parse ({why}); libavcodec takes it")
+            return self._lavc.decompress(frame, out_codec)
         return self._out(frame, Codec.UYVY, cfhd_uyvy(planes, self.device))
 
 
@@ -335,16 +396,20 @@ _ALL = [OwnH264Decompress, DxtDecompress, I420Decompress, JpegDecompress, JpegTo
 def decompress_init(in_codec: Codec, out_candidates: List[Codec], device="cuda"):
     """Pick a decompressor and its output codec (ref:
     src/video_decompress.c selection by priority): the first output
-    candidate that a port module supports.  Returns (module on ``device``,
-    out codec), or (None, None) when no candidate fits.  A stream that only
-    libavcodec reads in the reference is refused by name: nothing stands in
+    candidate that a module supports, libavcodec's decoder last in the probe
+    order where it is present.  Returns (module on ``device``, out codec),
+    or (None, None) when no candidate fits.  A stream that only libavcodec
+    reads is refused by name where libavcodec is absent: nothing stands in
     for it."""
+    from ultragrid_tpu_torch.modules.lavc import LavcDecompress, lavc_available
+
+    classes = _ALL + [LavcDecompress] if lavc_available() else _ALL
     for out_codec in out_candidates:
-        for cls in _ALL:
+        for cls in classes:
             if (in_codec, out_codec) in cls.SUPPORTS:
                 return cls(device), out_codec
-    if get_codec_info(in_codec).opaque and not any(in_codec == c for cls in _ALL for c, _ in cls.SUPPORTS):
-        raise NotImplementedError(
-            f"no decompressor for {in_codec.name} in the port: it needs libavcodec (ref LavcDecompress), "
-            "which is not ported yet (ROADMAP queue 1)")
+    if (not lavc_available() and get_codec_info(in_codec).opaque
+            and not any(in_codec == c for cls in _ALL for c, _ in cls.SUPPORTS)):
+        raise NotImplementedError(f"no decompressor for {in_codec.name}: it needs libavcodec (LavcDecompress), "
+                                  "whose FFmpeg headers are absent")
     return None, None

@@ -12,7 +12,11 @@ and ``native/j2k_t1.c`` (the JPEG 2000 Tier-1 block coder) are plain C
 shared with the JAX package.  ``cc`` builds
 each into ``build/`` (gitignored) under a content hash of the source and the
 flags; a failed build raises, since the port has no Python fallback for any
-of them.
+of them.  The libavcodec shim is the port's own copy,
+``ultragrid_tpu_torch/csrc/lavc_shim.c`` (the reference's
+``native/lavc_shim.c`` with its decoder fault F1 repaired); where the
+FFmpeg headers are absent the lavc modules are unavailable, as in the
+reference, and where they are present a failed build raises.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from functools import lru_cache
 from ultragrid_tpu_torch._build import BUILD_DIR
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
+_CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _CFLAGS = ["-O3", "-fPIC", "-shared"]
 
 _P = ctypes.c_void_p
@@ -34,8 +39,8 @@ _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
 
 
-def _build(name: str, link_flags=()) -> str:
-    src = os.path.join(_NATIVE_DIR, name + ".c")
+def _build(name: str, link_flags=(), src_dir: str = _NATIVE_DIR) -> str:
+    src = os.path.join(src_dir, name + ".c")
     h = hashlib.sha256()
     with open(src, "rb") as f:
         h.update(f.read())
@@ -183,4 +188,83 @@ def j2k_t1_lib() -> ctypes.CDLL:
     # data, length, width, height, orientation, numbps, npasses, out, state
     lib.j2k_t1_decode_cblk.argtypes = [_P, ctypes.c_long, ctypes.c_int, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P]
+    return lib
+
+
+_LAVC_LIBS = ["-lavcodec", "-lavformat", "-lavutil", "-lswscale"]
+_LAVC_HEADERS = ("libavcodec/avcodec.h", "libavformat/avformat.h", "libswscale/swscale.h")
+
+
+@lru_cache(maxsize=None)
+def lavc_headers_present() -> bool:
+    """Whether ``cc`` finds the FFmpeg headers the shim includes."""
+    code = "".join(f"#include <{h}>\n" for h in _LAVC_HEADERS)
+    try:
+        res = subprocess.run(["cc", "-E", "-x", "c", "-o", os.devnull, "-"], input=code,
+                             capture_output=True, text=True)
+    except FileNotFoundError:
+        return False
+    return res.returncode == 0
+
+
+@lru_cache(maxsize=None)
+def lavc_shim_lib() -> ctypes.CDLL:
+    """libavcodec / libavformat / libswscale shim (reference loader
+    ``native.py:137``, the same argtypes, and ``lavc_dec_flush``).  Raises
+    where the FFmpeg headers are absent or the build fails."""
+    if not lavc_headers_present():
+        raise RuntimeError("libavcodec is not available: cc finds no FFmpeg headers ("
+                           + ", ".join(_LAVC_HEADERS) + ")")
+    lib = ctypes.CDLL(_build("lavc_shim", _LAVC_LIBS, _CSRC_DIR))
+    lib.lavc_version.restype = ctypes.c_int
+    lib.lavc_have.restype = ctypes.c_int
+    lib.lavc_have.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    lib.lavc_list.restype = ctypes.c_long
+    lib.lavc_list.argtypes = [ctypes.c_int, _P, ctypes.c_long]
+    lib.lavc_enc_open.restype = _P
+    # codec name, width, height, input format, fps, bitrate, options
+    lib.lavc_enc_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_long, ctypes.c_char_p]
+    lib.lavc_enc_frame.restype = ctypes.c_long
+    # handle, data, linesize, force a keyframe, out, capacity, &keyframe
+    lib.lavc_enc_frame.argtypes = [_P, _P, ctypes.c_long, ctypes.c_int, _P, ctypes.c_long, _P]
+    lib.lavc_enc_close.argtypes = [_P]
+    lib.lavc_enc_extradata.restype = ctypes.c_long
+    lib.lavc_enc_extradata.argtypes = [_P, _P, ctypes.c_long]
+    lib.lavc_dec_open.restype = _P
+    lib.lavc_dec_open.argtypes = [ctypes.c_char_p]
+    lib.lavc_dec_open2.restype = _P
+    # codec name, extradata, its size, width, height
+    lib.lavc_dec_open2.argtypes = [ctypes.c_char_p, _P, ctypes.c_long, ctypes.c_int, ctypes.c_int]
+    lib.lavc_dec_packet.restype = ctypes.c_long
+    # handle, data, size, output format, out, capacity, (width, height)
+    lib.lavc_dec_packet.argtypes = [_P, _P, ctypes.c_long, ctypes.c_int, _P, ctypes.c_long, _P]
+    lib.lavc_dec_flush.restype = ctypes.c_long
+    lib.lavc_dec_flush.argtypes = [_P, ctypes.c_int, _P, ctypes.c_long, _P]
+    lib.lavc_dec_close.argtypes = [_P]
+    lib.lavc_aenc_open.restype = _P
+    lib.lavc_aenc_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_long, ctypes.c_char_p]
+    lib.lavc_aenc_frame_size.restype = ctypes.c_int
+    lib.lavc_aenc_frame_size.argtypes = [_P]
+    lib.lavc_aenc_encode.restype = ctypes.c_long
+    lib.lavc_aenc_encode.argtypes = [_P, _P, ctypes.c_int, _P, ctypes.c_long]
+    lib.lavc_adec_open.restype = _P
+    lib.lavc_adec_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
+    lib.lavc_adec_decode.restype = ctypes.c_long
+    lib.lavc_adec_decode.argtypes = [_P, _P, ctypes.c_long, _P, ctypes.c_long]
+    lib.lavc_acod_close.argtypes = [_P]
+    lib.lavf_open.restype = _P
+    lib.lavf_open.argtypes = [ctypes.c_char_p]
+    lib.lavf_info.argtypes = [_P, _P, _P, _P]
+    lib.lavf_read_frame.restype = ctypes.c_long
+    lib.lavf_read_frame.argtypes = [_P, ctypes.c_int, _P, ctypes.c_long]
+    lib.lavf_seek_start.argtypes = [_P]
+    lib.lavf_close.argtypes = [_P]
+    lib.lavf_mux_open.restype = _P
+    # url, codec id, width, height, fps, extradata, its size
+    lib.lavf_mux_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, _P, ctypes.c_long]
+    lib.lavf_mux_write.restype = ctypes.c_int
+    lib.lavf_mux_write.argtypes = [_P, _P, ctypes.c_long, ctypes.c_int]
+    lib.lavf_mux_close.argtypes = [_P]
     return lib

@@ -2,7 +2,7 @@
 reassembly and FEC jobs.
 
 Copies of the jax-free ``ultragrid_tpu/net/`` modules (video, audio, RTSP
-and the RFC 2435/6184 standards payloads; NAT is not ported yet),
+the RFC 2435/6184 standards payloads and NAT traversal),
 wire-compatible with the reference so the two interoperate on one network.
 Device work enters only through the port's ops (the LDGM peel on the card,
 ``--param ldgm-device=device``).
