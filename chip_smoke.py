@@ -167,7 +167,7 @@ def cuda_ms(fn, runs: int = TIMING_RUNS, warmup: int = 3) -> float:
     return start.elapsed_time(end) / runs
 
 
-def device_kernels(fn, runs: int = 20, attempts: int = 3, warmup: bool = True, expect: str = ""):
+def device_kernels(fn, runs: int = 20, attempts: int = 5, warmup: bool = True, expect: str = ""):
     """{kernel name: (launches per call, device ms per call)} of fn() from
     torch.profiler's device-side events, after one warm-up call (unless
     ``warmup`` is False).  The profiler may drop events of some calls
@@ -4013,8 +4013,11 @@ def main() -> int:
         par, _ = sess256.peel_parity(words.shape[1], dev)
         b, ops = k2_peel_work(par)
         bms, by = bound_ms(b, ops)
-        ks = device_kernels(lambda: par(words))
-        variant, (count, dms) = next((n, v) for n, v in ks.items() if "gf2_parity_kernel" in n)
+        ks = device_kernels(lambda: par(words), expect="gf2_parity_kernel")
+        hits = [(n, v) for n, v in ks.items() if "gf2_parity_kernel" in n]
+        if not hits:
+            raise RuntimeError(f"profiler saw no gf2_parity_kernel kernel (saw {sorted(ks)})")
+        variant, (count, dms) = hits[0]
         dms /= count
         peel_t[label] = {"ms": cuda_ms(lambda: par(words)), "device_ms": dms, "kernel": variant[:48],
                          "plain_ms": cuda_ms(lambda: par.plain(words), runs=PLAIN_RUNS, warmup=1),

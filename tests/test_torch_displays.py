@@ -33,6 +33,7 @@ from ultragrid_tpu.modules.x11_display import X11Display as RefX11Display  # noq
 from ultragrid_tpu.modules.x11_display import rgb_to_zpixmap as ref_zpixmap  # noqa: E402
 from ultragrid_tpu.ops import color as ref_color  # noqa: E402
 from ultragrid_tpu.ops import dxt as ref_dxt  # noqa: E402
+from ultragrid_tpu.ops import jpeg as ref_jpeg  # noqa: E402
 from ultragrid_tpu.ops.jpeg import decode_jpeg_to_frame as ref_decode_jpeg  # noqa: E402
 from ultragrid_tpu.types import Codec as RefCodec  # noqa: E402
 from ultragrid_tpu.types import VideoDesc as RefDesc  # noqa: E402
@@ -513,12 +514,16 @@ def test_drm_probe_failure_message(monkeypatch):
 
 
 @pytest.mark.parametrize("display", ["x11", "gl"])
-def test_jpeg_ldgm_session_with_loss_into_a_windowed_display(display, tmp_path, request):
+def test_jpeg_ldgm_session_with_loss_into_a_windowed_display(display, tmp_path, request, monkeypatch):
     """sender -> 127.0.0.1 -> receiver, JPEG q80 + LDGM with one seeded data
     packet dropped a frame (the peel on tensors), into ``-d x11`` against the
     mock server or ``-d gl``: every shown image equals the reference's x11 /
     gl rendering of the reference's decode of the file sent for that
-    frame."""
+    frame.  The reference's module-level decoder caches its planes product
+    under table ids, not values (ROADMAP F3), so a stream of another quality
+    decoded earlier in the process would change its decode: it gets a fresh
+    one here."""
+    monkeypatch.setattr(ref_jpeg, "_DEVICE_DECODER", None)
     if display == "gl":
         request.getfixturevalue("gl_caps")
     w, h, n, k, m = 128, 64, 4, 32, 16

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 from ultragrid_tpu.modules import video_compress as ref_vc  # noqa: E402
 from ultragrid_tpu.modules import video_decompress as ref_vd  # noqa: E402
 from ultragrid_tpu.ops import dxt as ref_dxt  # noqa: E402
+from ultragrid_tpu.ops import jpeg as ref_jpeg  # noqa: E402
 from ultragrid_tpu.ops.jpeg import JpegEncoder as RefJpegEncoder  # noqa: E402
 from ultragrid_tpu.ops.planar import uyvy_to_i420  # noqa: E402
 from ultragrid_tpu.types import Codec, VideoDesc, VideoFrame  # noqa: E402
@@ -125,8 +126,13 @@ def test_dxt_decompress_module_matches_reference(variant):
 
 
 @pytest.mark.parametrize("out", [Codec.DXT1, Codec.DXT5])
-def test_jpeg_to_dxt_matches_reference(out):
-    """JPEG -> DXT on the device, as tests/test_compress.py drives it."""
+def test_jpeg_to_dxt_matches_reference(out, monkeypatch):
+    """JPEG -> DXT on the device, as tests/test_compress.py drives it.  The
+    reference's module-level JPEG decoder caches its planes product under
+    table ids, not values (ROADMAP F3), so it gets a fresh one here: a
+    stream of another quality decoded earlier in the process would change
+    its decode."""
+    monkeypatch.setattr(ref_jpeg, "_DEVICE_DECODER", None)
     w, h = 128, 64
     uyvy = content(h, 2 * w, 13)
     jpeg = RefJpegEncoder(w, h, quality=90).encode(uyvy)
