@@ -3,9 +3,13 @@
 the JPEG front end's summation order moves coefficients.
 
     python3 chip_profile.py [--out DIR]   # repository root; one CUDA card
+    python3 chip_profile.py --per-plane [--root DIR]
 
 Two phases, each printing one JSON line; with ``--out`` the full profiler
-tables are written to DIR as text.
+tables are written to DIR as text.  ``--per-plane`` runs phase ``per_plane``
+alone; ``--root DIR`` imports ``ultragrid_tpu_torch`` from the checkout in
+DIR (a parent commit unpacked with ``git archive``), so that one call can
+time a parent and a change in turns.
 
 - ``profile``: the port's ``EncodePipeline`` (UYVY -> JPEG q80 -> LDGM
   256:26:5) at 1920x1080 and 7680x2160.  For each: CUDA events over 100
@@ -20,6 +24,10 @@ tables are written to DIR as text.
   ``torch.matmul`` on the host CPU; float64 on the card).  For each way: the
   coefficients that differ from the chain's, and the blocks whose symbols
   differ from K1's output.
+- ``per_plane``: the JPEG geometries without a mega matrix
+  (``chip_smoke.PLANE_CASES``: 4:4:4 from UYVY/YUYV and 4:2:2 from RGB/RGBA
+  at 1920x1080, 4:4:4 from UYVY at 3840x2160), frame bytes in -> slots out
+  (``JpegEncoder._encode``), measured as ``profile`` measures a step.
 
 Like ``chip_smoke.py`` it imports nothing of JAX or of the JAX package; it
 exits non-zero without a card.
@@ -35,7 +43,7 @@ import time
 import numpy as np
 import torch
 
-from chip_smoke import FEC, content, cuda_ms, differing_blocks, emit, nvidia_smi_line
+from chip_smoke import FEC, PLANE_CASES, content, cuda_ms, differing_blocks, emit, nvidia_smi_line
 
 STEPS = 50  # profiled steps per geometry
 
@@ -120,10 +128,15 @@ def sum_order(JpegEncoder, Codec, vc_get_linesize, dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="directory for the full profiler tables")
+    ap.add_argument("--per-plane", action="store_true", help="run phase per_plane alone")
+    ap.add_argument("--root", default=None, help="import ultragrid_tpu_torch from this checkout")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_profile: torch.cuda.is_available() is False; this needs a CUDA card", file=sys.stderr)
         return 1
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
+    import ultragrid_tpu_torch
     from ultragrid_tpu_torch import get_device
     from ultragrid_tpu_torch.models.encode import EncodeConfig, EncodePipeline
     from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
@@ -133,6 +146,16 @@ def main() -> int:
     smi = nvidia_smi_line()
     if args.out:
         os.makedirs(args.out, exist_ok=True)
+    if args.per_plane:
+        rows = []
+        for w, h, cname, sub, q in PLANE_CASES:
+            enc = JpegEncoder(w, h, in_codec=Codec[cname], quality=q, subsampling=sub)
+            frame = torch.as_tensor(content(h, vc_get_linesize(w, enc.in_codec), 8)).to(dev)
+            rows.append(profile_step(f"{w}x{h}_{cname}_{sub}", enc._encode, frame, STEPS, args.out))
+        emit({"phase": "per_plane", "card": smi, "package": os.path.dirname(ultragrid_tpu_torch.__file__),
+              "steps": STEPS, "rows": rows})
+        print(smi, flush=True)
+        return 0
     rows = []
     for label, (w, h) in (("1080p", (1920, 1080)), ("8K_7680x2160", (7680, 2160))):
         pipe = EncodePipeline(VideoDesc(w, h, Codec.UYVY, 60.0), EncodeConfig(compress="jpeg", fec=FEC),

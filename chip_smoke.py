@@ -18,14 +18,14 @@ then the local loop, which runs no hand kernel: every postprocess function
 at 1080p and 4K, every filter name at 1080p, and ``run_local_pipeline``
 (4K60 testcard -> deinterlace:blend,mirror,border -> scale:1920x1080 ->
 display, 120 frames) with stitch and conference, each against the CPU plain
-path; K1's coefficient entry (the JPEG geometries without a mega matrix)
-against its plain version; the own H.264 encoders at 1080p on the card
+path; K1's per-plane entry (the JPEG geometries without a mega matrix,
+frame bytes in, slots out) against its plain version at 1080p and 4K; the own H.264 encoders at 1080p on the card
 against the same modules on the CPU (byte-equal access units, every decoded
 frame equal to the encoder's reference picture, the all-tie case) with their
 timing rows; then the live session through the port's entry
 points: sender -> 127.0.0.1 UDP -> receiver at 1080p60, JPEG + LDGM with
 seeded packet loss (the receiver's peel on the card) and uncompressed + LDGM,
-``--protocol loopback`` with JPEG 4:4:4, the H.264 inter + LDGM session with
+``--protocol loopback`` with JPEG 4:4:4 at 1080p and 4K60, the H.264 inter + LDGM session with
 seeded loss (every displayed frame equal to the sender's reference picture)
 and H.264 loopbacks, the wavelet and intra codecs (JPEG XS, CineForm CFHD
 and UCF1, APV, JPEG 2000: phase ``codecs``, card against CPU byte for byte
@@ -656,8 +656,10 @@ LIVE_FRAMES = 120
 LIVE_LOSS = 1  # data packets dropped per frame before the receiver, seeded (8 symbols at 1080p)
 LIVE_GRACE_S = 2.0  # how long the receiver may trail the sender's last frame
 # the JPEG geometries without a mega matrix (codec, subsampling, quality):
-# a PyTorch front end, then K1's coefficient entry
+# K1's per-plane entry
 P2_GEOMS = [("UYVY", "444", 80), ("YUYV", "444", 95), ("RGB", "422", 80), ("RGBA", "422", 90)]
+# where the per-plane entry is checked and timed: the four at 1080p, 4K UYVY 4:4:4
+PLANE_CASES = [(W1080, H1080, *g) for g in P2_GEOMS] + [(W4K, H4K, "UYVY", "444", 80)]
 
 
 def kernel_counts():
@@ -665,7 +667,7 @@ def kernel_counts():
     from ultragrid_tpu_torch.ops import fec as fec_ops
     from ultragrid_tpu_torch.ops import jpeg_cuda
 
-    return {"jpeg_encode": jpeg_cuda.LAUNCHES.count, "jpeg_pack_coeffs": jpeg_cuda.COEFF_LAUNCHES.count,
+    return {"jpeg_encode": jpeg_cuda.LAUNCHES.count, "jpeg_plane_encode": jpeg_cuda.PLANE_LAUNCHES.count,
             "gf2_parity": fec_ops.LAUNCHES.count}
 
 
@@ -675,7 +677,7 @@ def reset_kernel_counts():
     from ultragrid_tpu_torch.ops import jpeg_cuda
 
     torch.cuda.synchronize()
-    for c in (jpeg_cuda.LAUNCHES, jpeg_cuda.COEFF_LAUNCHES, fec_ops.LAUNCHES):
+    for c in (jpeg_cuda.LAUNCHES, jpeg_cuda.PLANE_LAUNCHES, fec_ops.LAUNCHES):
         c.reset()
 
 
@@ -878,12 +880,11 @@ def phase_live_session(dev):
     encode -> decode of its testcard frame, which equals the CPU plain path
     (<= 0.1% of bytes off by 1); 1080p60 uncompressed + LDGM; a profiled
     run for launches per frame; --protocol loopback with jpeg:80:0:444 (K1's
-    coefficient entry); jpeg rate control against its CPU quality sequence;
-    a 4K timing row."""
+    per-plane entry) at 1080p and 4K60; jpeg rate control against its CPU
+    quality sequence; a 4K timing row."""
     from ultragrid_tpu_torch.modules.video_capture import initialize_video_capture
     from ultragrid_tpu_torch.modules.video_compress import JpegCompress
     from ultragrid_tpu_torch.modules.video_decompress import JpegDecompress
-    from ultragrid_tpu_torch.ops import jpeg_cuda
     from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
     from ultragrid_tpu_torch.pipeline.loopback import LoopbackRxTx
     from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame
@@ -929,23 +930,25 @@ def phase_live_session(dev):
         raise RuntimeError(f"live session 1080p uncompressed: {raw_run}, {whole} of {len(kept_raw)} kept frames whole")
     raw_run.update(displayed_frames_checked=len(kept_raw), displayed_frames_whole=whole)
     out["none_ldgm_1080p"] = raw_run
-    # --protocol loopback with jpeg at 4:4:4: K1's coefficient entry
-    shown = []
-    lb = LoopbackRxTx(LIVE_CAPTURE, "dummy", compress_spec="jpeg:80:0:444", frame_limit=30, device=dev)
-    orig = lb.display.put_frame
-    lb.display.put_frame = lambda f, blocking=True: (shown.append(f is None or f.data.is_cuda), orig(f, blocking))
-    torch.cuda.synchronize()
-    jpeg_cuda.LAUNCHES.reset()
-    jpeg_cuda.COEFF_LAUNCHES.reset()
-    t0 = time.perf_counter()
-    n_lb = lb.run()
-    torch.cuda.synchronize()
-    lb_s = time.perf_counter() - t0
-    lb_launches = {"jpeg_pack_coeffs": jpeg_cuda.COEFF_LAUNCHES.count, "jpeg_encode": jpeg_cuda.LAUNCHES.count}
-    if n_lb != 30 or not all(shown) or lb_launches["jpeg_pack_coeffs"] < 30:
-        raise RuntimeError(f"loopback jpeg:80:0:444: {n_lb} shown, launches {lb_launches}")
-    out["loopback_jpeg_444"] = {"frames_shown": n_lb, "frames_per_s": n_lb / lb_s, "all_on_card": True,
-                                "launches": lb_launches}
+    # --protocol loopback with jpeg at 4:4:4: K1's per-plane entry, 1080p60
+    # and a 4K60 camera
+    for key, capture, nframes in (("loopback_jpeg_444", LIVE_CAPTURE, 30),
+                                  ("loopback_jpeg_444_4k60", LIVE_CAPTURE_4K, 60)):
+        shown = []
+        lb = LoopbackRxTx(capture, "dummy", compress_spec="jpeg:80:0:444", frame_limit=nframes, device=dev)
+        orig = lb.display.put_frame
+        lb.display.put_frame = lambda f, blocking=True, orig=orig: (shown.append(f is None or f.data.is_cuda),
+                                                                    orig(f, blocking))
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        n_lb = lb.run()
+        torch.cuda.synchronize()
+        lb_s = time.perf_counter() - t0
+        lb_launches = kernel_counts()
+        if n_lb != nframes or not all(shown) or lb_launches["jpeg_plane_encode"] < nframes:
+            raise RuntimeError(f"loopback jpeg:80:0:444 {capture}: {n_lb} of {nframes} shown, launches {lb_launches}")
+        out[key] = {"capture": capture, "frames": nframes, "frames_shown": n_lb, "frames_per_s": n_lb / lb_s,
+                    "seconds": lb_s, "all_on_card": True, "launches": lb_launches}
     out.update(h264_live_rows(dev))
     out.update(codec_live_rows(dev))
     # jpeg rate control on the card against the CPU's quality sequence
@@ -3412,32 +3415,47 @@ def phase_remaining(dev):
     return out
 
 
-def coeff_entry_timing(dev):
-    """K1's coefficient entry at 1080p UYVY 4:4:4 q80: CUDA events, profiler
-    device time, its plain version (symbols and pack on the card), and its
-    bound: the coefficients read once, the slots and bit counts written
-    once (integer work; the bytes bound it)."""
-    from ultragrid_tpu_torch.ops import jpeg_cuda
+def plane_work(enc):
+    """(bytes, FLOP) that one call of K1's per-plane entry over enc's frame
+    needs: each frame byte of the MCUs, W, const and the Huffman tables read
+    once, the slots and bit counts written once; two FLOP per multiply-add
+    of the dense front end (64 x 64 per 8x8 block)."""
+    tables = 4 * (64 * 128 + 128 + 544)
+    nbytes = enc.height * enc.nmcux * enc.bpr + tables + enc.nblocks * (enc.wwords + 1) * 4 + 1
+    return nbytes, 2 * enc.nblocks * 64 * 64
+
+
+def plane_entry_timing(dev):
+    """K1's per-plane entry in PLANE_CASES: the whole per-plane path, frame
+    bytes in -> slots out (``JpegEncoder._encode``), by CUDA events, its
+    launches and device time per frame and the kernel's device time by the
+    profiler, its plain version (the PyTorch front end, then symbols and
+    pack, on the card), and its bound (FP32 FMAs)."""
     from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
-    from ultragrid_tpu_torch.types import Codec
+    from ultragrid_tpu_torch.types import Codec, vc_get_linesize
 
-    enc = JpegEncoder(W1080, H1080, in_codec=Codec.UYVY, subsampling="444")
-    src = torch.as_tensor(content(H1080, 2 * W1080, 8)).to(dev)
-    q = enc.plane_coefficients(src)
-    q32 = q.to(torch.int32)
-    huff = enc.tables(dev)["huff"]
+    rows = []
+    for w, h, cname, sub, q in PLANE_CASES:
+        enc = JpegEncoder(w, h, in_codec=Codec[cname], quality=q, subsampling=sub)
+        src = torch.as_tensor(content(h, vc_get_linesize(w, enc.in_codec), 8)).to(dev)
 
-    def run():
-        return jpeg_cuda.encode_coefficients(q32, huff, ny=enc.ky, restart_interval=enc.restart_interval,
-                                             wwords=enc.wwords)
+        def run(enc=enc, src=src):
+            return enc._encode(src)
 
-    nbytes = q32.numel() * 4 + huff.numel() * 4 + enc.nblocks * (enc.wwords + 1) * 4 + 1
-    bms, by = bound_ms(nbytes, 0)
-    dms = kernel_device_ms(run, "jpeg_pack_coeffs_kernel")
-    return {"ms": cuda_ms(run), "device_ms": dms, "plain_ms": cuda_ms(lambda: enc.symbols_and_pack(q, enc.wwords),
-                                                                   runs=PLAIN_RUNS, warmup=1),
-            "front_end_ms": cuda_ms(lambda: enc.plane_coefficients(src), runs=10),
-            "bound_ms": bms, "bound_by": by, "share_of_bound": bms / dms, "mbytes": nbytes / 1e6}
+        nbytes, flop = plane_work(enc)
+        bms, by = bound_ms(nbytes, flop)
+        ks = device_kernels(run, expect="jpeg_plane_encode_kernel")
+        launches, path_dms = per_step(ks, "jpeg_plane_encode_kernel")
+        count, kms = next(v for n, v in ks.items() if "jpeg_plane_encode_kernel" in n)
+        dms = kms / count
+        rows.append({"what": f"K1 per-plane entry (jpeg_plane_encode) {w}x{h} {cname} q{q} {sub}",
+                     "ms": cuda_ms(run), "device_ms": dms, "path_device_ms": path_dms, "launches_per_frame": launches,
+                     "kernels": {n[:60]: list(v) for n, v in ks.items()},
+                     "plain_ms": cuda_ms(lambda: enc.encode_plain(src), runs=PLAIN_RUNS, warmup=1),
+                     "bound_ms": bms, "bound_by": by, "share_of_bound": bms / dms,
+                     "mbytes": nbytes / 1e6, "gflop": flop / 1e9})
+    return rows
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "ultragrid_tpu_torch")):
@@ -3553,31 +3571,47 @@ def main() -> int:
     file_p = enc_p.encode(fr.cpu())
     if enc_o.wwords != enc_p.wwords or not np.array_equal(file_k, file_p):
         raise RuntimeError("K1 escalation: file differs from the CPU plain path")
-    # the per-plane geometries: the PyTorch front end on the card equals the
-    # CPU's coefficients; K1's coefficient entry equals its plain version
-    # (symbols and pack, integer work: bit-equal); the files equal the CPU's
+    # the per-plane geometries: one launch of K1's per-plane entry (frame
+    # bytes in, slots out) equals its plain version on the card (the PyTorch
+    # front end, then symbols and pack) bit for bit, and the file equals the
+    # CPU's, at restart intervals 1, 7 and the default; the plain front end
+    # on the card equals the CPU's
     p2_cases = []
-    coeff_err = 0
-    for cname, sub, q in P2_GEOMS:
-        enc = JpegEncoder(W1080, H1080, in_codec=Codec[cname], quality=q, subsampling=sub)
-        fr = frame_for(enc, 21)
-        coeffs = enc.plane_coefficients(fr)
-        if not torch.equal(coeffs.cpu(), enc.plane_coefficients(fr.cpu())):
-            raise RuntimeError(f"per-plane front end {cname} {sub}: the card differs from the CPU")
-        got = jpeg_cuda.encode_coefficients(coeffs.to(torch.int32), enc.tables(dev)["huff"], ny=enc.ky,
-                                            restart_interval=enc.restart_interval, wwords=enc.wwords)
-        want = enc.symbols_and_pack(coeffs, enc.wwords)
-        err, nd = max_abs_err(got, want), differing_blocks(got, want)
-        coeff_err = max(coeff_err, err)
-        if err or nd:
-            raise RuntimeError(f"K1 coefficient entry {cname} {sub}: {nd} blocks differ from its plain version")
-        if not np.array_equal(enc.encode(fr), enc.encode(fr.cpu())):
-            raise RuntimeError(f"per-plane {cname} {sub}: the file differs from the CPU plain path")
-        p2_cases.append({"geometry": f"{W1080}x{H1080} {cname} q{q} {sub}", "front_end_equal_to_cpu": True,
-                         "differing_blocks": nd, "file_equal_to_cpu": True})
-    emit({"phase": "k1", "max_abs_err": k1_err, "cases": cases, "coefficient_entry_max_abs_err": coeff_err,
-          "coefficient_entry_cases": p2_cases,
-          "overflow_escalated_to_wwords": enc_o.wwords})
+    plane_err = 0
+    for w, h, cname, sub, q in PLANE_CASES:
+        for ri in (None, 1, 7):
+            enc = JpegEncoder(w, h, in_codec=Codec[cname], quality=q, restart_interval=ri, subsampling=sub)
+            label = f"{w}x{h} {cname} q{q} {sub} ri{enc.restart_interval}"
+            fr = frame_for(enc, 21)
+            if ri is None and not torch.equal(enc.plane_coefficients(fr).cpu(), enc.plane_coefficients(fr.cpu())):
+                raise RuntimeError(f"per-plane front end {label}: the card differs from the CPU")
+            before = jpeg_cuda.PLANE_LAUNCHES.count
+            got = enc._encode(fr)
+            if jpeg_cuda.PLANE_LAUNCHES.count != before + 1:
+                raise RuntimeError(f"K1 per-plane entry {label}: not one launch")
+            want = enc.encode_plain(fr)
+            err, nd = max_abs_err(got, want), differing_blocks(got, want)
+            plane_err = max(plane_err, err)
+            if err or nd:
+                raise RuntimeError(f"K1 per-plane entry {label}: {nd} blocks differ from its plain version")
+            if not np.array_equal(enc.encode(fr), enc.encode(fr.cpu())):
+                raise RuntimeError(f"per-plane {label}: the file differs from the CPU plain path")
+            p2_cases.append({"geometry": label, "bit_equal_to_plain": True, "differing_blocks": nd,
+                             "file_equal_to_cpu": True})
+    # overflow: 2-word slots cannot hold noise at q95; encode() escalates
+    enc_po = JpegEncoder(256, 64, in_codec=Codec.UYVY, quality=95, subsampling="444")
+    enc_po.wwords = 2
+    fr = frame_for(enc_po, 2, noise=True)
+    got, want = enc_po._encode(fr), enc_po.encode_plain(fr)
+    if not bool(got[-1]) or max_abs_err(got, want) or differing_blocks(got, want):
+        raise RuntimeError("K1 per-plane entry overflow case: not flagged, or differs from its plain version")
+    enc_pc = JpegEncoder(256, 64, in_codec=Codec.UYVY, quality=95, subsampling="444")
+    enc_pc.wwords = 2
+    if not np.array_equal(enc_po.encode(fr), enc_pc.encode(fr.cpu())) or enc_po.wwords != enc_pc.wwords:
+        raise RuntimeError("K1 per-plane entry escalation: file differs from the CPU plain path")
+    emit({"phase": "k1", "max_abs_err": k1_err, "cases": cases, "plane_entry_max_abs_err": plane_err,
+          "plane_entry_cases": p2_cases, "overflow_escalated_to_wwords": enc_o.wwords,
+          "plane_entry_overflow_escalated_to_wwords": enc_po.wwords})
 
     # ---- k2: parts -> parity -> staircase vs its plain version ----
     desc1080 = VideoDesc(W1080, H1080, Codec.UYVY, 60.0)
@@ -4085,8 +4119,8 @@ def main() -> int:
     for r in conv_t:
         r["idle_share"] = max(0.0, 1 - r["device_ms"] / r["host_ms"])
     rows_t += conv_t
-    coeff_t = coeff_entry_timing(dev)
-    rows_t.append({"what": "K1 coefficient entry (jpeg_pack_coeffs) 1080p UYVY q80 4:4:4", **coeff_t})
+    plane_t = plane_entry_timing(dev)
+    rows_t += plane_t
     emit({"phase": "timing", "card": smi, "rows": rows_t})
     # slice 10's phase, after the timing rows, so that they are taken as in
     # the earlier slices
@@ -4140,14 +4174,20 @@ def main() -> int:
          "at": "1920x1080 UYVY q80 4:2:2", "8k": k1_t["8K"],
          "tolerance": "bit-equal under dyadic W in every layout and restart interval; "
                       "real W <= 0.1% of blocks differing"},
-        {"name": "jpeg_pack_coeffs", "route": "cuda", "source": "ultragrid_tpu_torch/csrc/jpeg_encode.cu",
-         "replaces": "ultragrid_tpu/ops/jpeg_pallas.py:122",
-         "launches": live["loopback_jpeg_444"]["launches"]["jpeg_pack_coeffs"],
-         "launches_on": "--protocol loopback jpeg:80:0:444 1080p, 30 frames",
-         "max_abs_err": coeff_err, **{key: coeff_t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
-         "device_ms": coeff_t["device_ms"], "library_ms": None, "library": one_call,
-         "at": "1920x1080 UYVY q80 4:4:4 coefficients",
-         "tolerance": "bit-equal (integer symbols and pack)"},
+        {"name": "jpeg_plane_encode", "route": "cuda", "source": "ultragrid_tpu_torch/csrc/jpeg_encode.cu",
+         "replaces": "none: no Pallas kernel (ultragrid_tpu/ops/jpeg_pallas.py:55 supports() refuses these "
+                     "geometries); the reference's XLA per-plane stages, ultragrid_tpu/ops/jpeg.py:652-705, "
+                     "which raise for them (F4, repaired in the port)",
+         "launches": live["loopback_jpeg_444"]["launches"]["jpeg_plane_encode"],
+         "launches_on": "--protocol loopback jpeg:80:0:444 1080p, 30 frames; launches_4k60: the same from a "
+                        "4K60 camera, 60 frames",
+         "launches_4k60": live["loopback_jpeg_444_4k60"]["launches"]["jpeg_plane_encode"],
+         "max_abs_err": plane_err, **{key: plane_t[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "device_ms": plane_t[0]["device_ms"], "library_ms": None, "library": one_call,
+         "at": "1920x1080 UYVY q80 4:4:4, frame bytes in -> slots out",
+         "geometries": {r["what"]: {k: r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "share_of_bound")}
+                        for r in plane_t},
+         "tolerance": "bit-equal to the plain version in every per-plane geometry and restart interval"},
         {"name": "gf2_parity", "route": "cuda", "source": "ultragrid_tpu_torch/csrc/gf2_parity.cu",
          "replaces": "ultragrid_tpu/ops/fec.py:141", "launches": live_l["gf2_parity"],
          "launches_on": "live session 1080p jpeg + LDGM with loss (the receiver's peel); "

@@ -420,28 +420,56 @@ def test_loop_built_under_a_side_stream_runs_on_the_default_stream(cuda):
         assert g.data.is_cuda and torch.equal(g.data.cpu(), w.data)
 
 
-@pytest.mark.parametrize("w,h,codec,sub,q", [
-    (1920, 1080, Codec.UYVY, "444", 80), (1920, 1080, Codec.YUYV, "444", 95),
-    (1920, 1080, Codec.RGB, "422", 80), (1920, 1080, Codec.RGBA, "422", 90),
-    (96, 40, Codec.UYVY, "444", 80),
+@pytest.mark.parametrize("w,h,codec,sub,q,ri", [
+    (1920, 1080, Codec.UYVY, "444", 80, None), (1920, 1080, Codec.YUYV, "444", 95, None),
+    (1920, 1080, Codec.RGB, "422", 80, None), (1920, 1080, Codec.RGBA, "422", 90, None),
+    (96, 40, Codec.UYVY, "444", 80, None),
+    # restart intervals: every MCU, and a non-divisor of the MCU row, so that
+    # tiles of 16 MCUs start inside segments and recompute the DC before them
+    (1920, 1080, Codec.UYVY, "444", 80, 1), (1920, 1080, Codec.YUYV, "444", 95, 7),
+    (1920, 1080, Codec.RGB, "422", 80, 7), (1920, 1080, Codec.RGBA, "422", 90, 1),
 ])
-def test_k1_coefficient_entry_matches_plain(cuda, w, h, codec, sub, q):
-    """The P2 geometries: the front end on the card equals the CPU's, and
-    K1's coefficient entry equals its plain version (symbols and pack)."""
-    enc = JpegEncoder(w, h, in_codec=codec, quality=q, subsampling=sub)
+def test_k1_coefficient_entry_matches_plain(cuda, w, h, codec, sub, q, ri):
+    """The per-plane geometries: one launch of K1's per-plane entry (frame
+    bytes in, slots out) equals its plain version (the PyTorch front end,
+    then symbols and pack) bit for bit, whose front end on the card equals
+    the CPU's, and the file equals the CPU's."""
+    enc = JpegEncoder(w, h, in_codec=codec, quality=q, restart_interval=ri, subsampling=sub)
     assert enc.per_plane
     src = content(w, h, codec, 3)
     frame = torch.as_tensor(src).to(cuda)
-    coeffs = enc.plane_coefficients(frame)
-    assert torch.equal(coeffs.cpu(), enc.plane_coefficients(torch.as_tensor(src)))
-    before, fused = jpeg_cuda.COEFF_LAUNCHES.count, jpeg_cuda.LAUNCHES.count
+    assert torch.equal(enc.plane_coefficients(frame).cpu(), enc.plane_coefficients(torch.as_tensor(src)))
+    before, fused = jpeg_cuda.PLANE_LAUNCHES.count, jpeg_cuda.LAUNCHES.count
     got = enc._encode(frame)
-    assert jpeg_cuda.COEFF_LAUNCHES.count == before + 1 and jpeg_cuda.LAUNCHES.count == fused
+    assert jpeg_cuda.PLANE_LAUNCHES.count == before + 1 and jpeg_cuda.LAUNCHES.count == fused
     want = enc.encode_plain(frame)
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(a, b)
     assert np.array_equal(enc.encode(frame), enc.encode(torch.as_tensor(src)))
+
+
+@pytest.mark.parametrize("codec,sub", [(Codec.UYVY, "444"), (Codec.YUYV, "444"), (Codec.RGB, "422"),
+                                       (Codec.RGBA, "422")])
+def test_k1_per_plane_overflow_and_escalation(cuda, codec, sub):
+    """Slots of 2 words cannot hold noise at q95: the per-plane entry flags
+    the overflow with the plain version's truncated slots and full bit
+    counts, and encode() escalates to the CPU's file."""
+    w, h = 256, 64
+    frame_np = np.random.default_rng(4).integers(0, 256, (h, vc_get_linesize(w, codec)), dtype=np.uint8)
+    frame = torch.as_tensor(frame_np).to(cuda)
+    enc = JpegEncoder(w, h, in_codec=codec, quality=95, subsampling=sub)
+    enc.wwords = 2
+    got, want = enc._encode(frame), enc.encode_plain(frame)
+    assert bool(got[-1]) and bool(want[-1])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    before = jpeg_cuda.PLANE_LAUNCHES.count
+    file_gpu = enc.encode(frame)
+    assert jpeg_cuda.PLANE_LAUNCHES.count - before >= 2  # the 2-word launch and at least one wider
+    cpu = JpegEncoder(w, h, in_codec=codec, quality=95, subsampling=sub)
+    cpu.wwords = 2
+    assert np.array_equal(file_gpu, cpu.encode(frame_np, device="cpu")) and enc.wwords == cpu.wwords > 2
 
 
 def _free_port_pair():

@@ -180,7 +180,7 @@ sender.VideoSender("testcard:s=64x32:f=60:c=UYVY:still=1", "127.0.0.1", compress
                    tx_port=port, frame_limit=12, device="cpu").run()
 t.join(timeout=20)
 assert rx.frames_displayed >= 2 and rx.rx_state.fec_jobs >= 2, (rx.frames_displayed, rx.rx_state.fec_jobs)
-assert jpeg_cuda.LAUNCHES.count == 0 and jpeg_cuda.COEFF_LAUNCHES.count == 0 and fec.LAUNCHES.count == 0
+assert jpeg_cuda.LAUNCHES.count == 0 and jpeg_cuda.PLANE_LAUNCHES.count == 0 and fec.LAUNCHES.count == 0
 # the H.264 codec on the CPU: the device encoders, the compress module with
 # CABAC, the own decoder, and a loopback of the inter codec
 enc = h264_device.InterEncoderDevice(64, 32, gop=2, device="cpu")

@@ -114,10 +114,11 @@ def test_fixed_bitrate_reaches_jpeg_rate_control():
 # ---------------------------------------------------------------------------
 
 
-def _ref_per_plane_file(w, h, codec, sub, frame, quality=80):
+def _ref_per_plane_file(w, h, codec, sub, frame, quality=80, restart_interval=None):
     """The file of the reference's per-plane stages, with the chroma
     resampling they lack between ``_planes_from_input`` and the blocks."""
-    e = ref_jpeg.JpegEncoder(w, h, in_codec=RefCodec(int(codec)), quality=quality, subsampling=sub)
+    e = ref_jpeg.JpegEncoder(w, h, in_codec=RefCodec(int(codec)), quality=quality,
+                             restart_interval=restart_interval, subsampling=sub)
     assert e._mega is None
     ac_l, ac_c = ref_jpeg.pack_tables(*e._ac_l), ref_jpeg.pack_tables(*e._ac_c)
 

@@ -43,9 +43,10 @@ _SIGNATURES = {
     "ug_jpeg_encode": [_P, _L, _P, _I, _P, _I, _P, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _I, _P],
-    # q, huff, ys, ybits, us, ubits, vs, vbits, ovf, ny, nmcu,
-    # restart_interval, wwords, stream
-    "ug_jpeg_pack_coeffs": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # frame, linesize, w, const, huff, ys, ybits, us, ubits, vs, vbits, ovf,
+    # layout, nmcux, nmcu, restart_interval, wwords, stream
+    "ug_jpeg_plane_encode": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _P],
     # part pointers, part words per frame, part first rows (host arrays),
     # nparts, nframes, psw, row_ptr, cols, m, nnz, staircase, out, stream
     "ug_gf2_parity": [_P, _P, _P, _I, _I, _L, _P, _P, _I, _I, _I, _P, _P],

@@ -47,9 +47,9 @@
 // largest phase, and staging and gather, which do no FMAs, take a fifth.
 // Rounding is round-half-even (__float2int_rn), as torch.round/jnp.round.
 //
-// A second entry, ug_jpeg_pack_coeffs, runs the same symbols and pack on
-// coefficients computed outside the kernel (the geometries without a mega
-// matrix; see jpeg_pack_coeffs_kernel).
+// A second entry, ug_jpeg_plane_encode, runs the same pipeline in one launch
+// for the geometries without a mega matrix, from the frame's planes (see
+// jpeg_plane_encode_kernel).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -491,64 +491,268 @@ int launch(const uint8_t* f, long long linesize, const float* wc, int n_wc_rows,
     return (int)cudaGetLastError();
 }
 
-// K1's coefficient entry: the symbols and pack of quantised coefficients
-// that a front end outside the kernel computed (the per-plane geometries:
-// 4:4:4 from UYVY/YUYV, 4:2:2 from RGB/RGBA, whose front end is the
-// PyTorch chain of ops/jpeg.py::JpegEncoder.plane_coefficients).  q [nmcu]
-// [NC] int32, an MCU's blocks in stream order (luma, Cb, Cr).  Each CTA
-// walks tiles of MT MCUs: the tile's rows of q and the DC carry of the MCU
-// before it go to shared memory, then pack_tile as in the fused kernel.
-// What bounds it: the pack (the fused kernel's largest phase); q is read
-// once (1080p 4:4:4: 24.9 MB, 7.4 us at 3.35 TB/s).
-template <int NC, int NY>
-__global__ void __launch_bounds__(NC) jpeg_pack_coeffs_kernel(
-    const int32_t* __restrict__ q, const int32_t* __restrict__ huff,
+// K1's per-plane entry: the whole device JPEG encode of one frame in one
+// launch for the geometries without a mega matrix (4:4:4 from UYVY/YUYV,
+// 4:2:2 from RGB/RGBA).  No Pallas kernel serves them: ultragrid_tpu/ops/
+// jpeg_pallas.py::supports() refuses them, and the reference's XLA
+// per-plane stages (ultragrid_tpu/ops/jpeg.py::JpegEncoder._make_encode)
+// raise for each of them; the port adds the chroma resampling they lack
+// (ops/jpeg.py::JpegEncoder.planes).  Per tile of MT MCUs:
+//   1. the raw bytes of the tile and of the MCU before it to shared memory,
+//      as jpeg_encode_kernel stages them;
+//   2. the Y, Cb, Cr planes as float32 in the plain version's exact order
+//      (plane_value), written straight into the front end's [block][k][mcu]
+//      layout;
+//   3. q = rint(chain - const): per block one fmaf per k over all 64 k in
+//      ascending order against W = [my | mc] (dense: no support plan), the
+//      order of ops/jpeg.py::_fma_chain; jpeg_encode_kernel's register tiling
+//      (4 MCUs x 4 columns a thread, one 16-byte load of W and one of x per k);
+//   4. pack_tile, as in jpeg_encode_kernel.
+// A tile that starts inside a restart segment recomputes the DC predictors
+// of the MCU before it with the same chain.  No coefficient leaves the chip.
+// What bounds it on an H100: FP32 FMAs, 64 x 64 per 8x8 block (1080p UYVY
+// 4:4:4: 398 M, 11.9 us at 67 TFLOP/s) against the frame read once and the
+// slots written once (10.7 MB at wwords 16, 3.2 us at 3.35 TB/s).  Its
+// design is K1's, so the same phases hold it below that bound: measured on
+// an H100 (chip_smoke.py), 15-20% of it at 1080p and 21% at 4K.
+
+// The JFIF colour weights of the RGB planes, rounded to float32 from the
+// doubles that the plain version's tensors are made from.
+constexpr float Y_R = (float)0.299, Y_G = (float)0.587, Y_B = (float)0.114;
+constexpr float CB_R = (float)-0.168735892, CB_G = (float)0.331264108, CB_B = (float)0.5;
+constexpr float CR_R = (float)0.5, CR_G = (float)0.418687589, CR_B = (float)-0.081312411;
+
+// Value k (row k / 8, column k % 8) of block g (NY luma blocks, Cb, Cr) of
+// one MCU's raw bytes, rounded as ops/jpeg.py::JpegEncoder.planes rounds it
+// (the intrinsics keep nvcc from contracting or splitting a step).
+// BPP 2: 4:4:4 from UYVY (YFIRST false) or YUYV, the bytes as floats, each
+// chroma byte repeated for its two pixels, unshifted (const holds the -128).
+// BPP 3/4: 4:2:2 from RGB/RGBA, y = (0.587 g (+) 0.299 r) (+) 0.114 b - 128
+// with (+) a fused multiply-add, Cb/Cr from -(w_g g) fused with r then b,
+// each chroma pair averaged as (a + b) * 0.5.
+template <int NY, int BPP, bool YFIRST>
+__device__ __forceinline__ float plane_value(const uint8_t* mcu, int g, int k)
+{
+    constexpr int BPR = 8 * NY * BPP;
+    const uint8_t* row = mcu + (k >> 3) * BPR;
+    const int c = k & 7;
+    if constexpr (BPP == 2) {
+        const int off = g == 0 ? 2 * c + (YFIRST ? 0 : 1) : 4 * (c >> 1) + (YFIRST ? 1 : 0) + 2 * (g - 1);
+        return (float)row[off];
+    } else {
+        if (g < NY) {
+            const uint8_t* p = row + (8 * g + c) * BPP;
+            const float r = p[0], gr = p[1], b = p[2];
+            return __fadd_rn(__fmaf_rn(Y_B, b, __fmaf_rn(Y_R, r, __fmul_rn(Y_G, gr))), -128.f);
+        }
+        const bool cb = g == NY;
+        auto chroma = [&](const uint8_t* p) {
+            const float r = p[0], gr = p[1], b = p[2];
+            return cb ? __fmaf_rn(CB_B, b, __fmaf_rn(CB_R, r, -__fmul_rn(CB_G, gr)))
+                      : __fmaf_rn(CR_B, b, __fmaf_rn(CR_R, r, -__fmul_rn(CR_G, gr)));
+        };
+        const uint8_t* p = row + 2 * c * BPP;
+        return __fmul_rn(__fadd_rn(chroma(p), chroma(p + BPP)), 0.5f);
+    }
+}
+
+// NY: luma blocks per MCU (1 for 4:4:4, an 8x8 MCU; 2 for 4:2:2, 16x8);
+// BPP: bytes per pixel; YFIRST: YUYV rather than UYVY.  Huffman entries
+// and outputs as jpeg_encode_kernel; w [64][128] = [my | mc], cst [128].
+template <int NY, int BPP, bool YFIRST>
+__global__ void __launch_bounds__(64 * (NY + 2), 768 / (64 * (NY + 2))) jpeg_plane_encode_kernel(
+    const uint8_t* __restrict__ frame, long long linesize,
+    const float* __restrict__ w, const float* __restrict__ cst,
+    const int32_t* __restrict__ huff,
     uint32_t* __restrict__ ys, int32_t* __restrict__ ybits,
     uint32_t* __restrict__ us, int32_t* __restrict__ ubits,
     uint32_t* __restrict__ vs, int32_t* __restrict__ vbits,
-    uint8_t* __restrict__ ovf, int nmcu, int ri, int wwords)
+    uint8_t* __restrict__ ovf, int nmcux, int nmcu, int ri, int wwords)
 {
-    constexpr int BPM = NY + 2;
-    static_assert(NC == 64 * BPM, "one column per (block, zigzag position)");
-    static_assert(MT * BPM % (NC / 32) == 0 && MT * BPM / (NC / 32) % (32 / LPB) == 0,
-                  "blocks split evenly over warps and lane groups");
+    constexpr int BPM = NY + 2, NC = 64 * BPM, MCU_H = 8, BPR = 8 * NY * BPP, K = MCU_H * BPR;
+    constexpr int RAWS = K + RAW_PAD;
+    static_assert(NC == BPM * (64 / CPT) * (MT / RM), "one front-end thread per 4x4 tile");
+
     extern __shared__ __align__(16) unsigned char smem[];
-    int* qs = reinterpret_cast<int*>(smem);                             // [MT][NC]
-    uint32_t* slots = reinterpret_cast<uint32_t*>(qs + MT * NC);        // [MT * BPM][wwords]
+    float* w_s = reinterpret_cast<float*>(smem);                       // [64][128]: my | mc
+    float* xs = w_s + 64 * 128;                                         // [BPM][64][MT], then q
+    int* qs = reinterpret_cast<int*>(xs);                               // [MT][NC]
+    uint32_t* slots = reinterpret_cast<uint32_t*>(xs + NC * MT);        // Y, then Cb, then Cr
     uint32_t* dc_tab = slots + MT * BPM * wwords;                       // luma[16], chroma[16]
     uint32_t* ac_tab = dc_tab + 32;                                     // luma[256], chroma[256]
-    __shared__ int carry[3];
+    float* xprev = reinterpret_cast<float*>(ac_tab + 512);              // [3][64]: last luma, Cb, Cr before
+    uint8_t* raw = reinterpret_cast<uint8_t*>(xprev + 3 * 64);          // [MT + 1][RAWS], 0 = MCU before
+    __shared__ int carry[3];  // DC of the MCU before the tile: last luma, Cb, Cr
+
     const int tid = threadIdx.x;
-    for (int e = tid; e < 544; e += NC) dc_tab[e] = (uint32_t)__ldg(huff + e);
+    const int lane = tid & 31, warp = tid >> 5;
+
+    // ---- once per CTA: W and the Huffman tables ----
+    for (int e = tid; e < 64 * 128 / 4; e += NC)
+        reinterpret_cast<float4*>(w_s)[e] = __ldg(reinterpret_cast<const float4*>(w) + e);
+    for (int e = tid; e < 544; e += NC) dc_tab[e] = (uint32_t)__ldg(huff + e);  // ac_tab follows
+    __syncthreads();
+
+    // front-end role: block g, columns 4*c4.., MCUs 4*ms..; luma blocks
+    // take my (columns 0-63 of W), chroma blocks mc (64-127)
+    const int fg = tid >> 6, c4 = tid & 15, ms = (tid >> 4) & 3;
+    const int f_col = fg < NY ? 0 : 64;
+    const float4 cc = __ldg(reinterpret_cast<const float4*>(cst + f_col) + c4);
+
+    // frame rows read as 32-bit words where the frame and its lines allow
+    const bool words = ((reinterpret_cast<uintptr_t>(frame) | (uintptr_t)linesize) & 3) == 0;
 
     const int ntiles = (nmcu + MT - 1) / MT;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
         const int m0 = tile * MT;
         const int nm = min(MT, nmcu - m0);
-        const int4* src = reinterpret_cast<const int4*>(q + (long long)m0 * NC);
-        for (int e = tid; e < MT * NC / 4; e += NC) {
-            const int i = e / (NC / 4);
-            reinterpret_cast<int4*>(qs)[e] = i < nm ? __ldg(src + e) : make_int4(0, 0, 0, 0);
+        const bool need_carry = m0 % ri != 0;
+        const int my0 = (m0 - 1 + (m0 == 0)) / nmcux;  // MCU row of m0 - 1 (of m0 for the first tile)
+        const int mx0 = m0 - 1 - my0 * nmcux;           // -1 for the first tile
+
+        // ---- raw bytes of the MCU before the tile and of the tile: all
+        // loads in flight before the first store; a warp reads one line ----
+        if (words) {
+            constexpr int WPR = BPR / 4, NW = (MT + 1) * K / 4;
+            constexpr int IT = (NW + NC - 1) / NC;
+            uint32_t v[IT];
+#pragma unroll
+            for (int j = 0; j < IT; ++j) {
+                const int e = tid + j * NC;
+                const int r = e / ((MT + 1) * WPR), rest = e - r * ((MT + 1) * WPR);
+                const int i = rest / WPR - 1, c = rest - (i + 1) * WPR;
+                v[j] = 0u;
+                if (e < NW && i < nm && (i >= 0 || need_carry)) {
+                    int mx = mx0 + 1 + i, my = my0;
+                    while (mx >= nmcux) { mx -= nmcux; ++my; }
+                    v[j] = __ldg(reinterpret_cast<const uint32_t*>(
+                        frame + (long long)(my * MCU_H + r) * linesize + (long long)mx * BPR + 4 * c));
+                }
+            }
+#pragma unroll
+            for (int j = 0; j < IT; ++j) {
+                const int e = tid + j * NC;
+                const int r = e / ((MT + 1) * WPR), rest = e - r * ((MT + 1) * WPR);
+                const int i = rest / WPR - 1, c = rest - (i + 1) * WPR;
+                if (e < NW) *reinterpret_cast<uint32_t*>(raw + (i + 1) * RAWS + r * BPR + 4 * c) = v[j];
+            }
+        } else {
+            for (int e = tid; e < (MT + 1) * K; e += NC) {
+                const int i = e / K - 1, kk = e - (i + 1) * K;
+                uint8_t b = 0;
+                if (i < nm && (i >= 0 || need_carry)) {
+                    int mx = mx0 + 1 + i, my = my0;
+                    while (mx >= nmcux) { mx -= nmcux; ++my; }
+                    const int r = kk / BPR, c = kk - r * BPR;
+                    b = frame[(long long)(my * MCU_H + r) * linesize + (long long)mx * BPR + c];
+                }
+                raw[(i + 1) * RAWS + kk] = b;
+            }
         }
-        if (tid < 3 && m0 > 0) carry[tid] = __ldg(q + (long long)(m0 - 1) * NC + (NY - 1 + tid) * 64);
+        __syncthreads();
+
+        // ---- planes: x[block][k][mcu] as f32, and x of the MCU before ----
+#pragma unroll 4
+        for (int e = tid; e < NC * MT; e += NC) {
+            const int gk = e / MT, i = e - gk * MT;
+            xs[e] = plane_value<NY, BPP, YFIRST>(raw + (i + 1) * RAWS, gk >> 6, gk & 63);
+        }
+        if (need_carry)
+            for (int e = tid; e < 3 * 64; e += NC) xprev[e] = plane_value<NY, BPP, YFIRST>(raw, NY - 1 + (e >> 6), e & 63);
+        __syncthreads();
+
+        // ---- DC predictors for a tile inside a segment: the same chain ----
+        if (need_carry && lane == 0 && warp < 3) {
+            const int col = warp == 0 ? 0 : 64;  // the last luma block, Cb, Cr
+            float acc = 0.f;
+#pragma unroll 8
+            for (int k = 0; k < 64; ++k) acc = fmaf(xprev[warp * 64 + k], w_s[k * 128 + col], acc);
+            carry[warp] = __float2int_rn(__fsub_rn(acc, __ldg(cst + col)));
+        }
+
+        // ---- front end: 4 MCUs x 4 columns per thread, ascending k ----
+        float acc[RM][CPT];
+#pragma unroll
+        for (int a = 0; a < RM; ++a)
+#pragma unroll
+            for (int b = 0; b < CPT; ++b) acc[a][b] = 0.f;
+        {
+            const float4* wp = reinterpret_cast<const float4*>(w_s + f_col) + c4;
+            const float4* xp = reinterpret_cast<const float4*>(xs + fg * 64 * MT) + ms;
+#pragma unroll 4
+            for (int k = 0; k < 64; ++k) {
+                const float4 wk = wp[k * 32];
+                const float4 x = xp[k * (MT / 4)];
+                const float xv[4] = {x.x, x.y, x.z, x.w};
+                const float wv[4] = {wk.x, wk.y, wk.z, wk.w};
+#pragma unroll
+                for (int a = 0; a < RM; ++a)
+#pragma unroll
+                    for (int b = 0; b < CPT; ++b) acc[a][b] = fmaf(xv[a], wv[b], acc[a][b]);
+            }
+        }
+        __syncthreads();  // every thread is done reading x
+        {
+            const float cv[4] = {cc.x, cc.y, cc.z, cc.w};
+#pragma unroll
+            for (int a = 0; a < RM; ++a) {
+                int4 o;
+                o.x = __float2int_rn(__fsub_rn(acc[a][0], cv[0]));
+                o.y = __float2int_rn(__fsub_rn(acc[a][1], cv[1]));
+                o.z = __float2int_rn(__fsub_rn(acc[a][2], cv[2]));
+                o.w = __float2int_rn(__fsub_rn(acc[a][3], cv[3]));
+                *reinterpret_cast<int4*>(qs + (ms * RM + a) * NC + fg * 64 + c4 * CPT) = o;
+            }
+        }
         for (int e = tid; e < MT * BPM * wwords; e += NC) slots[e] = 0u;
         __syncthreads();
+
         pack_tile<NC, NY>(qs, slots, dc_tab, ac_tab, carry, ys, ybits, us, ubits, vs, vbits,
                           ovf, m0, nm, ri, wwords);
-        __syncthreads();  // the stores have read the slots before the next tile clears them
+        // The next tile writes raw and carry, read here only before the last
+        // barrier, and clears the slots only after two more barriers.
     }
 }
 
-template <int NC, int NY>
-int launch_coeffs(const int32_t* q, const int32_t* h, uint32_t* y, int32_t* yb, uint32_t* u,
-                  int32_t* ub, uint32_t* v, int32_t* vb, uint8_t* o, int nmcu, int ri, int wwords,
-                  cudaStream_t st)
+template <int NY, int BPP, bool YFIRST>
+int launch_plane(const uint8_t* f, long long linesize, const float* w, const float* c,
+                 const int32_t* h, uint32_t* y, int32_t* yb, uint32_t* u, int32_t* ub,
+                 uint32_t* v, int32_t* vb, uint8_t* o, int nmcux, int nmcu, int ri, int wwords,
+                 cudaStream_t st)
 {
-    constexpr int BPM = NY + 2;
-    const size_t smem = (size_t)MT * NC * 4 + (size_t)MT * BPM * wwords * 4 + 544 * 4;
+    constexpr int BPM = NY + 2, NC = 64 * BPM, K = 64 * NY * BPP;
+    const size_t smem = (size_t)64 * 128 * 4 + (size_t)NC * MT * 4 + (size_t)MT * BPM * wwords * 4
+                        + 544 * 4 + 3 * 64 * 4 + (size_t)(MT + 1) * (K + RAW_PAD);
+    auto kern = jpeg_plane_encode_kernel<NY, BPP, YFIRST>;
+    // the resident CTAs the card holds for this shared memory size, set up
+    // once per device and size, as launch() does
+    static std::mutex mu;
+    static int cached_dev = -1, cached_cap = 0;
+    static size_t cached_smem = 0;
+    int dev = 0, cap = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    {
+        std::lock_guard<std::mutex> lock(mu);
+        if (dev != cached_dev || smem != cached_smem) {
+            int sms = 0, per_sm = 0;
+            if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
+                != cudaSuccess)
+                return (int)err;
+            if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+                return (int)err;
+            if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NC, smem)) != cudaSuccess)
+                return (int)err;
+            if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+            cached_dev = dev;
+            cached_smem = smem;
+            cached_cap = per_sm * sms;
+        }
+        cap = cached_cap;
+    }
     const int ntiles = (nmcu + MT - 1) / MT;
-    jpeg_pack_coeffs_kernel<NC, NY><<<ntiles, NC, smem, st>>>(q, h, y, yb, u, ub, v, vb, o, nmcu, ri,
-                                                              wwords);
+    const int grid = ntiles < cap ? ntiles : cap;
+    kern<<<grid, NC, smem, st>>>(f, linesize, w, c, h, y, yb, u, ub, v, vb, o, nmcux, nmcu, ri, wwords);
     return (int)cudaGetLastError();
 }
 
@@ -600,16 +804,21 @@ extern "C" int ug_jpeg_encode(
     }
 }
 
-// K1's coefficient entry.  q [nmcu][64 * (ny + 2)] int32; ny = 1 (4:4:4) or
-// 2 (4:2:2) luma blocks per MCU; huff and the outputs as ug_jpeg_encode.
-// Returns the launch's CUDA error, else 0.
-extern "C" int ug_jpeg_pack_coeffs(
-    const void* q, const void* huff, void* ys, void* ybits, void* us, void* ubits,
-    void* vs, void* vbits, void* ovf, int ny, int nmcu, int ri, int wwords, void* stream)
+// K1's per-plane entry.  layout: 0 = 4:4:4 from UYVY (8x8 MCU), 1 = 4:4:4
+// from YUYV, 2 = 4:2:2 from RGB (16x8), 3 = 4:2:2 from RGBA.  w [64, 128]
+// f32 = [my | mc] and cst [128] f32 of ops/jpeg.py::JpegEncoder.
+// _build_plane_matrices; huff and the outputs as ug_jpeg_encode.  Returns
+// the first CUDA error of the set-up or the launch, else 0.
+extern "C" int ug_jpeg_plane_encode(
+    const void* frame, long long linesize, const void* w, const void* cst, const void* huff,
+    void* ys, void* ybits, void* us, void* ubits, void* vs, void* vbits, void* ovf,
+    int layout, int nmcux, int nmcu, int ri, int wwords, void* stream)
 {
-    if (nmcu <= 0 || ri <= 0 || wwords <= 0 || wwords > 64) return (int)cudaErrorInvalidValue;
+    if (nmcu <= 0 || ri <= 0 || nmcux <= 0 || wwords <= 0 || wwords > 64) return (int)cudaErrorInvalidValue;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int32_t* qq = static_cast<const int32_t*>(q);
+    const uint8_t* f = static_cast<const uint8_t*>(frame);
+    const float* ww = static_cast<const float*>(w);
+    const float* c = static_cast<const float*>(cst);
     const int32_t* h = static_cast<const int32_t*>(huff);
     uint32_t* y = static_cast<uint32_t*>(ys);
     uint32_t* u = static_cast<uint32_t*>(us);
@@ -618,11 +827,15 @@ extern "C" int ug_jpeg_pack_coeffs(
     int32_t* ub = static_cast<int32_t*>(ubits);
     int32_t* vb = static_cast<int32_t*>(vbits);
     uint8_t* o = static_cast<uint8_t*>(ovf);
-    switch (ny) {
+    switch (layout) {
+    case 0:
+        return launch_plane<1, 2, false>(f, linesize, ww, c, h, y, yb, u, ub, v, vb, o, nmcux, nmcu, ri, wwords, st);
     case 1:
-        return launch_coeffs<192, 1>(qq, h, y, yb, u, ub, v, vb, o, nmcu, ri, wwords, st);
+        return launch_plane<1, 2, true>(f, linesize, ww, c, h, y, yb, u, ub, v, vb, o, nmcux, nmcu, ri, wwords, st);
     case 2:
-        return launch_coeffs<256, 2>(qq, h, y, yb, u, ub, v, vb, o, nmcu, ri, wwords, st);
+        return launch_plane<2, 3, false>(f, linesize, ww, c, h, y, yb, u, ub, v, vb, o, nmcux, nmcu, ri, wwords, st);
+    case 3:
+        return launch_plane<2, 4, false>(f, linesize, ww, c, h, y, yb, u, ub, v, vb, o, nmcux, nmcu, ri, wwords, st);
     default:
         return (int)cudaErrorInvalidValue;
     }

@@ -303,9 +303,12 @@ _LAYOUTS = {
     ("444", Codec.RGB): 2, ("444", Codec.RGBA): 3,
 }
 
-# the geometries without a mega matrix: the per-plane front end
-# (JpegEncoder.plane_coefficients), then K1's coefficient entry
-_PER_PLANE = {("444", Codec.UYVY), ("444", Codec.YUYV), ("422", Codec.RGB), ("422", Codec.RGBA)}
+# the geometries without a mega matrix -> layout id of K1's per-plane entry
+# (the plain version: JpegEncoder.plane_coefficients, then symbols and pack)
+_PLANE_LAYOUTS = {
+    ("444", Codec.UYVY): 0, ("444", Codec.YUYV): 1,
+    ("422", Codec.RGB): 2, ("422", Codec.RGBA): 3,
+}
 
 _BYTES_PER_PIXEL = {Codec.UYVY: 2, Codec.YUYV: 2, Codec.RGB: 3, Codec.RGBA: 4}
 
@@ -377,11 +380,12 @@ class JpegEncoder:
         self.restart_interval = restart_interval
         self.nseg = (self.nmcu + restart_interval - 1) // restart_interval
         self.nblocks = self.nmcu * self.blocks_per_mcu
-        self.per_plane = (subsampling, in_codec) in _PER_PLANE
+        self.per_plane = (subsampling, in_codec) in _PLANE_LAYOUTS
         if not self.per_plane and (subsampling, in_codec) not in _LAYOUTS:
             raise ValueError(f"JPEG encoder: no {subsampling} encode from {in_codec.name}")
-        # the mega layout's id in csrc/jpeg_encode.cu; None for per-plane
-        self.layout = None if self.per_plane else _LAYOUTS[(subsampling, in_codec)]
+        # the layout id in csrc/jpeg_encode.cu of the entry this geometry
+        # takes: the fused kernel's, or for per-plane the per-plane entry's
+        self.layout = (_PLANE_LAYOUTS if self.per_plane else _LAYOUTS)[(subsampling, in_codec)]
         self.bpr = self.mcu_w * _BYTES_PER_PIXEL[in_codec]  # bytes per MCU row
 
         if state is None:
@@ -444,12 +448,8 @@ class JpegEncoder:
                    for name in ("ac_luma", "ac_chroma")},
             }
             if self.per_plane:
-                W = np.ascontiguousarray(st["W"], np.float32)
-                t = self._dev_tables[device] = {
-                    **tables,
-                    "my": torch.as_tensor(W[:, :64].copy(), device=device),
-                    "mc": torch.as_tensor(W[:, 64:].copy(), device=device),
-                }
+                w = torch.tensor(np.ascontiguousarray(st["W"], np.float32), device=device)
+                t = self._dev_tables[device] = {**tables, "w": w, "my": w[:, :64], "mc": w[:, 64:]}
                 return t
             rows, groups, wc = self.plan
             # the plain chain, batched over groups: S_g padded at its end
@@ -728,16 +728,16 @@ class JpegEncoder:
 
     def _encode(self, frame: torch.Tensor):
         """Device half at the current slot width: kernel K1 for a CUDA
-        tensor (for a per-plane geometry, the PyTorch front end and K1's
-        coefficient entry), the plain path for a CPU tensor.  The overflow
-        flag stays a tensor; callers check it when they fetch results."""
+        tensor (for a per-plane geometry, K1's per-plane entry), the plain
+        path for a CPU tensor.  The overflow flag stays a tensor; callers
+        check it when they fetch results."""
         if frame.is_cuda:
             self._check_frame(frame)
             t = self.tables(frame.device)
             if self.per_plane:
-                return jpeg_cuda.encode_coefficients(
-                    self.plane_coefficients(frame).to(torch.int32), t["huff"], ny=self.ky,
-                    restart_interval=self.restart_interval, wwords=self.wwords)
+                return jpeg_cuda.plane_encode(
+                    frame, t["w"], t["const"], t["huff"], layout=self.layout, nmcux=self.nmcux,
+                    nmcuy=self.nmcuy, restart_interval=self.restart_interval, wwords=self.wwords)
             return jpeg_cuda.fused_encode(
                 frame, t["wc"], t["rows"], t["groups"], t["const"], t["huff"], layout=self.layout,
                 nmcux=self.nmcux, nmcuy=self.nmcuy,

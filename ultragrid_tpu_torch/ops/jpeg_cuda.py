@@ -1,10 +1,9 @@
 """Wrappers of kernel K1 (``csrc/jpeg_encode.cu``): the fused JPEG encode,
-and its coefficient entry (symbols and pack of coefficients computed by a
-front end outside the kernel).
+and its per-plane entry (the same encode for the geometries without a mega
+matrix, from the frame's Y, Cb and Cr planes).
 
 Counterpart of ``ultragrid_tpu/ops/jpeg_pallas.py::make_fused_encode``.  The
-plain version of both is :meth:`ultragrid_tpu_torch.ops.jpeg.JpegEncoder.encode_plain`
-(of the coefficient entry, :meth:`JpegEncoder.symbols_and_pack`);
+plain version of both is :meth:`ultragrid_tpu_torch.ops.jpeg.JpegEncoder.encode_plain`;
 :meth:`JpegEncoder._encode` calls these wrappers for CUDA tensors only.
 """
 
@@ -15,7 +14,7 @@ import torch
 from ultragrid_tpu_torch import _build
 
 LAUNCHES = _build.LaunchCounter("jpeg_encode")
-COEFF_LAUNCHES = _build.LaunchCounter("jpeg_pack_coeffs")
+PLANE_LAUNCHES = _build.LaunchCounter("jpeg_plane_encode")
 
 # layout id -> (bytes per MCU K, columns NC, luma blocks per MCU, MCU rows, bytes per MCU row)
 GEOMETRY = {
@@ -23,6 +22,14 @@ GEOMETRY = {
     1: (512, 384, 4, 16, 32),  # 4:2:0 UYVY/YUYV
     2: (192, 192, 1, 8, 24),   # 4:4:4 RGB
     3: (256, 192, 1, 8, 32),   # 4:4:4 RGBA
+}
+
+# per-plane layout id -> the same fields, for jpeg_plane_encode_kernel
+PLANE_GEOMETRY = {
+    0: (128, 192, 1, 8, 16),   # 4:4:4 UYVY
+    1: (128, 192, 1, 8, 16),   # 4:4:4 YUYV
+    2: (384, 256, 2, 8, 48),   # 4:2:2 RGB
+    3: (512, 256, 2, 8, 64),   # 4:2:2 RGBA
 }
 
 
@@ -92,35 +99,43 @@ def fused_encode(frame: torch.Tensor, wc: torch.Tensor, rows: torch.Tensor,
     return ys, ybits, us, ubits, vs, vbits, ovf[0]
 
 
-def encode_coefficients(q: torch.Tensor, huff: torch.Tensor, *, ny: int,
-                        restart_interval: int, wwords: int):
-    """One launch of K1's coefficient entry: symbols and pack of q.
+def plane_encode(frame: torch.Tensor, w: torch.Tensor, const: torch.Tensor, huff: torch.Tensor, *,
+                 layout: int, nmcux: int, nmcuy: int, restart_interval: int, wwords: int):
+    """One launch of K1's per-plane entry over a whole frame: frame bytes in,
+    slots out, no coefficient in device memory.
 
-    q: int32 [nmcu, 64 * (ny + 2)] on a CUDA device, each MCU's blocks in
-    stream order (ny luma blocks, Cb, Cr); ny = 1 (4:4:4) or 2 (4:2:2);
-    huff as :func:`fused_encode`.  Returns (ys, ybits, us, ubits, vs, vbits,
-    overflow) with the plain path's shapes and dtypes.
+    frame: uint8 [H, linesize] on a CUDA device; w f32 [64, 128] = [my | mc]
+    and const f32 [128] of ``JpegEncoder._build_plane_matrices``; huff as
+    :func:`fused_encode`; layout a key of :data:`PLANE_GEOMETRY`.  Every
+    argument is checked before the device and before any build.  Returns
+    (ys, ybits, us, ubits, vs, vbits, overflow) with the plain path's shapes
+    and dtypes.
     """
-    if not q.is_cuda:
-        raise ValueError("encode_coefficients needs a CUDA tensor; the CPU uses JpegEncoder.symbols_and_pack")
-    if ny not in (1, 2):
-        raise ValueError(f"the coefficient entry takes 1 or 2 luma blocks per MCU, not {ny}")
-    dev = q.device
-    nc = 64 * (ny + 2)
-    if q.dtype != torch.int32 or q.dim() != 2 or q.shape[1] != nc or not q.is_contiguous():
-        raise ValueError(f"q: expected contiguous int32 [nmcu, {nc}], got {q.dtype} {tuple(q.shape)}")
-    _expect(huff, "huff", torch.int32, (544,), dev)
+    if layout not in PLANE_GEOMETRY:
+        raise ValueError(f"unknown per-plane layout {layout}")
     if not 1 <= wwords <= 64 or restart_interval < 1:
         raise ValueError(f"bad wwords {wwords} / restart interval {restart_interval}")
-    nmcu = q.shape[0]
+    _, _, ny, mcu_h, bpr = PLANE_GEOMETRY[layout]
+    if frame.dtype != torch.uint8 or frame.dim() != 2 or not frame.is_contiguous():
+        raise ValueError(f"frame: expected contiguous uint8 [H, linesize], got {frame.dtype} {tuple(frame.shape)}")
+    if frame.shape[0] != nmcuy * mcu_h or frame.shape[1] < nmcux * bpr:
+        raise ValueError(f"frame shape {tuple(frame.shape)} too small for {nmcux}x{nmcuy} MCUs")
+    dev = frame.device
+    _expect(w, "w", torch.float32, (64, 128), dev)
+    _expect(const, "const", torch.float32, (128,), dev)
+    _expect(huff, "huff", torch.int32, (544,), dev)
+    if not frame.is_cuda:
+        raise ValueError("plane_encode needs a CUDA tensor; the CPU uses JpegEncoder.encode_plain")
+
+    nmcu = nmcux * nmcuy
     ys, ybits, us, ubits, vs, vbits, ovf = _outputs(nmcu, ny, wwords, dev)
     lib = _build.kernels_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ug_jpeg_pack_coeffs(
-            q.data_ptr(), huff.data_ptr(), ys.data_ptr(), ybits.data_ptr(), us.data_ptr(),
-            ubits.data_ptr(), vs.data_ptr(), vbits.data_ptr(), ovf.data_ptr(),
-            ny, nmcu, restart_interval, wwords, stream)
-    _build.check(err, "jpeg_pack_coeffs launch")
-    COEFF_LAUNCHES.count += 1
+        err = lib.ug_jpeg_plane_encode(
+            frame.data_ptr(), frame.shape[1], w.data_ptr(), const.data_ptr(), huff.data_ptr(),
+            ys.data_ptr(), ybits.data_ptr(), us.data_ptr(), ubits.data_ptr(), vs.data_ptr(),
+            vbits.data_ptr(), ovf.data_ptr(), layout, nmcux, nmcu, restart_interval, wwords, stream)
+    _build.check(err, "jpeg_plane_encode launch")
+    PLANE_LAUNCHES.count += 1
     return ys, ybits, us, ubits, vs, vbits, ovf[0]
