@@ -44,9 +44,10 @@ processes); standards mode, RTSP, the duplex call, the preview socket and
 iHDTV at 1080p (phase ``standards``: the ``--rtp-standard`` session, every
 shown frame the CPU decode of the file sent under its RTP timestamp; a
 ``--rtsp`` sender and ``RtspCapture`` on the card into a local loop; RTSP
-capture of an H.264 camera stream, every frame the encoder's reference
-picture; the duplex call through ``cli.main`` with and without
-``--echo-cancellation``; ``-F preview`` with thumbnailgen on the card,
+capture of an H.264 camera stream at 15 frames/s and at 30 (every access
+unit), every frame the encoder's reference picture; the duplex call through
+``cli.main`` with and without ``--echo-cancellation``; ``-F preview`` with
+thumbnailgen on the card,
 byte-equal to the CPU's thumbnails; ``-x ihdtv``, frames byte-equal); and
 times kernels, steps, the receive step, the 4K batch in frames/s,
 4K latency, conversions, DXT, the postprocess functions and the loop's
@@ -70,9 +71,15 @@ image the CPU port's rendering of the CPU decode of its file),
 ``hd_rum_translator`` with a ``-c jpeg`` and a raw client, ``tools/convert.py``
 at 4K against the CPU, the libavcodec rows where libavcodec's headers are
 present (one line saying they are absent otherwise), and ``-t camera``
-through a ``.ug.rc`` alias.  ``python3 chip_smoke.py --only standards`` (or
-``--only parallel``, ``--only tools``, ``--only remaining``) builds the
-kernels and runs that phase alone, printing no result line.
+through a ``.ug.rc`` alias.  Phase ``api`` runs the names that close the
+port's public API at 1080p: ``JpegEncoder.warm`` before an escalation
+forced on a noise frame (K1 and its per-plane entry; the file against the
+plain version on the card and the CPU), ``jpeg_encode_core`` (one K1 launch
+a call, its parts assembling to the CPU's file), and ``lavc_encoders()``
+with the registered audio codecs.  ``python3 chip_smoke.py --only
+standards`` (or ``--only parallel``, ``--only tools``, ``--only
+remaining``, ``--only api``) builds the kernels and runs that phase alone,
+printing no result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2011,10 +2018,12 @@ def phase_audio_session(dev):
 STD_FRAMES = 120
 RTSP_H264_FRAMES = 60
 RTSP_H264_GOP = 30
-# the harness camera's pace: the capture decodes on its rx thread, and a
-# 1080p access unit of this content takes the own decoder longer than
-# 1/30 s, so a faster camera overruns the socket (as it would the reference's)
+# the harness camera's paces: row (c) at 15 frames/s, as before the capture
+# decoded off its rx thread; row (c') at 30, where the reference's capture,
+# which decodes on its rx thread, overruns its socket (a 1080p access unit of
+# this content takes the own decoder longer than 1/30 s)
 RTSP_H264_FPS = 15
+RTSP_H264_FPS_FAST = 30
 DUPLEX_FRAMES = 120
 PREVIEW_FRAMES = 60
 THUMBNAILS = 5
@@ -2197,20 +2206,14 @@ def rtsp_jpeg_capture(dev, cpu_decode, frames: int = STD_FRAMES):
             "f10_sdp_http_server_refused": not sdp_started}
 
 
-def rtsp_h264_capture(dev):
-    """(c) an IP camera's stream: an RtspServer announcing H264 (PT 96) with
-    sprop-parameter-sets, pumping the port's 1080p device encoder's access
-    units (IDR + P, GOP 30) split by ``rtpdec_h264.packetize`` at
-    ``RTSP_H264_FPS``, each access unit's packets spread over half a frame
-    period as a camera paces them; RtspCapture decodes them on the card
-    (OwnH264Decompress) and every decoded frame must equal the encoder's
-    reference picture."""
+def rtsp_h264_stream(dev):
+    """The harness camera's stream: the port's 1080p device encoder's access
+    units (IDR + P, GOP 30) of ``RTSP_H264_FRAMES`` panned frames, each
+    with the encoder's reference picture as UYVY, and the SPS and PPS as
+    ``sprop-parameter-sets``."""
     import base64
 
-    from ultragrid_tpu_torch.modules.video_capture import initialize_video_capture
     from ultragrid_tpu_torch.net import rtpdec_h264
-    from ultragrid_tpu_torch.net import rtsp as rtsp_mod
-    from ultragrid_tpu_torch.net.rtp import RtpSession
     from ultragrid_tpu_torch.ops.h264_device import InterEncoderDevice
     from ultragrid_tpu_torch.ops.planar import i420_8_to_uyvy
 
@@ -2224,6 +2227,24 @@ def rtsp_h264_capture(dev):
         want.append(i420_8_to_uyvy(flat, W1080, H1080))
     ps = {rtpdec_h264.nal_type(n[0]): n for n in rtpdec_h264.packetize(aus[0], mtu_payload=1 << 30)}
     sprop = ",".join(base64.b64encode(ps[t]).decode() for t in (rtpdec_h264.NAL_SPS, rtpdec_h264.NAL_PPS))
+    return aus, want, sprop
+
+
+def rtsp_h264_capture(dev, stream, fps: int, every: bool):
+    """(c) an IP camera's stream at ``fps``: an RtspServer announcing H264
+    (PT 96) with sprop-parameter-sets, pumping ``stream``'s access units
+    split by ``rtpdec_h264.packetize``, each access unit's packets spread
+    over half a frame period as a camera paces them; RtspCapture decodes
+    them on the card (OwnH264Decompress) and every decoded frame must equal
+    the encoder's reference picture, in order.  With ``every``, each access
+    unit must come out (row (c'), the capture decoding off its rx thread);
+    without, at least half (row (c))."""
+    from ultragrid_tpu_torch.modules.video_capture import initialize_video_capture
+    from ultragrid_tpu_torch.net import rtpdec_h264
+    from ultragrid_tpu_torch.net import rtsp as rtsp_mod
+    from ultragrid_tpu_torch.net.rtp import RtpSession
+
+    aus, want, sprop = stream
     pumped = []
 
     def on_play(addr, port):
@@ -2232,13 +2253,13 @@ def rtsp_h264_capture(dev):
             t_next = time.perf_counter()
             for i, au in enumerate(aus):
                 pkts = rtpdec_h264.packetize(au, mtu_payload=1400)
-                gap = 0.5 / RTSP_H264_FPS / len(pkts)
+                gap = 0.5 / fps / len(pkts)
                 for j, p in enumerate(pkts):
-                    sess.send_data_hdr(i * (90000 // RTSP_H264_FPS), 96, j == len(pkts) - 1, b"", p)
+                    sess.send_data_hdr(i * (90000 // fps), 96, j == len(pkts) - 1, b"", p)
                     if j % 16 == 15:
                         time.sleep(max(0.0, t_next + (j + 1) * gap - time.perf_counter()))
                 pumped.append(len(pkts))
-                t_next += 1 / RTSP_H264_FPS
+                t_next += 1 / fps
                 time.sleep(max(0.0, t_next - time.perf_counter()))
             sess.close()
 
@@ -2248,7 +2269,7 @@ def rtsp_h264_capture(dev):
     rtsp_mod.make_sdp = lambda ip, streams, name: (
         make_sdp(ip, streams, name) + f"a=fmtp:96 packetization-mode=1;sprop-parameter-sets={sprop}\r\n")
     srv = rtsp_mod.RtspServer([("video", 5004, 96, "H264", 90000)], port=0, on_play=on_play)
-    got = []
+    got, stamps = [], []
     try:
         t0 = time.perf_counter()
         cap = initialize_video_capture(f"rtsp:rtsp://127.0.0.1:{srv.port}/camera", device=dev)
@@ -2258,6 +2279,7 @@ def rtsp_h264_capture(dev):
             if frame is not None:
                 got.append(frame.data.clone())
                 last = time.perf_counter()
+                stamps.append(last)
         wall = time.perf_counter() - t0
         cap.done()
     finally:
@@ -2267,16 +2289,18 @@ def rtsp_h264_capture(dev):
     for data in got:
         hit = next((k for k in range(at + 1, len(want)) if torch.equal(data, want[k])), None)
         if hit is None:
-            raise RuntimeError("rtsp h264: a decoded frame is no later reference picture of the encoder")
+            raise RuntimeError(f"rtsp h264 at {fps} frames/s: a decoded frame is no later reference picture "
+                               "of the encoder")
         at = hit
-    if len(got) < RTSP_H264_FRAMES // 2 or cap.decode_failures:
-        raise RuntimeError(f"rtsp h264: {len(got)} of {RTSP_H264_FRAMES} decoded, "
+    if len(got) < (RTSP_H264_FRAMES if every else RTSP_H264_FRAMES // 2) or cap.decode_failures:
+        raise RuntimeError(f"rtsp h264 at {fps} frames/s: {len(got)} of {RTSP_H264_FRAMES} decoded, "
                            f"{cap.decode_failures} decode failures")
     return {"geometry": f"{W1080}x{H1080}", "qp": H264_QP, "gop": RTSP_H264_GOP, "access_units": len(aus),
-            "camera_frames_per_s": RTSP_H264_FPS, "au_bytes_idr": len(aus[0]),
+            "camera_frames_per_s": fps, "au_bytes_idr": len(aus[0]),
             "au_bytes_p_median": sorted(len(a) for a in aus[1:])[len(aus) // 2 - 1],
             "rtp_packets_per_au_max": max(pumped) if pumped else 0, "frames_decoded": len(got),
-            "equal_to_encoder_reference": True, "decode_failures": cap.decode_failures, "seconds": wall}
+            "equal_to_encoder_reference": True, "decode_failures": cap.decode_failures, "seconds": wall,
+            "frames_per_s": (len(got) - 1) / (stamps[-1] - stamps[0]) if len(got) > 1 else None}
 
 
 def drop_ldgm_packets(per_frame: int, seed: int, k: int, m: int):
@@ -2530,8 +2554,9 @@ def ihdtv_session(dev):
 def phase_standards(dev):
     """This slice's paths at 1080p, the widest RFC 2435 carries: (a) the
     standards-mode session, (b) an RTSP sender and the port's RTSP capture,
-    (c) RTSP capture of an H.264 camera stream, (d) full-duplex calls
-    through the CLI, (e) the preview socket and thumbnailgen, (f) iHDTV."""
+    (c) RTSP capture of an H.264 camera stream at 15 frames/s and (c') the
+    same at 30, every access unit decoded, (d) full-duplex calls through
+    the CLI, (e) the preview socket and thumbnailgen, (f) iHDTV."""
     from ultragrid_tpu_torch.modules.video_capture import initialize_video_capture
     from ultragrid_tpu_torch.modules.video_decompress import JpegDecompress
     from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
@@ -2546,11 +2571,14 @@ def phase_standards(dev):
     JpegDecompress(device=dev).decompress(
         VideoFrame(VideoDesc(W1080, H1080, Codec.JPEG, 60.0), [JpegEncoder(W1080, H1080).encode(ring[0])]), Codec.UYVY)
     torch.cuda.synchronize()
+    h264_stream = rtsp_h264_stream(dev)
     # each row with the UDP datagrams the kernel dropped for full receive
     # buffers while it ran (any socket of this machine)
     for key, row in (("standards_session", lambda: standards_session(dev, cpu_decode)),
                      ("rtsp_jpeg", lambda: rtsp_jpeg_capture(dev, cpu_decode)),
-                     ("rtsp_h264", lambda: rtsp_h264_capture(dev)), ("duplex", lambda: duplex_calls(dev)),
+                     ("rtsp_h264", lambda: rtsp_h264_capture(dev, h264_stream, RTSP_H264_FPS, every=False)),
+                     ("rtsp_h264_30fps", lambda: rtsp_h264_capture(dev, h264_stream, RTSP_H264_FPS_FAST, every=True)),
+                     ("duplex", lambda: duplex_calls(dev)),
                      ("preview", lambda: preview_thumbnails(dev)), ("ihdtv", lambda: ihdtv_session(dev))):
         drops = udp_rcvbuf_errors()
         out[key] = row()
@@ -2958,14 +2986,16 @@ def tools_captures(dev):
     t0 = time.perf_counter()
     t.start()
     try:
-        # the first frame lacks the datagrams of its first receive batch,
-        # zeros at its top, as in the reference (ROADMAP F12): held to that
+        # the first frame, wider than the receiver's first slots, is whole:
+        # the port's C layer grows them before it scatters the frame (ROADMAP
+        # F12, repaired in the port; the reference's shows zeros at its top)
         first = cap.grab()[0]
         if first is None or not first.data.is_cuda or first.data.shape != sent.shape:
             raise RuntimeError("ug_input: no first frame on the card")
         bad = (first.data != sent).any(1).nonzero().reshape(-1).tolist()
-        if bad != list(range(len(bad))) or bool(first.data[:len(bad)].any()):
-            raise RuntimeError(f"ug_input: the first frame differs beyond a leading run of zero rows: {bad[:8]}")
+        if bad:
+            raise RuntimeError(f"ug_input: the first frame differs from the testcard sent in {len(bad)} rows, "
+                               f"from row {bad[0]}")
         for i in range(TOOLS_CAPTURE_FRAMES):
             frame = cap.grab()[0]
             if frame is None or not frame.data.is_cuda or not torch.equal(frame.data, sent):
@@ -2975,8 +3005,8 @@ def tools_captures(dev):
         sender.should_exit.set()
         t.join(timeout=20)
         cap.done()
-    out["ug_input"] = {"sender": f"{spec} -c none, MTU 9000", "frames_equal_sent": TOOLS_CAPTURE_FRAMES,
-                       "first_frame_zero_rows": len(bad), "seconds_from_sender_start": seconds}
+    out["ug_input"] = {"sender": f"{spec} -c none, MTU 9000", "frames_equal_sent": TOOLS_CAPTURE_FRAMES + 1,
+                       "first_frame_whole": True, "seconds_from_sender_start": seconds}
 
     devs = glob.glob("/dev/video*")
     if devs:
@@ -3457,6 +3487,131 @@ def plane_entry_timing(dev):
     return rows
 
 
+# ---- phase api: the public names that close the port, on the card ----
+
+# the slot width the q95 encoders of row (a) start from: no 8-bit block at
+# q95 needs 32 words (the row reads the widest block at 32), so a noise frame
+# escalates only from a narrower start, here 16 words to 32
+API_START_WWORDS = 16
+
+
+def jpeg_file(enc, parts) -> np.ndarray:
+    """enc's JPEG file of the seven parts of a device half: its header, the
+    C assembly of the slots, EOI."""
+    return np.concatenate([np.frombuffer(enc._header, np.uint8), enc.assemble(*parts[:6]),
+                           np.frombuffer(b"\xff\xd9", np.uint8)])
+
+
+def plain_file(enc, frame) -> np.ndarray:
+    """enc's file of ``frame`` through the plain version on the frame's
+    device, the slots widened on overflow as ``JpegEncoder.encode`` does."""
+    out = enc.encode_plain(frame)
+    while bool(out[-1]) and enc.wwords < 64:
+        enc.wwords *= 2
+        out = enc.encode_plain(frame)
+    return jpeg_file(enc, out)
+
+
+def api_warm_row(dev, subsampling):
+    """(a) ``JpegEncoder.warm`` at 1080p UYVY q95 (K1, or with 4:4:4 its
+    per-plane entry): warm() at the start width and its escalation, then a
+    seeded noise frame that overflows the start width and escalates.  The
+    file must equal the plain version's on the card and the CPU's; warm()'s
+    seconds and the escalated encode's ms beside a cold encoder's are
+    recorded, not gated."""
+    from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
+    from ultragrid_tpu_torch.types import Codec, vc_get_linesize
+
+    def q95():
+        enc = JpegEncoder(W1080, H1080, in_codec=Codec.UYVY, quality=95, subsampling=subsampling)
+        enc.wwords = API_START_WWORDS
+        return enc
+
+    noise = torch.as_tensor(np.random.default_rng(31).integers(
+        0, 256, (H1080, vc_get_linesize(W1080, Codec.UYVY)), dtype=np.uint8)).to(dev)
+    start = JpegEncoder(W1080, H1080, in_codec=Codec.UYVY, quality=95, subsampling=subsampling)
+    widest = max(int(b.max()) for b in start._encode(noise)[1:6:2])
+    warm = q95()
+    t0 = time.perf_counter()
+    warm.warm()
+    warm_s = time.perf_counter() - t0
+    if warm.wwords != API_START_WWORDS:
+        raise RuntimeError(f"api (a) {subsampling}: warm() changed the slot width to {warm.wwords}")
+    t0 = time.perf_counter()
+    got = warm.encode(noise)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    if warm.wwords != 2 * API_START_WWORDS:
+        raise RuntimeError(f"api (a) {subsampling}: the noise frame escalated to {warm.wwords} words, "
+                           f"not {2 * API_START_WWORDS}")
+    cold = q95()
+    t0 = time.perf_counter()
+    got_cold = cold.encode(noise)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    if not (np.array_equal(got, plain_file(q95(), noise)) and np.array_equal(got, q95().encode(noise.cpu()))
+            and np.array_equal(got, got_cold)):
+        raise RuntimeError(f"api (a) {subsampling}: the escalated file differs from the plain version's "
+                           "on the card or the CPU's")
+    return {"geometry": f"{W1080}x{H1080} UYVY q95 {warm.subsampling}, seeded noise",
+            "start_wwords": start.wwords, "widest_block_bits_at_start": widest,
+            "forced_start_wwords": API_START_WWORDS, "escalated_to_wwords": warm.wwords,
+            "file_equal_plain_card_and_cpu": True, "warm_s": warm_s, "escalated_encode_ms_after_warm": warm_ms,
+            "escalated_encode_ms_cold": cold_ms, "file_bytes": int(got.size)}
+
+
+def phase_api(dev):
+    """The names that close the port's public API, on the card at 1080p:
+    (a) ``JpegEncoder.warm`` and a forced escalation (K1, and its per-plane
+    entry); (b) ``jpeg_encode_core`` on a 1080p UYVY q80 frame, its parts
+    assembling to the CPU's file, one K1 launch a call by the profiler; (c)
+    ``lavc_encoders()`` and the registered audio codecs on this machine,
+    both empty of libavcodec where its headers are absent, as the
+    reference's are.  K1's launches in the phase are read around it."""
+    from ultragrid_tpu_torch.audio import codecs as audio_codecs
+    from ultragrid_tpu_torch.audio.lavc_codecs import LAVC_CODECS
+    from ultragrid_tpu_torch.modules.lavc import lavc_available, lavc_encoders
+    from ultragrid_tpu_torch.ops import jpeg_cuda
+    from ultragrid_tpu_torch.ops.jpeg import JpegEncoder, jpeg_encode_core
+    from ultragrid_tpu_torch.types import Codec, vc_get_linesize
+
+    t_phase = time.perf_counter()
+    out = {"phase": "api", "card": nvidia_smi_line()}
+    reset_kernel_counts()
+    out["warm"] = api_warm_row(dev, None)
+    out["warm_per_plane"] = api_warm_row(dev, "444")
+
+    frame = torch.as_tensor(content(H1080, vc_get_linesize(W1080, Codec.UYVY), 32)).to(dev)
+    before = jpeg_cuda.LAUNCHES.count
+    parts = jpeg_encode_core(frame, W1080, Codec.UYVY, 80)
+    if jpeg_cuda.LAUNCHES.count != before + 1 or bool(parts[-1]) or not all(p.is_cuda for p in parts):
+        raise RuntimeError("api (b): jpeg_encode_core is not one K1 launch on the card without overflow")
+    enc = JpegEncoder(W1080, H1080, in_codec=Codec.UYVY, quality=80)
+    got, want = jpeg_file(enc, parts), enc.encode(frame.cpu())
+    if not np.array_equal(got, want):
+        raise RuntimeError(f"api (b): jpeg_encode_core's file ({got.size} bytes) is not the CPU's ({want.size})")
+    # single-call profiles (the profiler never adds a launch, and may drop one)
+    prof = complete_profiles(lambda: jpeg_encode_core(frame, W1080, Codec.UYVY, 80), {"jpeg_encode_kernel": 1})
+    out["encode_core"] = {
+        "geometry": f"{W1080}x{H1080} UYVY q80", "file_bytes": int(got.size), "file_equal_cpu": True,
+        "k1_launches_a_call": 1, "profile_a_call": prof,
+        "host_ms_a_call": host_ms(lambda: [p.cpu() for p in jpeg_encode_core(frame, W1080, Codec.UYVY, 80)],
+                                  runs=5)}
+
+    encoders, registered = lavc_encoders(), sorted(audio_codecs._CODECS)
+    lavc_names = [cls.NAME for cls in LAVC_CODECS]
+    lavc_registered = [n for n in lavc_names if n in registered]
+    present = lavc_available()
+    if bool(encoders) != present or lavc_registered != (lavc_names if present else []):
+        raise RuntimeError(f"api (c): libavcodec {'present' if present else 'absent'}, but encoders "
+                           f"{encoders[:5]} and lavc audio codecs {lavc_registered}")
+    out["lavc"] = {"libavcodec": "present" if present else "absent", "lavc_encoders": encoders,
+                   "audio_codecs_registered": registered}
+    out["launches"] = kernel_counts()
+    if out["launches"]["jpeg_encode"] < 1 or out["launches"]["jpeg_plane_encode"] < 1:
+        raise RuntimeError(f"api: a kernel of the phase was not launched: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "ultragrid_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -3510,6 +3665,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--only", "remaining"]:
         emit(phase_remaining(dev))
+        return 0
+    if sys.argv[1:] == ["--only", "api"]:
+        emit(phase_api(dev))
         return 0
 
     def frame_for(enc, seed, noise=False):
@@ -4136,6 +4294,9 @@ def main() -> int:
     # the last slice: windowed display, translator, convert, libavcodec, ~/.ug.rc
     rem = phase_remaining(dev)
     emit(rem)
+    # the names that close the public API: warm(), jpeg_encode_core, the lavc lists
+    api = phase_api(dev)
+    emit(api)
 
     one_call = "none: no single PyTorch call computes this function"
     live_l = live["jpeg_ldgm_1080p"]["launches"]
@@ -4157,7 +4318,8 @@ def main() -> int:
                         "launches_tools: each bench tool's run in phase tools (bench_latency's sender; "
                         "its receiver child uncounted); launches_remaining: phase remaining's 1080p60 jpeg + "
                         "LDGM session into -d x11 (" + str(REM_FRAMES) + " frames) and hd_rum_translator's "
-                        "-c jpeg client (" + str(REM_XLATE_FRAMES) + " frames)",
+                        "-c jpeg client (" + str(REM_XLATE_FRAMES) + " frames); launches_api: phase api "
+                        "(warm() and the escalated 1080p q95 encodes, jpeg_encode_core and its profile)",
          "launches_sender_step": launches["jpeg_encode"],
          "launches_audio_session": audio_l["jpeg_encode"], "launches_replay_session": replay_l["jpeg_encode"],
          "launches_standards_session": std["standards_session"]["launches"]["jpeg_encode"],
@@ -4168,6 +4330,7 @@ def main() -> int:
          "launches_sharded_receiver": par["launches_sharded_receiver"]["jpeg_encode"],
          "launches_tools": tools["launches"]["jpeg_encode"],
          "launches_remaining": rem["launches"]["jpeg_encode"],
+         "launches_api": api["launches"]["jpeg_encode"],
          "thumbnail_960x544_rgb": std["preview"]["k1_thumbnail_rgb"],
          "max_abs_err": k1_err, **{key: k1_t["1080p"][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "device_ms": k1_t["1080p"]["device_ms"], "library_ms": None, "library": one_call,
@@ -4180,8 +4343,10 @@ def main() -> int:
                      "which raise for them (F4, repaired in the port)",
          "launches": live["loopback_jpeg_444"]["launches"]["jpeg_plane_encode"],
          "launches_on": "--protocol loopback jpeg:80:0:444 1080p, 30 frames; launches_4k60: the same from a "
-                        "4K60 camera, 60 frames",
+                        "4K60 camera, 60 frames; launches_api: phase api's 1080p q95 4:4:4 warm() and "
+                        "escalated encodes",
          "launches_4k60": live["loopback_jpeg_444_4k60"]["launches"]["jpeg_plane_encode"],
+         "launches_api": api["launches"]["jpeg_plane_encode"],
          "max_abs_err": plane_err, **{key: plane_t[0][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
          "device_ms": plane_t[0]["device_ms"], "library_ms": None, "library": one_call,
          "at": "1920x1080 UYVY q80 4:4:4, frame bytes in -> slots out",

@@ -128,15 +128,18 @@ def test_codec_roundtrip_equals_reference(name):
 
 @pytest.mark.parametrize("name", codecs.LAVC_AUDIO_CODECS)
 def test_lavc_codecs_refused_by_name(name):
-    """The libavcodec codecs, registered under the reference's names: where
-    libavcodec is present, three audio cycles encode to the reference's
-    packets and decode to its samples, byte for byte (one fresh instance in
-    each package); where it is absent, building one names libavcodec."""
-    cls = codecs._CODECS[name]
+    """The libavcodec codecs under the reference's names: where libavcodec
+    is present they are registered, and three audio cycles encode to the
+    reference's packets and decode to its samples, byte for byte (one fresh
+    instance in each package); where it is absent they are not registered,
+    as in the reference, and building one names libavcodec."""
+    cls = next(c for c in codecs.LAVC_CODECS if c.NAME == name)
     if not native.lavc_headers_present():
+        assert name not in codecs._CODECS and name not in ref_codecs._CODECS
         with pytest.raises(ValueError, match="libavcodec"):
             cls()
         return
+    assert codecs._CODECS[name] is cls
     port, ref = cls(), ref_codecs._CODECS[name]()
     for seq in range(3):
         frame, ref_frame = both_read(48000 // 25, frequency=440 + 100 * seq)
@@ -145,6 +148,34 @@ def test_lavc_codecs_refused_by_name(name):
         for g, w in zip(got, want):
             assert same_frame(g, w)
             assert same_frame(port.decompress(g), ref.decompress(w))
+
+
+@pytest.mark.parametrize("shim", ["loads", "absent"])
+def test_lavc_registration_and_encoder_list_equal_the_reference(shim, monkeypatch):
+    """``register_lavc_audio_codecs`` registers the same names as the
+    reference's where the shim loads, and none where it does not (the
+    loader forced to give nothing in both packages); ``lavc_encoders`` lists
+    the reference's encoders, or none."""
+    from ultragrid_tpu.audio import lavc_codecs as ref_lavc_codecs
+    from ultragrid_tpu.modules import lavc as ref_lavc
+    from ultragrid_tpu_torch.audio import lavc_codecs
+    from ultragrid_tpu_torch.modules import lavc
+
+    assert sorted(codecs._CODECS) == sorted(ref_codecs._CODECS)  # as imported
+    if shim == "absent":
+        monkeypatch.setattr(native, "lavc_shim_lib", lambda: None)
+        monkeypatch.setattr(ref_lavc_codecs, "lavc_shim_lib", lambda: None)
+        monkeypatch.setattr(ref_lavc, "lavc_shim_lib", lambda: None)
+    lavc_names = {cls.NAME for cls in lavc_codecs.LAVC_CODECS}
+    monkeypatch.setattr(codecs, "_CODECS", {k: v for k, v in codecs._CODECS.items() if k not in lavc_names})
+    monkeypatch.setattr(ref_codecs, "_CODECS", {k: v for k, v in ref_codecs._CODECS.items() if k not in lavc_names})
+    lavc_codecs.register_lavc_audio_codecs()
+    ref_lavc_codecs.register_lavc_audio_codecs()
+    assert sorted(codecs._CODECS) == sorted(ref_codecs._CODECS)
+    loads = shim == "loads" and native.lavc_headers_present()
+    assert lavc_names <= set(codecs._CODECS) if loads else not lavc_names & set(codecs._CODECS)
+    assert lavc.lavc_encoders() == ref_lavc.lavc_encoders()
+    assert bool(lavc.lavc_encoders()) == loads
 
 
 # ---------------------------------------------------------------------------

@@ -92,6 +92,36 @@ def test_k1_overflow_and_escalation(cuda):
     assert np.array_equal(file_gpu, cpu.encode(frame_np, device="cpu")) and enc.wwords == cpu.wwords
 
 
+@pytest.mark.parametrize("sub", [None, "444"])
+def test_k1_warm_then_escalation(cuda, sub):
+    """warm() on the card launches K1 (or its per-plane entry) once at the
+    slot width and once at its escalation and leaves the width as it was;
+    the escalated file then equals the CPU's."""
+    frame_np = np.random.default_rng(6).integers(0, 256, (64, 512), dtype=np.uint8)
+    enc = JpegEncoder(256, 64, quality=95, subsampling=sub)
+    enc.wwords = 4
+    counter = jpeg_cuda.PLANE_LAUNCHES if sub else jpeg_cuda.LAUNCHES
+    before = counter.count
+    enc.warm()
+    assert counter.count - before == 2 and enc.wwords == 4
+    file_gpu = enc.encode(torch.as_tensor(frame_np).to(cuda))
+    cpu = JpegEncoder(256, 64, quality=95, subsampling=sub)
+    cpu.wwords = 4
+    assert np.array_equal(file_gpu, cpu.encode(frame_np, device="cpu")) and enc.wwords == cpu.wwords > 4
+
+
+def test_jpeg_encode_core_on_the_card(cuda):
+    """One K1 launch, the seven parts equal to the CPU's."""
+    from ultragrid_tpu_torch.ops.jpeg import jpeg_encode_core
+
+    frame_np = content(256, 64, Codec.UYVY, 7)
+    before = jpeg_cuda.LAUNCHES.count
+    got = jpeg_encode_core(torch.as_tensor(frame_np).to(cuda), 256, Codec.UYVY, 80)
+    assert jpeg_cuda.LAUNCHES.count - before == 1 and all(t.is_cuda for t in got)
+    for a, b in zip(got, jpeg_encode_core(frame_np, 256, Codec.UYVY, 80, device="cpu")):
+        assert torch.equal(a.cpu(), b)
+
+
 def test_k2_matches_plain(cuda):
     mask = fec.build_ldgm_matrix(256, 26, 5, 1)
     par = fec.make_gf2_parity(mask, 1001)

@@ -205,3 +205,48 @@ def test_cpu_tensor_never_launches_a_kernel():
         jpeg_cuda.fused_encode(torch.zeros(16, 128, dtype=torch.uint8), t["wc"], t["rows"], t["groups"],
                                t["const"], t["huff"], layout=0, nmcux=4, nmcuy=2, restart_interval=2,
                                wwords=16)
+
+
+@pytest.mark.parametrize("table", ["DC_LUMA", "DC_CHROMA", "AC_LUMA", "AC_CHROMA"])
+def test_pack_tables_byte_equal_to_reference(table):
+    bits, vals = getattr(ref_jpeg, table + "_BITS"), getattr(ref_jpeg, table + "_VALS")
+    got = port_jpeg.pack_tables(*port_jpeg.build_huffman(bits, vals))
+    want = ref_jpeg.pack_tables(*ref_jpeg.build_huffman(bits, vals))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+    assert port_jpeg.BYTES_PER_BLOCK_CAP == ref_jpeg.BYTES_PER_BLOCK_CAP
+
+
+def test_jpeg_encode_core_equals_reference():
+    """The single-shot encode returns the reference's seven parts (slots
+    padded to the slot width, their bit lengths, the overflow flag), and
+    they assemble to the file of ``JpegEncoder.encode`` (which the tests
+    above hold to the reference's)."""
+    w, h = 256, 32
+    frame = frame_for(w, h, Codec.UYVY, 13)
+    want = jax.tree.map(np.asarray, ref_jpeg.jpeg_encode_core(frame, w, Codec.UYVY, 80))
+    got = port_jpeg.jpeg_encode_core(frame, w, port_types.Codec.UYVY, 80, device="cpu")
+    assert all(t.device.type == "cpu" for t in got)
+    assert_outputs_equal(want, got)
+    enc = port_jpeg.JpegEncoder(w, h, quality=80)
+    body = enc.assemble(*got[:-1])
+    assert np.array_equal(np.concatenate([np.frombuffer(enc._header, np.uint8), body, [0xFF, 0xD9]]),
+                          enc.encode(frame, device="cpu"))
+
+
+def test_warm_leaves_the_encoder_as_it_was():
+    """warm() runs the plain version on the CPU at the current width and
+    its first escalation, and leaves the slot width and every later output
+    as a cold encoder's."""
+    frame = frame_for(256, 32, Codec.UYVY, 9, "noise")
+    warm, cold = (port_jpeg.JpegEncoder(256, 32, quality=95) for _ in range(2))
+    warm.warm(device="cpu")
+    assert warm.wwords == cold.wwords == 32
+    warm.warm(widths=(2, 64), device="cpu")
+    assert warm.wwords == 32
+    f = torch.as_tensor(frame)
+    for a, b in zip(warm.encode_device(f), cold.encode_device(f)):
+        assert torch.equal(a, b)
+    assert np.array_equal(warm.encode(frame, device="cpu"), cold.encode(frame, device="cpu"))
+    assert warm.wwords == cold.wwords

@@ -299,6 +299,52 @@ def test_fast_rx_reassembles_the_other_side(fec, kind, direction):
         assert np.array_equal(_host(f.data).reshape(-1), data.reshape(-1))
 
 
+@pytest.mark.parametrize("side", ["port", "ref"])
+def test_fast_rx_a_later_frame_wider_than_the_slots(side):
+    """ROADMAP F12 for a later, larger frame: a 64x32 frame, a 384x360 one
+    (270 KiB, past the 256 KiB slots) and a 64x32 one in one receive batch
+    at MTU 9000.  The port holds the batch at the wide frame, grows its
+    slots and scatters it: three whole frames, nothing handed back.  The
+    reference hands the wide frame's datagrams back to the slow path and
+    its fast path gives the two small frames only (recorded)."""
+    rec = _Recorder()
+    tx = transmit.Tx(mtu=9000, device="cpu")
+    sizes = ((64, 32), (384, 360), (64, 32))
+    sent = [_uyvy(w, h, seed=i) for i, (w, h) in enumerate(sizes)]
+    for i, ((w, h), data) in enumerate(zip(sizes, sent)):
+        tx.send_video(rec, VideoFrame(VideoDesc(w, h, Codec.UYVY, 30.0), [torch.as_tensor(data)], 1.0 + i))
+    port_no = free_port_pair()
+    if side == "port":
+        session = RtpSession(addr=None, rx_port=port_no, tx_port=0)
+        fast = FastVideoRx(session, VideoRxState(device="cpu"))
+    else:
+        session = RefSession(addr=None, rx_port=port_no, tx_port=0)
+        fast = RefFastRx(session, RefRxState())
+    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    frames, handed_back = [], []
+    try:
+        for pkt in rec.packets:
+            sock.sendto(pkt, ("127.0.0.1", port_no))
+        time.sleep(0.2)  # every datagram waits in the socket: one batch
+        deadline = time.monotonic() + 1.5
+        while len(frames) < len(sent) and time.monotonic() < deadline:
+            handed_back += fast.drain(timeout=0.01)
+            frames += fast.poll(time.monotonic() + 10, 0.0)
+    finally:
+        sock.close()
+        fast.close()
+        session.close()
+    wide = len(rec.packets) - 2
+    if side == "port":
+        assert handed_back == [] and len(frames) == 3
+        for f, data in zip(frames, sent):
+            assert np.array_equal(_host(f.data).reshape(data.shape), data)
+    else:
+        assert len(handed_back) == wide and len(frames) == 2
+        for f, data in zip(frames, (sent[0], sent[2])):
+            assert np.array_equal(_host(f.data).reshape(data.shape), data)
+
+
 # ---------------------------------------------------------------------------
 # live sessions, both ways
 # ---------------------------------------------------------------------------
@@ -426,3 +472,24 @@ def test_receiver_refuses_an_unknown_fast_path_mode():
             recv.run()
     finally:
         recv.session.close()
+
+
+@pytest.mark.parametrize("package", ["port", "reference"])
+def test_async_wait_returns_once_every_packet_is_handed_to_the_socket(package):
+    """After ``async_wait`` every packet sent before it is in the receiving
+    socket on 127.0.0.1 (the reference waits for its send thread; the port
+    sends from the caller's thread and returns at once)."""
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.bind(("127.0.0.1", 0))
+    sess = (RtpSession if package == "port" else RefSession)(addr="127.0.0.1", rx_port=0,
+                                                             tx_port=rx.getsockname()[1])
+    try:
+        for i in range(5):
+            sess.send_data_hdr(i, 96, True, b"", bytes([i]) * 10)
+        sess.async_wait()
+        rx.setblocking(False)
+        got = [rx.recv(2048) for _ in range(5)]
+        assert [g[12:] for g in got] == [bytes([i]) * 10 for i in range(5)]
+    finally:
+        sess.close()
+        rx.close()

@@ -327,6 +327,26 @@ def test_sharded_deinterlace_bit_identical(kind, codec):
     assert np.array_equal(got, np.asarray(host))
 
 
+@pytest.mark.parametrize("kind", ["blend", "linear"])
+def test_make_sharded_deinterlace_equals_the_reference(kind):
+    """The cached callable over the row blocks: the same object for the same
+    mesh, codec and kind, as the reference's ``lru_cache``, and bands equal
+    to the reference's callable over its sharded array."""
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    w, h = 96, 8 * 4
+    frame = np.random.default_rng(5).integers(0, 256, (h, vc_get_linesize(w, Codec.UYVY)), dtype=np.uint8)
+    mesh, pc = cpu_mesh(), port_types.Codec.UYVY
+    fn = port_sp.make_sharded_deinterlace(mesh, pc, kind)
+    assert port_sp.make_sharded_deinterlace(mesh, pc, kind) is fn
+    got = gather(fn(shard_frame_rows(frame, mesh)))
+    rmesh = ref_mesh.make_mesh(8, data=1)
+    sharded = jax.device_put(jnp.asarray(frame), NamedSharding(rmesh, PartitionSpec("spatial", None)))
+    assert np.array_equal(got, np.asarray(ref_sp.make_sharded_deinterlace(rmesh, Codec.UYVY, kind)(sharded)))
+    with pytest.raises(ValueError, match="row blocks"):
+        fn(shard_frame_rows(frame, mesh)[:-1])
+
+
 def test_sharded_deinterlace_rejects_odd_blocks():
     frame = np.zeros((8 * 3, 64), np.uint8)  # 3 rows a block: odd
     with pytest.raises(ValueError, match="even-height"):

@@ -312,6 +312,70 @@ def test_rtsp_capture_h264_with_sprop(server, monkeypatch):
         assert k < len(want), "a decoded frame is no later reference picture"
 
 
+SLOW_AUS, SLOW_AU_BYTES, SLOW_FPS, SLOW_DECODE_S = 30, 24000, 60.0, 0.1
+SLOW_RECV_BUF = 256 * 1024  # the port's socket asks for this, not RECV_BUF: the stream outruns it
+
+
+@pytest.mark.parametrize("package", ["port", "reference"])
+def test_rtsp_capture_keeps_every_access_unit_behind_a_slow_decoder(package, monkeypatch):
+    """A camera paced at 60 access units a second (30 of 24 KB, H.264 FU-A
+    at 1,200 bytes) into a capture whose decode takes 0.1 s an access unit
+    (``_to_frame`` slowed by a sleep; ``decompress=no``), the port's socket
+    asking for 256 KiB, less than the 720 KB stream.  The port's rx thread
+    only reads and depacketizes, so every access unit comes out, in order.
+    The reference decodes on its rx thread, its socket overflows meanwhile
+    and access units come out short or not at all (recorded, not
+    repaired)."""
+    from ultragrid_tpu_torch.modules import rtsp_capture
+    from ultragrid_tpu.modules.rtsp_capture import RtspCapture as RefRtspCapture
+
+    rng = np.random.default_rng(8)
+    aus = [b"\x00\x00\x00\x01\x41" + rng.integers(1, 256, SLOW_AU_BYTES, dtype=np.uint8).tobytes()
+           for _ in range(SLOW_AUS)]
+    cls = RtspCapture if package == "port" else RefRtspCapture
+    to_frame = cls._to_frame
+
+    def slow_to_frame(self, payload):
+        time.sleep(SLOW_DECODE_S)
+        return to_frame(self, payload)
+
+    monkeypatch.setattr(cls, "_to_frame", slow_to_frame)
+    monkeypatch.setattr(rtsp_capture, "RECV_BUF", SLOW_RECV_BUF)
+
+    def on_play(addr, port):
+        def pump():
+            sess = RtpSession(addr=addr, rx_port=0, tx_port=port)
+            t_next = time.perf_counter()
+            for i, au in enumerate(aus):
+                pkts = rtpdec_h264.packetize(au, mtu_payload=1200)
+                for j, p in enumerate(pkts):
+                    sess.send_data_hdr(i * 1500, 96, j == len(pkts) - 1, b"", p)
+                t_next += 1 / SLOW_FPS
+                time.sleep(max(0.0, t_next - time.perf_counter()))
+            sess.close()
+
+        threading.Thread(target=pump, daemon=True).start()
+
+    srv = rtsp.RtspServer([("video", 5004, 96, "H264", 90000)], port=0, on_play=on_play)
+    got = []
+    try:
+        url = f"rtsp://127.0.0.1:{srv.port}/camera:decompress=no"
+        cap = RtspCapture(url, device="cpu") if package == "port" else RefRtspCapture(url)
+        last = time.monotonic()
+        while len(got) < SLOW_AUS and time.monotonic() - last < 1.5:
+            f, _ = cap.grab()
+            if f is not None:
+                got.append(bytes(np.asarray(f.data)))
+                last = time.monotonic()
+        cap.done()
+    finally:
+        srv.close()
+    if package == "port":
+        assert got == aus
+    else:
+        assert len(got) < SLOW_AUS or got != aus
+
+
 def test_rtsp_capture_grammar_and_no_video():
     with pytest.raises(ValueError, match="usage"):
         RtspCapture("http://x/y", device="cpu")

@@ -314,6 +314,18 @@ def test_loopback_equals_reference(compress):
         assert np.array_equal(_host(p.data), np.asarray(r.data))
 
 
+def test_loopback_bounds_its_queues_by_buff_max_len():
+    """The frames queued between the loopback's halves are bounded by the
+    reference's ``BUFF_MAX_LEN`` (ref: loopback.c:62)."""
+    from ultragrid_tpu.pipeline import loopback as ref_loopback_mod
+    from ultragrid_tpu_torch.pipeline import loopback as loopback_mod
+
+    assert loopback_mod.BUFF_MAX_LEN == ref_loopback_mod.BUFF_MAX_LEN == 2
+    lb = LoopbackRxTx("testcard:s=64x32:f=1000:c=UYVY", "dummy", frame_limit=2, device="cpu")
+    assert lb.compress.in_queue.maxsize == lb.compress.out_queue.maxsize == loopback_mod.BUFF_MAX_LEN
+    assert lb.run() == 2
+
+
 # ---------------------------------------------------------------------------
 # the CLI
 # ---------------------------------------------------------------------------

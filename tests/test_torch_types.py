@@ -148,3 +148,31 @@ def test_video_frame_fields_setter_and_copy():
     assert torch.equal(c.data, other) and c.data.data_ptr() != other.data_ptr()
     np_frame = port_types.VideoFrame(desc, [np.zeros((32, 128), np.uint8)]).copy()
     assert isinstance(np_frame.data, np.ndarray)
+
+
+@pytest.mark.parametrize("name", ALL_CODECS)
+def test_codec_helpers(name):
+    """get_bpp / CodecInfo.bpp, get_subsampling, is_codec_interframe,
+    codec_is_const_size, codec_get_planes_subsampling and vc_get_size equal
+    the reference's for every codec (vc_get_size at several widths)."""
+    cp, cr = port_types.Codec[name], ref_types.Codec[name]
+    assert port_types.get_bpp(cp) == ref_types.get_bpp(cr) == port_types.get_codec_info(cp).bpp
+    assert port_types.get_subsampling(cp) == ref_types.get_subsampling(cr)
+    assert port_types.is_codec_interframe(cp) == ref_types.is_codec_interframe(cr)
+    assert port_types.codec_is_const_size(cp) == ref_types.codec_is_const_size(cr)
+    assert port_types.codec_get_planes_subsampling(cp) == ref_types.codec_get_planes_subsampling(cr)
+    for width in (0, 1, 2, 6, 7, 8, 48, 64, 1918, 1920, 3840, 7680):
+        assert port_types.vc_get_size(width, cp) == ref_types.vc_get_size(width, cr)
+
+
+def test_constants_all_and_top_level_exports():
+    assert port_types.__all__ == ref_types.__all__
+    assert all(hasattr(port_types, n) for n in port_types.__all__)
+    assert (port_types.MAX_PADDING, port_types.KHZ_90, port_types.PIX_BLOCK_LCM) == \
+        (ref_types.MAX_PADDING, ref_types.KHZ_90, ref_types.PIX_BLOCK_LCM)
+    import ultragrid_tpu
+    import ultragrid_tpu_torch
+
+    for name in ("get_bpp", "vc_get_size", "vc_get_datalen", "get_bits_per_component", "InterlacingType"):
+        assert getattr(ultragrid_tpu_torch, name) is getattr(port_types, name)
+        assert hasattr(ultragrid_tpu, name)

@@ -11,6 +11,16 @@ stages in ``native/`` (:mod:`ultragrid_tpu_torch.native`).
 """
 
 from ultragrid_tpu_torch.device import get_device  # noqa: F401
-from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame, vc_get_linesize  # noqa: F401
+from ultragrid_tpu_torch.types import (  # noqa: F401
+    Codec,
+    VideoDesc,
+    VideoFrame,
+    InterlacingType,
+    get_bpp,
+    get_bits_per_component,
+    vc_get_linesize,
+    vc_get_size,
+    vc_get_datalen,
+)
 
 __version__ = "0.2.0"

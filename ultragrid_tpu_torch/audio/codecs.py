@@ -2,9 +2,9 @@
 
 The port's copy of ``ultragrid_tpu/audio/codecs.py`` (ref: src/audio/codec.{h,c}),
 with the libavcodec-backed codecs of ``audio/lavc_codecs.py`` (Opus, G.722,
-Speex, MP3, AAC, FLAC) registered beside PCM, A-law and mu-law (ref
-``lavc_codecs.py:247-254``); where libavcodec is absent, building one of
-them raises an error that names it rather than sending PCM in its place.
+Speex, MP3, AAC, FLAC) registered beside PCM, A-law and mu-law where
+libavcodec's shim loads (ref ``lavc_codecs.py:247-254``); where it does not,
+their names are not registered, as in the reference.
 """
 
 from __future__ import annotations
@@ -163,9 +163,9 @@ def get_audio_codec(name: str) -> AudioCodec:
     return inst
 
 
-# the libavcodec-backed codecs (audio/lavc_codecs.py)
-from ultragrid_tpu_torch.audio.lavc_codecs import LAVC_CODECS  # noqa: E402
+# the libavcodec-backed codecs (audio/lavc_codecs.py), registered where
+# libavcodec's shim loads, as in the reference
+from ultragrid_tpu_torch.audio.lavc_codecs import LAVC_CODECS, register_lavc_audio_codecs  # noqa: E402
 
 LAVC_AUDIO_CODECS = tuple(cls.NAME for cls in LAVC_CODECS)
-for _cls in LAVC_CODECS:
-    _CODECS.setdefault(_cls.NAME, _cls)
+register_lavc_audio_codecs()

@@ -13,9 +13,9 @@ audio_frame2_resample path).
 
 The port's copy of ``ultragrid_tpu/audio/lavc_codecs.py`` over the port's
 shim (``native.lavc_shim_lib``); audio stays host numpy, as in the
-reference.  The codecs are registered under their names whether or not
-libavcodec is present; where it is absent, building one raises an error that
-names libavcodec.
+reference.  :func:`register_lavc_audio_codecs` registers them under their
+names where the shim loads, and only there, as the reference's does; a
+codec class built where libavcodec is absent raises an error that names it.
 """
 
 from __future__ import annotations
@@ -249,3 +249,16 @@ class FlacCodec(LavcAudioCodec):
 
 
 LAVC_CODECS = (OpusCodec, G722Codec, SpeexCodec, Mp3Codec, AacCodec, FlacCodec)
+
+
+def register_lavc_audio_codecs() -> None:
+    """Register :data:`LAVC_CODECS` beside PCM, A-law and mu-law where the
+    shim loads (ref ``register_lavc_audio_codecs``, lavc_codecs.py:247):
+    nothing where the FFmpeg headers are absent or the loader gives no
+    library, and no name already registered is replaced."""
+    if not native.lavc_headers_present() or native.lavc_shim_lib() is None:
+        return
+    from ultragrid_tpu_torch.audio import codecs
+
+    for cls in LAVC_CODECS:
+        codecs._CODECS.setdefault(cls.NAME, cls)

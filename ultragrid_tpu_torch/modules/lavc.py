@@ -88,6 +88,18 @@ def lavc_available() -> bool:
     return native.lavc_headers_present()
 
 
+def lavc_encoders() -> List[str]:
+    """The names of the encoders libavcodec offers (ref ``lavc_encoders``,
+    modules/lavc.py:70, over the shim's ``lavc_list``); ``[]`` where the
+    shim does not load."""
+    lib = native.lavc_shim_lib() if lavc_available() else None
+    if lib is None:
+        return []
+    buf = ctypes.create_string_buffer(1 << 16)
+    n = lib.lavc_list(1, buf, 1 << 16)
+    return buf.raw[:n].decode().split()
+
+
 def _lib() -> ctypes.CDLL:
     if not lavc_available():
         raise ValueError("libavcodec unavailable: no FFmpeg headers for the shim (csrc/lavc_shim.c)")

@@ -16,10 +16,17 @@ on the card), H.264 by ``OwnH264Decompress`` first, as the reference's
 ``decompress_init`` orders it; a stream outside the own decoder's envelope,
 and H.264 to RGB, go to libavcodec where it is present.  Where no module
 gives the output, the compressed frames pass through with an error, as in
-the reference.  The RTP socket asks for the session's receive buffer
-(``RECV_BUF``), so that datagrams wait while the rx thread decodes.  ``decompress=no``
-passes the compressed frames through.  The rx thread decodes, so it enters
-the capture's stream (the stream current where the capture was built).
+the reference.  ``decompress=no`` passes the compressed frames through.
+
+The rx thread only reads and depacketizes: it hands every access unit, in
+order, to a decode thread, and never waits on a decode, so a camera faster
+than the decoder loses no datagram (the reference decodes on its rx thread,
+which then overruns the socket).  No access unit is dropped on the way, since
+a P frame needs the one before it; only the queue of decoded frames keeps
+the latest (a camera that stays faster than the decoder makes the queue of
+access units grow, and the frames lag).  The decode thread enters the
+capture's stream (the stream current where the capture was built).  The
+RTP socket still asks for the session's receive buffer (``RECV_BUF``).
 """
 
 from __future__ import annotations
@@ -48,8 +55,8 @@ log = Logger("vidcap.rtsp")
 
 
 # the receive buffer the port's RtpSession asks for (net/rtp.py; ref:
-# doc/PERFORMANCE-TUNING.md:18-22): the rx thread decodes between reads, and
-# a 1080p JPEG frame is about 30 datagrams, an H.264 IDR 145
+# doc/PERFORMANCE-TUNING.md:18-22): a 1080p JPEG frame is about 30
+# datagrams, an H.264 IDR 145
 RECV_BUF = 4 * 1024 * 1024
 
 
@@ -146,15 +153,21 @@ class RtspCapture(VideoCapture):
         self._decomp = None
         self._out_codec = None
         self._frames: "queue.Queue[VideoFrame]" = queue.Queue(maxsize=4)
+        # every access unit in arrival order, then None at the end of the stream
+        self._aus: "queue.Queue[Optional[bytes]]" = queue.Queue()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._rx_loop, name="rtsp-rx", daemon=True)
+        self._decoder = threading.Thread(target=self._decode_loop, name="rtsp-decode", daemon=True)
         self._thread.start()
+        self._decoder.start()
 
     # -- RTP receive ------------------------------------------------------
 
     def _rx_loop(self) -> None:
-        with stream_context(self.stream):
+        try:
             self._rx_packets()
+        finally:
+            self._aus.put(None)
 
     def _rx_packets(self) -> None:
         while not self._stop.is_set():
@@ -178,19 +191,26 @@ class RtspCapture(VideoCapture):
             if pt != self.media.payload_type or len(data) <= off:
                 continue
             out = self._depack.feed(data[off:], marker)
-            if out is None:
-                continue
-            frame = self._to_frame(bytes(out))
-            if frame is None:
-                continue
-            try:
-                self._frames.put_nowait(frame)
-            except queue.Full:  # drop oldest: live source, latest wins
+            if out is not None:
+                self._aus.put(bytes(out))
+
+    def _decode_loop(self) -> None:
+        with stream_context(self.stream):
+            while True:
+                payload = self._aus.get()
+                if payload is None or self._stop.is_set():
+                    return
+                frame = self._to_frame(payload)
+                if frame is None:
+                    continue
                 try:
-                    self._frames.get_nowait()
                     self._frames.put_nowait(frame)
-                except queue.Empty:
-                    pass
+                except queue.Full:  # drop oldest: live source, latest wins
+                    try:
+                        self._frames.get_nowait()
+                        self._frames.put_nowait(frame)
+                    except queue.Empty:
+                        pass
 
     def _to_frame(self, payload: bytes) -> Optional[VideoFrame]:
         data = np.frombuffer(payload, dtype=np.uint8)
@@ -241,6 +261,7 @@ class RtspCapture(VideoCapture):
         except OSError:
             pass
         self._thread.join(timeout=2.0)
+        self._decoder.join(timeout=2.0)
 
 
 register_module("rtsp", LibraryClass.VIDEO_CAPTURE, RtspCapture)

@@ -543,18 +543,19 @@ class CompressDriver:
     frames (the new module is built off-thread, then swapped in one
     assignment).  On the card the worker enqueues its device work on
     ``stream``, the pipeline's one stream (see ``pipeline/sender.py``).
+    Each queue holds ``queue_len`` frames (the loopback's ``BUFF_MAX_LEN``).
     """
 
     def __init__(self, spec: str, parent: Optional[Module] = None, device="cuda",
-                 stream: Optional[torch.cuda.Stream] = None):
+                 stream: Optional[torch.cuda.Stream] = None, queue_len: int = 2):
         self.device = get_device(device)
         self.stream = stream
         self.module = Module("compress", parent)
         self.module.msg_callback = self._on_message
         self._impl = compress_init(spec, self.device)
         self._lock = threading.Lock()
-        self.in_queue: "queue.Queue" = queue.Queue(maxsize=2)
-        self.out_queue: "queue.Queue" = queue.Queue(maxsize=2)
+        self.in_queue: "queue.Queue" = queue.Queue(maxsize=queue_len)
+        self.out_queue: "queue.Queue" = queue.Queue(maxsize=queue_len)
         self._thread = threading.Thread(target=self._worker, name="compress", daemon=True)
         self._thread.start()
 

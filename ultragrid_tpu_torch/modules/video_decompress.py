@@ -42,6 +42,8 @@ from ultragrid_tpu_torch.utils.params import add_to_param, get_commandline_param
 
 log = Logger("decompress")
 
+DECODER_GOT_CODEC = 1  # probing result marker (ref: video_decompress.h:95)
+
 add_to_param("h264-decoder",
              "H.264 decode path: own (default; C entropy+recon, lavc "
              "fallback out of envelope) | lavc | python")

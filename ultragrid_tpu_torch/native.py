@@ -4,8 +4,7 @@
 ``native/jpeg_scan_decode.c`` (the receiver's entropy decode, restart
 segments across host threads), ``native/ldgm_xor.c`` (the host LDGM
 staircase encoder), ``native/udp_tx.c`` (the sender's sendmmsg batches),
-``native/udp_rx.c`` (recvmmsg batches), ``native/video_rx_fast.c`` (the
-receiver's C depacketizer), ``native/h264_assemble.c`` (per-macroblock
+``native/udp_rx.c`` (recvmmsg batches), ``native/h264_assemble.c`` (per-macroblock
 H.264 slot windows -> emulation-prevented slice payload) and
 ``native/h264_entropy.c`` (the own H.264 decoder and the CABAC transcoder)
 and ``native/j2k_t1.c`` (the JPEG 2000 Tier-1 block coder) are plain C
@@ -16,7 +15,10 @@ of them.  The libavcodec shim is the port's own copy,
 ``ultragrid_tpu_torch/csrc/lavc_shim.c`` (the reference's
 ``native/lavc_shim.c`` with its decoder fault F1 repaired); where the
 FFmpeg headers are absent the lavc modules are unavailable, as in the
-reference, and where they are present a failed build raises.
+reference, and where they are present a failed build raises.  So is the
+receiver's C depacketizer, ``ultragrid_tpu_torch/csrc/video_rx_fast.c``
+(``native/video_rx_fast.c`` with fault F12 repaired: it grows the slots
+before it scatters a frame wider than them).
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ import tempfile
 from functools import lru_cache
 
 from ultragrid_tpu_torch._build import BUILD_DIR
+from ultragrid_tpu_torch.utils.log import Logger
+
+log = Logger("native")  # the reference's module logger; the port's loaders raise instead of warning
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
 _CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -120,8 +125,10 @@ def udp_rx_lib() -> ctypes.CDLL:
 def video_rx_fast_lib() -> ctypes.CDLL:
     """The receiver's C depacketizer: recvmmsg, RTP and payload-header parse
     and the scatter into per-frame buffers (reference loader
-    ``native.py:255``)."""
-    lib = ctypes.CDLL(_build("video_rx_fast"))
+    ``native.py:255``), from the port's copy ``csrc/video_rx_fast.c``,
+    which grows the slots before it scatters a frame wider than them
+    (ROADMAP F12)."""
+    lib = ctypes.CDLL(_build("video_rx_fast", src_dir=_CSRC_DIR))
     lib.vrx_create.restype = _P
     lib.vrx_create.argtypes = [ctypes.c_long, ctypes.c_long]
     lib.vrx_destroy.argtypes = [_P]

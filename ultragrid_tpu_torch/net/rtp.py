@@ -298,6 +298,15 @@ class RtpSession:
         if self.rtcp is not None:
             self.rtcp.on_rtp_sent(int(headers.nbytes + szs.sum()), ts)
         return int(n)
+
+    def async_wait(self) -> None:
+        """Return once every packet already sent has been handed to the
+        kernel (ref: rtp_async_wait, rtp.c:4060-4068).  The port sends from
+        the caller's thread, so each send call hands its packets to the
+        socket before it returns, and there is no queue to wait for: this
+        returns at once.  Kept so that callers of the reference's API run
+        unchanged."""
+
     # -- receive --------------------------------------------------------
 
     def _parse(self, data: bytes, arrival: float) -> Optional[RtpPacket]:

@@ -1,11 +1,18 @@
 """Fast-path video receive: C depacketizer + frame-granularity gating.
 
-The port's copy of ``ultragrid_tpu/net/vrx_fast.py``, over the port's loader
-of the shared ``native/video_rx_fast.c`` (which raises if it cannot be
-built).  Slot buffers are host memory; a display-owned framebuffer on the
-card gets each frame by one upload.
+The port's copy of ``ultragrid_tpu/net/vrx_fast.py``, over the port's own
+copy of the C layer, ``csrc/video_rx_fast.c`` (its loader raises if it
+cannot be built).  Slot buffers are host memory; a display-owned
+framebuffer on the card gets each frame by one upload.
 
-Wraps native/video_rx_fast.c — recvmmsg, RTP parse, UltraGrid payload
+A frame wider than the slots (they start at 256 KiB) makes the C layer hold
+its receive batch at the frame's first datagram; :meth:`FastVideoRx.drain`
+grows the free slots and calls again, so the frame lands whole.  The
+reference hands that batch back and grows the slots after it, so the first
+such frame shows zeros where the batch's datagrams went (ROADMAP F12,
+repaired here).
+
+Wraps csrc/video_rx_fast.c — recvmmsg, RTP parse, UltraGrid payload
 header parse and payload scatter into per-frame reassembly buffers all
 run in C (the per-packet work the reference also keeps in C/C++:
 udp_reader net_udp.c:163-187, pbuf_insert pbuf.c:438, the LINE_DECODER
@@ -53,7 +60,7 @@ from ultragrid_tpu_torch.utils.log import Logger
 log = Logger("vrx_fast")
 
 META_WORDS = 12
-VRX_BATCH = 256  # datagrams per recvmmsg batch (native/video_rx_fast.c)
+VRX_BATCH = 256  # datagrams per recvmmsg batch (csrc/video_rx_fast.c)
 STUCK_TIMEOUT = 1.0  # ref: pbuf.c:599 — force-decode a stuck frame
 
 _FAST_PTS = (rt.PT_VIDEO, rt.PT_VIDEO_LDGM, rt.PT_VIDEO_RS)
@@ -156,8 +163,9 @@ class FastVideoRx:
                 self._stamp_arrivals(now)
             if n_ovf.value:
                 self._parse_overflow(overflow, n_ovf.value, now)
-            if flags.value & 2 and need_cap.value:  # NEED_CAP
+            if flags.value & 2 and need_cap.value:  # NEED_CAP: the C layer holds the batch
                 self._grow(int(need_cap.value))
+                continue  # the next call scatters the held datagrams into the grown slots
             if n < 200:  # batch not full: socket drained
                 break
         # refresh session counters (control stats lines)

@@ -34,7 +34,7 @@ import torch
 from ultragrid_tpu_torch import native
 from ultragrid_tpu_torch.device import get_device
 from ultragrid_tpu_torch.ops import jpeg_cuda
-from ultragrid_tpu_torch.types import Codec, VideoFrame
+from ultragrid_tpu_torch.types import Codec, VideoFrame, vc_get_linesize
 
 # ---------------------------------------------------------------------------
 # Tables (JPEG Annex K)
@@ -141,6 +141,26 @@ def build_huffman(bits, vals):
             k += 1
         code <<= 1
     return codes, lens
+
+
+BYTES_PER_BLOCK_CAP = 256  # output budget per 8x8 block (the reference's; worst realistic case)
+
+
+def pack_tables(codes: np.ndarray, lens: np.ndarray):
+    """A 256-entry Huffman table as the reference's packed uint32 tables
+    (ref ``pack_tables``, ops/jpeg.py:168): lengths less one as 4-bit
+    nibbles (32 words), code low and high bytes four to a word (64 words
+    each).  The port's kernels take ``(code << 5) | length`` instead
+    (:meth:`JpegEncoder.tables`); this is the reference's public layout."""
+    lens_nib = np.zeros(32, dtype=np.uint32)
+    for i, ln in enumerate(lens):
+        lens_nib[i >> 3] |= np.uint32(max(int(ln) - 1, 0) & 0xF) << ((i & 7) * 4)
+    code_lo = np.zeros(64, dtype=np.uint32)
+    code_hi = np.zeros(64, dtype=np.uint32)
+    for i, c in enumerate(codes):
+        code_lo[i >> 2] |= np.uint32(int(c) & 0xFF) << ((i & 3) * 8)
+        code_hi[i >> 2] |= np.uint32((int(c) >> 8) & 0xFF) << ((i & 3) * 8)
+    return lens_nib, code_lo, code_hi
 
 
 def scale_quant_table(base: np.ndarray, quality: int) -> np.ndarray:
@@ -752,6 +772,31 @@ class JpegEncoder:
             self.wwords *= 2
         return self._encode(frame)
 
+    def warm(self, widths=None, device="cuda") -> None:
+        """Launch the device half once at each slot width of ``widths``
+        (default: the current width and its first escalation), so that a
+        mid-stream :meth:`escalate_and_retry` never waits on a build or a
+        first launch (reference ``warm``, ops/jpeg.py:756, which compiles its
+        graphs ahead).  On the card this builds K1 (for a per-plane geometry,
+        its per-plane entry), makes the device tables, loads the kernel and
+        leaves the caching allocator holding each width's output blocks; on
+        the CPU it runs the plain version.  The slot width is left as it was.
+        Call once at start-up, on the device the frames will come on."""
+        if widths is None:
+            widths = (self.wwords, min(self.wwords * 2, 64))
+        dev = get_device(device)
+        frame = torch.zeros(self.height, vc_get_linesize(self.width, self.in_codec),
+                            dtype=torch.uint8, device=dev)
+        keep = self.wwords
+        try:
+            for ww in widths:
+                self.wwords = ww
+                self._encode(frame)
+        finally:
+            self.wwords = keep
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
     # -- public ---------------------------------------------------------
 
     def encode(self, frame, device="cuda") -> np.ndarray:
@@ -890,6 +935,19 @@ class JpegBatchEncoder:
 # Host pure-Python decoder (the reference's path for a stream the C scan
 # decoder rejects; also an independent test oracle)
 # ---------------------------------------------------------------------------
+
+
+def jpeg_encode_core(frame, width: int, in_codec: Codec, quality: int, device="cuda"):
+    """Single-shot device encode (ref ``jpeg_encode_core``, ops/jpeg.py:1244):
+    a fresh :class:`JpegEncoder` for the frame's height, and what its
+    :meth:`~JpegEncoder.encode_device` returns, as the reference's does:
+    (ys, ybits, us, ubits, vs, vbits, overflow), each component's blocks as
+    slots padded to the encoder's slot width with their lengths in bits.
+    No escalation: the caller checks the overflow flag.  A tensor is encoded
+    on its own device; an array is copied to ``device`` (the card unless the
+    caller names another)."""
+    enc = JpegEncoder(width, frame.shape[0], in_codec=in_codec, quality=quality)
+    return enc.encode_device(frame, device=device)
 
 
 class _BitReader:

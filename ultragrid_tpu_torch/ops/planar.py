@@ -16,6 +16,9 @@ from __future__ import annotations
 import torch
 
 from ultragrid_tpu_torch.ops._kutils import shr
+from ultragrid_tpu_torch.types import Codec
+
+C = Codec  # the reference's short name for the codec ids
 
 
 def uyvy_to_i420(src: torch.Tensor, width: int, height: int) -> torch.Tensor:

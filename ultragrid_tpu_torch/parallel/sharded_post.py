@@ -15,6 +15,7 @@ on the whole frame.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import List
 
 import torch
@@ -52,6 +53,25 @@ def _linear_block(blocks, i: int, codec: Codec) -> torch.Tensor:
 _KINDS = {"blend": _blend_block, "linear": _linear_block}
 
 
+@lru_cache(maxsize=64)
+def make_sharded_deinterlace(mesh: Mesh, codec: Codec, kind: str = "blend"):
+    """The deinterlace over the mesh's 'spatial' axis (ref
+    ``make_sharded_deinterlace``, sharded_post.py:68, cached as the
+    reference's): a callable from the frame's row blocks, one a device as
+    :func:`~ultragrid_tpu_torch.parallel.mesh.shard_frame_rows` gives them,
+    to the deinterlaced blocks, each on its block's device with the one-row
+    halo from the next."""
+    block, codec = _KINDS[kind], Codec(codec)
+    n = mesh.shape["spatial"]
+
+    def deinterlace(blocks: List[torch.Tensor]) -> List[torch.Tensor]:
+        if len(blocks) != n:
+            raise ValueError(f"{len(blocks)} row blocks for a 'spatial' axis of {n}")
+        return [block(blocks, i, codec) for i in range(n)]
+
+    return deinterlace
+
+
 def sharded_deinterlace(frame, codec: Codec, mesh: Mesh, kind: str = "blend") -> List[torch.Tensor]:
     """Shard ``frame`` [H, linesize] (array or tensor) over the mesh's
     'spatial' axis and deinterlace it: the row blocks, each computed on its
@@ -60,6 +80,4 @@ def sharded_deinterlace(frame, codec: Codec, mesh: Mesh, kind: str = "blend") ->
     h = frame.shape[0]
     if h % n or (h // n) % 2:
         raise ValueError(f"height {h} must split into even-height blocks over {n} shards")
-    block, codec = _KINDS[kind], Codec(codec)
-    blocks = shard_frame_rows(frame, mesh)
-    return [block(blocks, i, codec) for i in range(n)]
+    return make_sharded_deinterlace(mesh, Codec(codec), kind)(shard_frame_rows(frame, mesh))

@@ -28,6 +28,8 @@ from ultragrid_tpu_torch.utils.log import Logger
 
 log = Logger("loopback")
 
+BUFF_MAX_LEN = 2  # frames queued between the halves (ref: loopback.c:62)
+
 
 class LoopbackRxTx:
     """capture -> compress -> decompress -> display, all in-process, on
@@ -50,7 +52,8 @@ class LoopbackRxTx:
         self.capture_chain = FilterChain(capture_filter)
         self.postprocess = FilterChain(postprocess)
         self.root = Module("root")
-        self.compress = CompressDriver(compress_spec, self.root, self.device, self.stream)
+        self.compress = CompressDriver(compress_spec, self.root, self.device, self.stream,
+                                       queue_len=BUFF_MAX_LEN)
         self.frame_limit = frame_limit
         self.frames_shown = 0
         self._display_desc = None

@@ -16,9 +16,44 @@ from __future__ import annotations
 import dataclasses
 import enum
 from fractions import Fraction
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+__all__ = [
+    "Codec",
+    "Subsampling",
+    "InterlacingType",
+    "VideoDesc",
+    "VideoFrame",
+    "CodecInfo",
+    "get_codec_info",
+    "get_bpp",
+    "get_bits_per_component",
+    "get_subsampling",
+    "is_codec_opaque",
+    "is_codec_interframe",
+    "codec_is_a_rgb",
+    "codec_is_planar",
+    "codec_is_const_size",
+    "get_fourcc",
+    "get_codec_from_fourcc",
+    "get_codec_from_name",
+    "vc_get_linesize",
+    "vc_get_size",
+    "vc_get_datalen",
+    "codec_get_planes_subsampling",
+    "to_fourcc",
+    "MAX_PADDING",
+    "PIX_BLOCK_LCM",
+    "KHZ_90",
+]
+
+# Conversions may read up to this number of bytes past the line end; buffers
+# over-allocate accordingly (ref: src/video_codec.h:61-64).
+MAX_PADDING = 64
+# RTP media clock (ref: src/types.h:152).
+KHZ_90 = 90000
 
 
 def to_fourcc(a: str, b: str, c: str, d: str) -> int:
@@ -113,6 +148,13 @@ class CodecInfo:
     file_extension: Optional[str]
 
     @property
+    def bpp(self) -> float:
+        """Bytes per pixel (0 for a codec without pixel blocks)."""
+        if self.block_size_pixels == 0:
+            return 0.0
+        return self.block_size_bytes / self.block_size_pixels
+
+    @property
     def rgb(self) -> bool:
         return bool(self.flags & VCF_RGB)
 
@@ -175,8 +217,24 @@ def get_codec_info(codec: Codec) -> CodecInfo:
     return CODEC_INFO[Codec(codec)]
 
 
+def get_bpp(codec: Codec) -> float:
+    return get_codec_info(codec).bpp
+
+
 def get_bits_per_component(codec: Codec) -> int:
     return get_codec_info(codec).bits_per_channel
+
+
+def get_subsampling(codec: Codec) -> int:
+    return int(get_codec_info(codec).subsampling)
+
+
+def is_codec_interframe(codec: Codec) -> bool:
+    return bool(get_codec_info(codec).flags & VCF_INTERFRAME)
+
+
+def codec_is_const_size(codec: Codec) -> bool:
+    return bool(get_codec_info(codec).flags & VCF_CONST_SIZE)
 
 
 def codec_is_a_rgb(codec: Codec) -> bool:
@@ -223,6 +281,24 @@ def vc_get_linesize(width: int, codec: Codec) -> int:
 # planes of a planar codec as (h, v) subsampling pairs (ref:
 # pixfmt_plane_info[], src/video_codec.c:214-217)
 _PLANES = {Codec.I420: ((1, 1), (2, 2), (2, 2))}
+
+
+def vc_get_size(width: int, codec: Codec) -> int:
+    """Unaligned byte size of ``width`` pixels (ref: src/video_codec.c:531-539);
+    0 for a codec without pixel blocks."""
+    info = get_codec_info(codec)
+    if info.block_size_pixels == 0:
+        return 0
+    return (width + info.block_size_pixels - 1) // info.block_size_pixels * info.block_size_bytes
+
+
+def codec_get_planes_subsampling(codec: Codec) -> Tuple[int, ...]:
+    """``(h0, v0, h1, v1, ...)`` of a planar codec, padded to four planes
+    with zeros as the reference's table; ``()`` for any other codec."""
+    planes = _PLANES.get(Codec(codec))
+    if planes is None:
+        return ()
+    return tuple(x for plane in planes for x in plane) + (0, 0) * (4 - len(planes))
 
 
 def vc_get_datalen(width: int, height: int, codec: Codec) -> int:

@@ -20,6 +20,9 @@ import torch
 from ultragrid_tpu_torch.device import get_device
 from ultragrid_tpu_torch.ops import pixfmt
 from ultragrid_tpu_torch.types import Codec
+from ultragrid_tpu_torch.utils.log import Logger
+
+log = Logger("pattern")
 
 # ref: rect_colors[], src/video_capture/testcard_common.c:51-58 (ARGB words,
 # little-endian byte order R,G,B,A in memory)
