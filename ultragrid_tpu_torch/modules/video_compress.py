@@ -31,6 +31,7 @@ from ultragrid_tpu_torch.modules.messaging import (
     Response,
 )
 from ultragrid_tpu_torch.modules.registry import LibraryClass, list_modules, load_library, register_module
+from ultragrid_tpu_torch.net.rtp_types import video_rtp_ts
 from ultragrid_tpu_torch.ops import dxt as dxt_ops
 from ultragrid_tpu_torch.ops import h264 as h264_ops
 from ultragrid_tpu_torch.ops import pixfmt
@@ -167,9 +168,10 @@ class JpegCompress(VideoCompress):
         q = self._rc.value if self._rc is not None else self.quality
         enc = self._encoders.get(q)
         if enc is None:
-            enc = self._encoders[q] = JpegEncoder(
-                desc.width, desc.height, in_codec=desc.color_spec, quality=q,
-                restart_interval=self.restart_interval, subsampling=self.subsampling)
+            with profiler.zone("compress.build"):
+                enc = self._encoders[q] = JpegEncoder(
+                    desc.width, desc.height, in_codec=desc.color_spec, quality=q,
+                    restart_interval=self.restart_interval, subsampling=self.subsampling)
         data = enc.encode(on_device(frame.data, self.device))
         if self._rc is not None:
             self._rc.update(int(data.size))
@@ -579,15 +581,18 @@ class CompressDriver:
     def _worker(self) -> None:
         with stream_context(self.stream):
             while True:
-                frame = self.in_queue.get()
-                if frame is None:
+                item = self.in_queue.get()
+                if item is None:
                     self.out_queue.put(None)
                     return
+                frame, t_enqueue = item
                 frame.compress_start = time.monotonic()
+                key = video_rtp_ts(frame.timestamp) if frame.timestamp >= 0 else None
+                profiler.interval("compress.queue", t_enqueue, key)
                 with self._lock:
                     impl = self._impl
                 try:
-                    out = self._compress_one(impl, frame)
+                    out = self._compress_one(impl, frame, key)
                 except Exception as e:  # noqa: BLE001 - a codec failure drops the
                     # frame, not the compress thread and with it the sender
                     log.error(f"compress: dropping frame: {e}")
@@ -597,7 +602,7 @@ class CompressDriver:
                     out.compress_end = time.monotonic()
                     self.out_queue.put(out)
 
-    def _compress_one(self, impl, frame):
+    def _compress_one(self, impl, frame, key=None):
         if len(frame.tiles) > 1:
             # per-tile fan-out (ref: sync tile API fanned out via
             # task_run_async, src/video_compress.cpp:79-120)
@@ -612,11 +617,14 @@ class CompressDriver:
             out = VideoFrame(outs[0].desc.with_(tile_count=len(outs)), [o.data for o in outs])
             out.timestamp = frame.timestamp
             return out
-        with profiler.zone("compress"):
+        with profiler.zone("compress", frame=key):
             return impl.compress(frame)
 
     def enqueue(self, frame: Optional[VideoFrame]) -> None:
-        self.in_queue.put(frame)
+        """Hand a frame to the worker; blocks while the queue is full.  The
+        frame's ``compress.queue`` span runs from this call to the worker's
+        ``get``, a blocked put included."""
+        self.in_queue.put(None if frame is None else (frame, time.monotonic_ns()))
 
     def pop(self, timeout: Optional[float] = None) -> Optional[VideoFrame]:
         return self.out_queue.get(timeout=timeout)

@@ -34,6 +34,18 @@ FEC_PAYLOAD_HDR_LEN = 20
 AUDIO_PAYLOAD_HDR_LEN = 20
 
 
+def video_rtp_ts(timestamp: float) -> int:
+    """The 90 kHz RTP timestamp a video frame stamped ``timestamp`` seconds
+    goes out with (``Tx.send_video``, truncated)."""
+    return int(timestamp * 90000) & 0xFFFFFFFF
+
+
+def received_rtp_ts(timestamp: float) -> int:
+    """The RTP timestamp back from a received frame's ``timestamp``, which
+    the receiver sets to the RTP timestamp over 90 kHz."""
+    return int(round(timestamp * 90000)) & 0xFFFFFFFF
+
+
 def fec_pt(fec_type: str, encrypted: bool = False) -> int:
     """ref: fec_pt_from_fec_type."""
     if fec_type == "ldgm":

@@ -55,6 +55,7 @@ from ultragrid_tpu_torch.net.video_rx import (
     tile_nbytes,
 )
 from ultragrid_tpu_torch.types import VideoFrame
+from ultragrid_tpu_torch.utils import profiler
 from ultragrid_tpu_torch.utils.log import Logger
 
 log = Logger("vrx_fast")
@@ -287,9 +288,14 @@ class FastVideoRx:
                 continue
             if not complete and now <= deadline + STUCK_TIMEOUT:
                 continue
+            # the frame's wait in the playout buffer from its first
+            # datagram, then its reassembly: at most one record each a frame
+            profiler.interval("rx.playout", int(pf.arrival * 1e9), pf.ts)
+            t_take = time.monotonic_ns()
             out = self._take(pf, meta)
             del pending[key]
             if out is not None:
+                profiler.interval("rx.reassemble", t_take, pf.ts)
                 ready.append(out)
         return ready
 

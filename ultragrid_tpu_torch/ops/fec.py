@@ -26,6 +26,7 @@ import torch
 
 from ultragrid_tpu_torch import _build, native
 from ultragrid_tpu_torch.device import get_device
+from ultragrid_tpu_torch.utils import profiler
 
 LAUNCHES = _build.LaunchCounter("gf2_parity")
 
@@ -308,6 +309,7 @@ def gf256_matmul(bitmat, data_u8: torch.Tensor) -> torch.Tensor:
 
 LDGM_HEADER_SIZE = 4  # ref: ldgm-session.h:124
 DEFAULT_LDGM_SEED = 1  # ref: src/rtp/ldgm.hpp:48
+_PEEL_WIDTHS = 8  # symbol widths whose peel an LdgmSession keeps
 
 # ref: suggested_configurations[], src/rtp/ldgm.cpp:116-139
 # (mtu_class, frame_size, loss_pct) -> (k, m, c)
@@ -383,7 +385,10 @@ class LdgmSession:
             rows[i, : idx.size] = idx
         self._rows = np.ascontiguousarray(rows)
         self._encoders = {}  # psw -> K2 over the mask, staircase on
-        self._peels = {}  # (psw, device) -> (K2 of the full check matrix, no staircase; it as bool)
+        # (psw, device) -> (K2 of the full check matrix, no staircase; it as
+        # bool): the last _PEEL_WIDTHS widths (a camera's file sizes rarely
+        # repeat, so a new width comes most frames)
+        self._peels = {}
         self.rounds = 0  # peel rounds of the last decode_device
 
     def encode_params(self, frame_size: int) -> Tuple[int, int]:
@@ -492,13 +497,17 @@ class LdgmSession:
 
     def peel_parity(self, psw: int, device: torch.device):
         """K2 over the full check matrix without the staircase, and the
-        matrix as a bool tensor on ``device``, made once per width."""
+        matrix as a bool tensor on ``device``, made once per width and kept
+        for the last :data:`_PEEL_WIDTHS` widths."""
         key = (psw, device)
         got = self._peels.get(key)
         if got is None:
-            full = self._full_check_matrix()
-            got = self._peels[key] = (Gf2Parity(full, psw, staircase=False),
-                                      torch.as_tensor(full != 0, device=device))
+            with profiler.zone("fec.peel.build"):
+                full = self._full_check_matrix()
+                got = self._peels[key] = (Gf2Parity(full, psw, staircase=False),
+                                          torch.as_tensor(full != 0, device=device))
+            if len(self._peels) > _PEEL_WIDTHS:
+                del self._peels[next(iter(self._peels))]
         return got
 
     def _decode_device_fn(self, ps: int, device: torch.device):
@@ -529,15 +538,16 @@ class LdgmSession:
             rounds = 0
             go = not bool(have[:k].all())
             while go and rounds < m + 2:
-                old = have_p[:n].clone()
-                miss = hb & ~old  # [m, n]: the missing symbols of each check row
-                col = torch.argmax(miss.to(torch.uint8), dim=1)  # the first one
-                col = torch.where(miss.sum(dim=1) == 1, col, n)
-                vals = peel(words[:n])
-                words[col] = vals
-                have_p[col] = True
-                rounds += 1
-                go = bool(((have_p[:n] & ~old).any() & ~have_p[:k].all()).item())
+                with profiler.zone("fec.peel.round"):  # K2 through the host's read of the round's flag
+                    old = have_p[:n].clone()
+                    miss = hb & ~old  # [m, n]: the missing symbols of each check row
+                    col = torch.argmax(miss.to(torch.uint8), dim=1)  # the first one
+                    col = torch.where(miss.sum(dim=1) == 1, col, n)
+                    vals = peel(words[:n])
+                    words[col] = vals
+                    have_p[col] = True
+                    rounds += 1
+                    go = bool(((have_p[:n] & ~old).any() & ~have_p[:k].all()).item())
             return words[:n].view(torch.uint8)[:, :ps], have_p[:n], rounds
 
         return run

@@ -35,6 +35,7 @@ from ultragrid_tpu_torch import native
 from ultragrid_tpu_torch.device import get_device
 from ultragrid_tpu_torch.ops import jpeg_cuda
 from ultragrid_tpu_torch.types import Codec, VideoFrame, vc_get_linesize
+from ultragrid_tpu_torch.utils import profiler
 
 # ---------------------------------------------------------------------------
 # Tables (JPEG Annex K)
@@ -807,15 +808,23 @@ class JpegEncoder:
         there."""
         if not isinstance(frame, torch.Tensor):
             frame = torch.as_tensor(np.asarray(frame), device=get_device(device))
-        out = self._encode(frame)
-        while bool(out[-1]) and self.wwords < 64:
-            out = self.escalate_and_retry(frame)
+        out, over = self._k1(self._encode, frame)
+        while over and self.wwords < 64:
+            out, over = self._k1(self.escalate_and_retry, frame)
         body = self.assemble(*out[:-1])
         return np.concatenate([
             np.frombuffer(self._header, dtype=np.uint8),
             body,
             np.frombuffer(b"\xff\xd9", dtype=np.uint8),
         ])
+
+    @staticmethod
+    def _k1(step, frame):
+        """``step(frame)`` (K1 at a slot width) through the host's read of
+        its overflow flag: (parts, overflow)."""
+        with profiler.zone("compress.k1"):
+            out = step(frame)
+            return out, bool(out[-1])
 
     def encode_device(self, frame, device="cuda"):
         """The device half without a host sync (reference ``encode_device``,
@@ -836,13 +845,13 @@ class JpegEncoder:
             a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
             return np.ascontiguousarray(a).view(dt)
 
-        arrs = [host(a, np.uint32) for a in (ys, us, vs)]
-        bitsarr = [host(b, np.int32) for b in (ybits, ubits, vbits)]
+        with profiler.zone("compress.download"):
+            arrs = [host(a, np.uint32) for a in (ys, us, vs)]
+            bitsarr = [host(b, np.int32) for b in (ybits, ubits, vbits)]
         if arrs[0].shape[0] != self.nmcu * self.ky:
             raise ValueError(f"ys has {arrs[0].shape[0]} rows, expected {self.nmcu * self.ky}")
         total_bits = int(sum(int(b.sum()) for b in bitsarr))
         cap = int(total_bits // 8 + self.nblocks // 4 + 4 * self.nseg + 64)
-        out = np.empty(cap, dtype=np.uint8)
 
         def call(capn):
             return lib.jpeg_assemble_3c(
@@ -853,10 +862,12 @@ class JpegEncoder:
                 out.ctypes.data, capn,
             )
 
-        n = call(cap)
-        if n > cap:  # extremely unlikely; retry with the exact size
-            out = np.empty(int(n), dtype=np.uint8)
-            n = call(int(n))
+        with profiler.zone("compress.assemble"):
+            out = np.empty(cap, dtype=np.uint8)
+            n = call(cap)
+            if n > cap:  # extremely unlikely; retry with the exact size
+                out = np.empty(int(n), dtype=np.uint8)
+                n = call(int(n))
         return out[:n]
 
 
@@ -1482,8 +1493,8 @@ class JpegDecoder:
         exceptions goes up as int16 blocks.  Returns (uyvy uint8 [nmcuy * 8,
         nmcux * 32] on the device, h, w), or None if the stream is not 4:2:2
         with three components."""
-        dev = self.device
-        packed = entropy_decode_422_packed(data)
+        with profiler.zone("decompress.scan"):
+            packed = entropy_decode_422_packed(data)
         if packed is not None:
             hdr, lo, dc, exc_idx, exc_dv, count, nmcux, nmcuy = packed
             idx = np.zeros(_EXC_CAP, np.int64)
@@ -1491,13 +1502,22 @@ class JpegDecoder:
             idx[:count] = exc_idx[:count]
             dv[:count] = exc_dv[:count]
             fn = self._make_mega_uyvy_fn(hdr, nmcux, nmcuy, packed=True)
-            return fn(*(torch.as_tensor(a, device=dev) for a in (lo, dc, idx, dv))), hdr["h"], hdr["w"]
-        decoded = entropy_decode_422(data)
+            return self._upload_and_run(fn, (lo, dc, idx, dv)), hdr["h"], hdr["w"]
+        with profiler.zone("decompress.scan"):
+            decoded = entropy_decode_422(data)
         if decoded is None:
             return None
         hdr, outs, nmcux, nmcuy = decoded
         fn = self._make_mega_uyvy_fn(hdr, nmcux, nmcuy)
-        return fn(*(torch.as_tensor(o, device=dev) for o in outs)), hdr["h"], hdr["w"]
+        return self._upload_and_run(fn, outs), hdr["h"], hdr["w"]
+
+    def _upload_and_run(self, fn, arrays):
+        """The scan decode's arrays up to the device, then ``fn`` (the
+        reverse product) on them."""
+        with profiler.zone("decompress.upload"):
+            args = [torch.as_tensor(a, device=self.device) for a in arrays]
+        with profiler.zone("decompress.product"):
+            return fn(*args)
 
     # -- planes path (any sampling) ---------------------------------------
 
@@ -1533,14 +1553,15 @@ class JpegDecoder:
     def decode(self, data: bytes):
         """Returns (planes, h, w, sampling): Y/Cb/Cr uint8 tensors on the
         device, each at its sampled resolution (reference ops/jpeg.py:1438)."""
-        hdr = _parse_headers(data)
-        scan = hdr["scan"]
-        hmax = max(c["h"] for c in scan)
-        vmax = max(c["v"] for c in scan)
-        nmcux = (hdr["w"] + 8 * hmax - 1) // (8 * hmax)
-        nmcuy = (hdr["h"] + 8 * vmax - 1) // (8 * vmax)
-        outs = _scan_decode_int16(data, hdr, nmcux * nmcuy)
-        planes = self._make_device_fn(hdr, nmcux, nmcuy)(*(torch.as_tensor(o, device=self.device) for o in outs))
+        with profiler.zone("decompress.scan"):
+            hdr = _parse_headers(data)
+            scan = hdr["scan"]
+            hmax = max(c["h"] for c in scan)
+            vmax = max(c["v"] for c in scan)
+            nmcux = (hdr["w"] + 8 * hmax - 1) // (8 * hmax)
+            nmcuy = (hdr["h"] + 8 * vmax - 1) // (8 * vmax)
+            outs = _scan_decode_int16(data, hdr, nmcux * nmcuy)
+        planes = self._upload_and_run(self._make_device_fn(hdr, nmcux, nmcuy), outs)
         return planes, hdr["h"], hdr["w"], [(c["h"], c["v"]) for c in scan]
 
 

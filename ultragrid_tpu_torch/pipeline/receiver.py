@@ -55,6 +55,7 @@ from ultragrid_tpu_torch.modules.video_display import initialize_video_display
 from ultragrid_tpu_torch.net.audio_rx import AudioRxState
 from ultragrid_tpu_torch.net.pbuf import PlayoutBuffer
 from ultragrid_tpu_torch.net.rtp import RtpSession
+from ultragrid_tpu_torch.net.rtp_types import received_rtp_ts
 from ultragrid_tpu_torch.net.video_rx import FecJob, VideoRxState
 from ultragrid_tpu_torch.net.vrx_fast import FastVideoRx
 from ultragrid_tpu_torch.ops import pixfmt
@@ -75,6 +76,25 @@ add_to_param("vrx-fast",
              "which must build; off: the Python pbuf path)")
 
 log = Logger("receiver")
+
+
+def _frame_key(item) -> Optional[int]:
+    """The RTP timestamp of a FEC job or a received frame: the key of its
+    spans (None where unknown)."""
+    if isinstance(item, FecJob):
+        return item.rtp_ts if item.rtp_ts >= 0 else None
+    return received_rtp_ts(item.timestamp) if item.timestamp >= 0 else None
+
+
+def _put(q: "queue.Queue", item, name: str) -> None:
+    """Hand ``item`` to the next stage's queue with the instant of the put
+    (its ``<name>.queue`` span runs from here to the stage's ``get``); a
+    queue still full after 1 s drops the frame, marked ``rx.drop``."""
+    try:
+        q.put((item, time.monotonic_ns()), timeout=1.0)
+    except queue.Full:
+        profiler.instant("rx.drop", _frame_key(item), {"queue": name})
+        raise
 
 
 class VideoReceiver:
@@ -224,7 +244,9 @@ class VideoReceiver:
         """pbuf decode callback: stage-1 reassembly only, then hand off to
         the fec thread (ref: decode_video_frame -> fec_queue push,
         video_decoders.cpp:1862)."""
-        with profiler.zone("rx.reassemble"):
+        # the frame's wait in the playout buffer, from its first datagram
+        profiler.interval("rx.playout", int(node.arrival * 1e9), node.ts)
+        with profiler.zone("rx.reassemble", frame=node.ts):
             out = self.rx_state.reassemble(node)
         if out is None:
             return False
@@ -233,7 +255,7 @@ class VideoReceiver:
 
     def _hand_off(self, out) -> None:
         try:
-            self._fec_q.put(out, timeout=1.0)
+            _put(self._fec_q, out, "fec")
         except queue.Full:
             # the reference warns "your computer may be too slow" when the
             # decode pipeline cannot keep up (video_decoders.cpp:1845-1867)
@@ -244,19 +266,22 @@ class VideoReceiver:
     def _fec_thread(self) -> None:
         with stream_context(self.stream):
             while True:
-                job = self._fec_q.get()
-                if job is None:
+                item = self._fec_q.get()
+                if item is None:
                     self._decomp_q.put(None)
                     return
+                job, t_put = item
+                key = _frame_key(job)
+                profiler.interval("fec.queue", t_put, key)
                 if isinstance(job, FecJob):
-                    with profiler.zone("rx.fec"):
+                    with profiler.zone("rx.fec", frame=key):
                         frame = self.rx_state.decode_fec_job(job)
                     if frame is None:
                         continue
                 else:
                     frame = job
                 try:
-                    self._decomp_q.put(frame, timeout=1.0)
+                    _put(self._decomp_q, frame, "decompress")
                 except queue.Full:
                     log.warning("decompress queue full, dropping frame")
 
@@ -265,9 +290,11 @@ class VideoReceiver:
     def _decompress_thread(self) -> None:
         with stream_context(self.stream):
             while True:
-                frame = self._decomp_q.get()
-                if frame is None:
+                item = self._decomp_q.get()
+                if item is None:
                     return
+                frame, t_put = item
+                profiler.interval("decompress.queue", t_put, _frame_key(frame))
                 try:
                     self._handle_frame(frame)
                 except Exception as exc:  # noqa: BLE001 - drop the frame, not the receiver
@@ -284,11 +311,12 @@ class VideoReceiver:
         return out
 
     def _handle_frame(self, frame) -> bool:
+        key = _frame_key(frame)
         if frame.callbacks.get("display_owned"):
             # LINE_DECODER fast path: the frame is the display's own buffer;
             # show it as-is (ref: video_decoders.cpp:1828 zero-fills only
             # the buffered path)
-            with profiler.zone("rx.display"):
+            with profiler.zone("rx.display", frame=key):
                 self.display.put_frame(frame)
             self.display.recycle(frame)
             self.frames_displayed += 1
@@ -313,7 +341,7 @@ class VideoReceiver:
                     log.error(f"no decompressor for {frame.desc.color_spec.name}")
                     return False
             try:
-                with profiler.zone("rx.decompress"):
+                with profiler.zone("rx.decompress", frame=key):
                     frame = self._decompress.decompress(frame, self._decomp_out)
             except ValueError as exc:  # corrupt bitstream from an incomplete frame
                 # the reference drops frames whose decompression fails rather
@@ -337,7 +365,7 @@ class VideoReceiver:
             data = pixfmt.convert_frame(frame.data, frame.desc.width, frame.desc.color_spec,
                                         self._decoder_out)
             frame = VideoFrame(frame.desc.with_(color_spec=self._decoder_out), [data], frame.timestamp)
-        with profiler.zone("rx.postprocess"):
+        with profiler.zone("rx.postprocess", frame=key):
             out = self.postprocess_chain.apply(frame)
         if out is None:
             return False
@@ -346,7 +374,7 @@ class VideoReceiver:
             if self._display_desc != fr.desc:
                 self.display.reconfigure(fr.desc)
                 self._display_desc = fr.desc
-            with profiler.zone("rx.display"):
+            with profiler.zone("rx.display", frame=key):
                 self.display.put_frame(fr)
             # presentation done: hand the buffer back to the display pool
             # (ref: vf_recycle + frame pool, video_frame_pool.h:49)
@@ -437,8 +465,7 @@ class VideoReceiver:
                         self.pbuf.insert(pkt)
                     self.pbuf.decode(now, self._reassemble_cb)
                     self.pbuf.remove_old(now)
-                    with profiler.zone("rx.reassemble"):
-                        ready = fast.poll(now, self.pbuf.playout_delay)
+                    ready = fast.poll(now, self.pbuf.playout_delay)
                     for out in ready:
                         self._hand_off(out)
                     if got_any:

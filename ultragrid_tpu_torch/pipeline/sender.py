@@ -59,6 +59,7 @@ from ultragrid_tpu_torch.modules.messaging import (
 from ultragrid_tpu_torch.modules.video_capture import initialize_video_capture
 from ultragrid_tpu_torch.modules.video_compress import CompressDriver
 from ultragrid_tpu_torch.net.rtp import RtpSession
+from ultragrid_tpu_torch.net.rtp_types import video_rtp_ts
 from ultragrid_tpu_torch.net.rtsp import RtspServer
 from ultragrid_tpu_torch.net.transmit import RATE_AUTO, Tx, parse_bitrate
 from ultragrid_tpu_torch.ops.fec import fec_from_spec
@@ -418,9 +419,12 @@ class VideoSender:
                 frame = self.compress.pop()
                 if frame is None:
                     break
+                key = video_rtp_ts(frame.timestamp) if frame.timestamp >= 0 else None
+                if frame.compress_end:
+                    profiler.interval("send.queue", int(frame.compress_end * 1e9), key)
                 if self.exporter is not None:
                     self.exporter.export_video(frame)
-                with profiler.zone("fec+tx.send"):
+                with profiler.zone("fec+tx.send", frame=key):
                     before = self.session.bytes_sent
                     self.tx.send_video(self.session, frame)
                 self.frames_sent += 1
