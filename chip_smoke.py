@@ -9,7 +9,8 @@ against its plain PyTorch version on the card, runs the sender step
 ``EncodePipeline`` and checks that it went through both kernels, checks K2
 without the staircase (the erasure peel's row XORs) on every suggested LDGM
 configuration, runs the receive path (JPEG file -> LDGM -> loss -> peel on
-the card -> ``JpegDecompress``) against the CPU plain path, runs the
+the card -> ``JpegDecompress``) against the CPU plain path and the JPEG
+entropy decode on the card against the C scan decoder, runs the
 batched sender (B frames, one K1 and one K2 launch: 4K at B = 16, 8K at
 B = 4, 1920x1088 4:2:0 at B = 3) against single-frame steps, every pixel
 format conversion, DXT, and ``EncodePipeline`` for compress none / dxt1 /
@@ -78,7 +79,7 @@ plain version on the card and the CPU), ``jpeg_encode_core`` (one K1 launch
 a call, its parts assembling to the CPU's file), and ``lavc_encoders()``
 with the registered audio codecs.  ``python3 chip_smoke.py --only
 standards`` (or ``--only parallel``, ``--only tools``, ``--only
-remaining``, ``--only api``) builds the kernels and runs that phase alone,
+remaining``, ``--only api``, ``--only card_decode``) builds the kernels and runs that phase alone,
 printing no result line.
 
 Imports nothing of JAX or of the JAX package.
@@ -430,6 +431,123 @@ def eager_row(what, fn, runs: int = 20):
             "idle_share": max(0.0, 1 - dev_ms / host)}
 
 
+def card_decode_rows(dev):
+    """The JPEG entropy decode on the card (``csrc/jpeg_decode.cu``) against
+    the C scan decoder and against its plain version on the same card
+    inputs: q equal to both, the status word equal to the plain version's,
+    and ``JpegDecoder.decode_to_uyvy``'s card route byte-equal to its C
+    route, one launch a frame; the kernels' device time beside their byte
+    bound, the whole route's host time, the C route's and the plain
+    version's on the card.  The receive path's streams: 1080p and 4K q80 at the default
+    restart interval, 1080p q95 with a marker after every MCU, a small odd
+    size at q50, and noise at q100 (more exceptions than the packed
+    upload takes)."""
+    from ultragrid_tpu_torch.ops import jpeg_decode_cuda
+    from ultragrid_tpu_torch.ops.jpeg import (JpegDecoder, JpegEncoder, _parse_headers,
+                                              entropy_decode_422)
+    from ultragrid_tpu_torch.types import Codec, vc_get_linesize
+    from ultragrid_tpu_torch.utils import profiler
+
+    cases = [("1080p q80", 1920, 1080, 80, None, False), ("4K q80", 3840, 2160, 80, None, False),
+             ("1080p q95 ri=1", 1920, 1080, 95, 1, False), ("208x56 q50", 208, 56, 50, None, False),
+             ("512x128 q100 noise", 512, 128, 100, None, True)]
+    rows = []
+    torch.cuda.synchronize()
+    jpeg_decode_cuda.LAUNCHES.reset()
+    for what, w, h, q, ri, noise in cases:
+        ls = vc_get_linesize(w, Codec.UYVY)
+        src = (np.random.default_rng(5).integers(0, 256, (h, ls), dtype=np.uint8) if noise
+               else content(h, ls, 5))
+        data = bytes(JpegEncoder(w, h, quality=q, restart_interval=ri).encode(src, device="cpu"))
+        hdr, (cy, cu, cv), nmcux, nmcuy = entropy_decode_422(data)
+        nmcu = nmcux * nmcuy
+        nseg = -(-nmcu // hdr["ri"])
+        want_q = torch.cat([torch.as_tensor(cy).view(nmcu, 128), torch.as_tensor(cu), torch.as_tensor(cv)],
+                           1).float()
+        file = torch.zeros(len(data) + jpeg_decode_cuda.PAD, dtype=torch.uint8, device=dev)
+        file[: len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+        tables = torch.as_tensor(jpeg_decode_cuda.huffman_tables(hdr["htabs"])).to(dev)
+        tds = tuple(c["td"] for c in _parse_headers(data)["scan"])
+
+        def kernel():
+            return jpeg_decode_cuda.segment_decode(file, len(data), hdr["scan_start"], tables, tds, nmcu, hdr["ri"])
+
+        before = jpeg_decode_cuda.LAUNCHES.count
+        got_q, status = kernel()
+        torch.cuda.synchronize()
+        if jpeg_decode_cuda.LAUNCHES.count != before + 1:
+            raise RuntimeError(f"card decode {what}: the wrapper did not launch the kernel")
+        if status.tolist() != [0, nmcu, nseg - 1, 0]:
+            raise RuntimeError(f"card decode {what}: status {status.tolist()}, expected [0, {nmcu}, {nseg - 1}, 0]")
+        q_off = int((got_q.cpu() != want_q).sum())
+        if q_off:
+            raise RuntimeError(f"card decode {what}: {q_off} coefficients differ from the C decoder's")
+
+        def plain():
+            return jpeg_decode_cuda.segment_decode_plain(file, len(data), hdr["scan_start"], tables, tds, nmcu,
+                                                         hdr["ri"])
+
+        t0 = time.perf_counter()
+        plain_q, plain_status = plain()
+        torch.cuda.synchronize()
+        plain_ms = [(time.perf_counter() - t0) * 1e3]
+        plain_off = int((plain_q != got_q).sum())
+        if plain_off or plain_status.tolist() != status.tolist():
+            raise RuntimeError(f"card decode {what}: {plain_off} coefficients and status {plain_status.tolist()} "
+                               f"of the plain version differ from the kernel's")
+        dec = JpegDecoder(dev)
+        before = jpeg_decode_cuda.LAUNCHES.count
+        frames = 3
+        for _ in range(frames):
+            card = dec.decode_to_uyvy(data)
+        launches = jpeg_decode_cuda.LAUNCHES.count - before
+        host = dec._decode_on_host(data)
+        torch.cuda.synchronize()
+        if launches != frames or dec.host_scans != 1 or card[1:] != host[1:]:
+            raise RuntimeError(f"card decode {what}: {launches} launches for {frames} frames, "
+                               f"{dec.host_scans} host scans, shapes {card[1:]} / {host[1:]}")
+        nd, err = byte_diff(card[0], host[0])
+        if nd:
+            raise RuntimeError(f"card decode {what}: {nd} bytes differ from the C route (max {err})")
+        ks = device_kernels(kernel, runs=20, expect="jpeg_segment_decode_kernel")
+        parts = {}
+        for name in ("jpeg_rst_count_kernel", "jpeg_rst_place_kernel", "jpeg_segment_decode_kernel", "Memset"):
+            hits = [ms / c for k, (c, ms) in ks.items() if name in k and c > 0]
+            if not hits:
+                raise RuntimeError(f"card decode {what}: profiler saw no {name} (saw {sorted(ks)})")
+            parts[name] = hits[0]
+        nbytes = len(data) + nmcu * 256 * 4
+        bms, by = bound_ms(nbytes, 0)
+        device_ms = sum(parts.values())
+        # the card route's stages by the program's own spans, 20 frames
+        profiler.enabled = True
+        profiler._events.clear()
+        for _ in range(20):
+            dec.decode_to_uyvy(data)
+        spans = {}
+        for n, _tid, _t0, dur in profiler._events:
+            spans.setdefault(n, []).append(dur / 1e6)
+        profiler.enabled = False
+        profiler._events.clear()
+        row = {"what": f"jpeg_decode {what} ({w}x{h}, restart interval {hdr['ri']}, {nseg} segments)",
+               "jpeg_bytes": len(data), "q_mbytes": nmcu * 1024 / 1e6, "status": status.tolist(),
+               "q_differing": q_off, "pixels_differing_from_c_route": nd, "launches_per_frame": launches / frames,
+               "kernels_ms": parts, "segment_decode_ms": parts["jpeg_segment_decode_kernel"],
+               "device_ms": device_ms, "bound_ms": bms, "bound_by": by, "share_of_bound": bms / device_ms,
+               "card_route_host_ms": host_ms(lambda: dec.decode_to_uyvy(data), runs=20),
+               "card_route_spans_ms": {n: sum(v) / len(v) for n, v in spans.items()},
+               "c_route_host_ms": host_ms(lambda: (dec._decode_on_host(data), torch.cuda.synchronize()), runs=10)}
+        if w >= 1920 and ri is None:
+            t0 = time.perf_counter()
+            plain()
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+            row["plain_on_card_ms"] = min(plain_ms)
+        row["q_differing_from_plain"] = plain_off
+        rows.append(row)
+    return rows
+
+
 def phase_postprocess(dev):
     """Every postprocess function at 1080p and 4K on the card against the
     CPU plain path (byte-equal; add_noise: within its amount and in 0..255),
@@ -672,20 +790,31 @@ PLANE_CASES = [(W1080, H1080, *g) for g in P2_GEOMS] + [(W4K, H4K, "UYVY", "444"
 def kernel_counts():
     """Each hand kernel's launches since the counts were last set to 0."""
     from ultragrid_tpu_torch.ops import fec as fec_ops
-    from ultragrid_tpu_torch.ops import jpeg_cuda
+    from ultragrid_tpu_torch.ops import jpeg_cuda, jpeg_decode_cuda
 
     return {"jpeg_encode": jpeg_cuda.LAUNCHES.count, "jpeg_plane_encode": jpeg_cuda.PLANE_LAUNCHES.count,
-            "gf2_parity": fec_ops.LAUNCHES.count}
+            "gf2_parity": fec_ops.LAUNCHES.count, "jpeg_decode": jpeg_decode_cuda.LAUNCHES.count,
+            "jpeg_decode_refused": jpeg_decode_cuda.REFUSED.count}
 
 
 def reset_kernel_counts():
     """Set every hand kernel's launch count to 0, after the card's queue."""
     from ultragrid_tpu_torch.ops import fec as fec_ops
-    from ultragrid_tpu_torch.ops import jpeg_cuda
+    from ultragrid_tpu_torch.ops import jpeg_cuda, jpeg_decode_cuda
 
     torch.cuda.synchronize()
-    for c in (jpeg_cuda.LAUNCHES, jpeg_cuda.PLANE_LAUNCHES, fec_ops.LAUNCHES):
+    for c in (jpeg_cuda.LAUNCHES, jpeg_cuda.PLANE_LAUNCHES, fec_ops.LAUNCHES, jpeg_decode_cuda.LAUNCHES,
+              jpeg_decode_cuda.REFUSED):
         c.reset()
+
+
+def check_card_decode(what: str, launches: dict, frames_displayed: int):
+    """Raise where a JPEG receiver to UYVY decoded fewer frames on the card
+    (``jpeg_decode`` launches) than it displayed, or refused one of them (a
+    frame then took the C path)."""
+    if launches["jpeg_decode"] < frames_displayed or launches["jpeg_decode_refused"]:
+        raise RuntimeError(f"{what}: {launches['jpeg_decode']} entropy decodes on the card, "
+                           f"{launches['jpeg_decode_refused']} refused, for {frames_displayed} frames displayed")
 
 
 def udp_rcvbuf_errors() -> int:
@@ -905,6 +1034,7 @@ def phase_live_session(dev):
         raise RuntimeError(f"live session 1080p jpeg: {main_run}")
     if min(main_run["launches"]["jpeg_encode"], main_run["launches"]["gf2_parity"]) < 1:
         raise RuntimeError(f"live session 1080p jpeg skipped a kernel: {main_run['launches']}")
+    check_card_decode("live session 1080p jpeg", main_run["launches"], main_run["frames_displayed"])
     if main_run["packets_dropped"] < 1 or main_run["fec_jobs_recovered"] < 1:
         raise RuntimeError("live session 1080p jpeg: no loss was recovered by the peel")
     # the expected frames: the card's encode -> decode of each testcard ring
@@ -1890,6 +2020,7 @@ def phase_audio_session(dev):
             or min(main_run["launches"]["jpeg_encode"], main_run["launches"]["gf2_parity"]) < 1
             or main_run["fec_jobs_recovered"] < 1):
         raise RuntimeError(f"audio session, video: {main_run}")
+    check_card_decode("audio session, video", main_run["launches"], main_run["frames_displayed"])
     if (not audio_ok(a) or a["packets_dropped"] < a["frames_played"]
             or not a["tx_device"].startswith(torch.device(dev).type)):
         raise RuntimeError(f"audio session, audio: {a}")
@@ -1970,6 +2101,7 @@ def phase_audio_session(dev):
                 or not np.array_equal(sent_bytes, wav[:sent_bytes.size])
                 or not audio_ok(ra)):
             raise RuntimeError(f"-I replay: {len(replayed)} audio frames, wav {wav.size} B, {replay}")
+        check_card_decode("-I replay", replay["launches"], replay["frames_displayed"])
         matched_r, _ = jpeg_ring_matches(dev, kept_r, ring, "-I replay")
         replay.update(displayed_frames_checked=len(kept_r), ring_frames_matched=len(matched_r),
                       grabs_on_card=len(grabbed), audio_bytes_replayed_equal_to_wav=int(sent_bytes.size))
@@ -2391,6 +2523,7 @@ def duplex_calls(dev):
             raise RuntimeError(f"duplex {label}: {row}")
         if loss and launches["gf2_parity"] < 1:
             raise RuntimeError(f"duplex {label}: the peel did not run K2: {row}")
+        check_card_decode(f"duplex {label}", launches, row["frames_displayed"])
         if extra and not row["echo_cancellation_active"]:
             raise RuntimeError(f"duplex {label}: echo cancellation was not set up")
         out[label] = row
@@ -3069,7 +3202,7 @@ def phase_tools(dev):
     t0 = time.perf_counter()
     out["bench_pipeline"] = tools_bench_pipeline(dev)
     launches["bench_pipeline"] = {k: sum(r["launches"][k] for r in out["bench_pipeline"].values())
-                                  for k in ("jpeg_encode", "gf2_parity")}
+                                  for k in ("jpeg_encode", "gf2_parity", "jpeg_decode")}
     seconds["bench_pipeline"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -3144,7 +3277,8 @@ def phase_tools(dev):
     t0 = time.perf_counter()
     out.update(tools_captures(dev))
     seconds["captures"] = time.perf_counter() - t0
-    out["launches"] = {k: {tool: launches[tool][k] for tool in launches} for k in ("jpeg_encode", "gf2_parity")}
+    out["launches"] = {k: {tool: launches[tool][k] for tool in launches}
+                       for k in ("jpeg_encode", "gf2_parity", "jpeg_decode")}
     out["seconds_by_part"] = seconds
     out["seconds"] = time.perf_counter() - t_phase
     return out
@@ -3440,7 +3574,7 @@ def phase_remaining(dev):
     out["lavc"] = remaining_lavc(dev)
     out["camera_alias"] = remaining_camera_alias(dev)
     out["launches"] = {k: out["windowed_x11"]["launches"][k] + out["translator"]["launches"][k]
-                       for k in ("jpeg_encode", "gf2_parity")}
+                       for k in ("jpeg_encode", "gf2_parity", "jpeg_decode")}
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -3668,6 +3802,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--only", "api"]:
         emit(phase_api(dev))
+        return 0
+    if sys.argv[1:] == ["--only", "card_decode"]:
+        emit({"phase": "card_decode", "rows": card_decode_rows(dev)})
         return 0
 
     def frame_for(enc, seed, noise=False):
@@ -3901,9 +4038,7 @@ def main() -> int:
     dec_r = JpegDecompress(device=dev)
     dec_cpu = JpegDecompress(device="cpu")
     desc_j = VideoDesc(W1080, H1080, Codec.JPEG, 60.0)
-    torch.cuda.synchronize()
-    jpeg_cuda.LAUNCHES.reset()
-    fec_ops.LAUNCHES.reset()
+    reset_kernel_counts()
     file_r = enc_r.encode(src)
     buf, desc = sess256.encode(file_r)
     sym_ok, present_ok = lose(buf, desc.symbol_size, LOSS_RECOVERED, LOSS_RECOVERED)
@@ -3914,9 +4049,10 @@ def main() -> int:
     rounds_bad = sess256.rounds
     out = dec_r.decompress(VideoFrame(desc_j, [rec]), Codec.UYVY)
     torch.cuda.synchronize()
-    rx_launches = {"jpeg_encode": jpeg_cuda.LAUNCHES.count, "gf2_parity": fec_ops.LAUNCHES.count}
-    if min(rx_launches.values()) < 1:
+    rx_launches = {k: v for k, v in kernel_counts().items() if k not in ("jpeg_plane_encode", "jpeg_decode_refused")}
+    if min(rx_launches.values()) < 1:  # one frame decoded: one jpeg_decode launch
         raise RuntimeError(f"receive path skipped a kernel: {rx_launches}")
+    check_card_decode("receive path", kernel_counts(), 1)
     if rec is None or not np.array_equal(rec, file_r):
         raise RuntimeError("receive path: the peel on the card did not recover the file exactly")
     host_ok, host_bad = sess256.decode(sym_ok, present_ok), sess256.decode(sym_bad, present_bad)
@@ -3967,6 +4103,7 @@ def main() -> int:
                 raise RuntimeError(f"receive {what}: PSNR {p_gpu} dB vs CPU {p_cpu} dB")
             row.update(psnr_db=p_gpu, psnr_cpu_db=p_cpu)
         rx["outputs"].append(row)
+    rx["card_decode"] = card_decode_rows(dev)
     emit({"phase": "receive_path", **rx})
 
     # ---- batch: B frames stacked row-wise through BatchedJpegLdgmPipeline,
@@ -4389,6 +4526,38 @@ def main() -> int:
          "batch_max_abs_err": k2_batch_err, "batch_4k_b16": batch_t["4K"]["k2"],
          "batch_8k_b4": batch_t["8K"]["k2"],
          "tolerance": "bit-equal, staircase on and off"},
+        {"name": "jpeg_decode", "route": "cuda", "source": "ultragrid_tpu_torch/csrc/jpeg_decode.cu",
+         "replaces": "none: no Pallas kernel (the JAX package decodes the scan on the host, "
+                     "native/jpeg_scan_decode.c); the port's C scan decode for 4:2:2 streams with restart markers",
+         "launches": live_l["jpeg_decode"], "frames_displayed": live["jpeg_ldgm_1080p"]["frames_displayed"],
+         "launches_on": "each JPEG receiver to UYVY, one launch a decoded frame, checked >= the frames displayed: "
+                        "live session 1080p jpeg + LDGM with loss, " + str(LIVE_FRAMES) + " frames; "
+                        "launches_audio_session / launches_replay_session: the 1080p jpeg + LDGM session with "
+                        "audio, and -I of a recording; launches_duplex: the 1080p duplex call through cli.main; "
+                        "launches_receive_path: phase receive_path's one frame; launches_tools: each bench "
+                        "tool's run in phase tools; launches_remaining: phase remaining's -d x11 session and "
+                        "translator (not checked: what their displays take decides the route)",
+         "launches_audio_session": audio_l["jpeg_decode"],
+         "frames_audio_session": audio["jpeg_ldgm_audio_1080p"]["frames_displayed"],
+         "launches_replay_session": replay_l["jpeg_decode"],
+         "frames_replay_session": audio["record_replay"]["replay"]["frames_displayed"],
+         "launches_duplex": duplex_l["jpeg_decode"], "frames_duplex": std["duplex"]["video"]["frames_displayed"],
+         "launches_receive_path": rx_launches["jpeg_decode"],
+         "launches_tools": tools["launches"]["jpeg_decode"],
+         "launches_remaining": rem["launches"]["jpeg_decode"],
+         "refused_in_checked_sessions": 0,
+         "q_differing_from_c_decoder": sum(r["q_differing"] for r in rx["card_decode"]),
+         "q_differing_from_plain": sum(r["q_differing_from_plain"] for r in rx["card_decode"]),
+         "pixels_differing_from_c_route": sum(r["pixels_differing_from_c_route"] for r in rx["card_decode"]),
+         "ms": rx["card_decode"][0]["card_route_host_ms"], "device_ms": rx["card_decode"][0]["device_ms"],
+         "plain_ms": rx["card_decode"][0]["plain_on_card_ms"], "bound_ms": rx["card_decode"][0]["bound_ms"],
+         "bound_by": rx["card_decode"][0]["bound_by"], "library_ms": None,
+         "library": "none: no PyTorch call decodes Huffman codes",
+         "at": rx["card_decode"][0]["what"] + "; ms: the card route's host time a frame, file in -> UYVY rows",
+         "4k": {k: rx["card_decode"][1][k] for k in ("device_ms", "bound_ms", "plain_on_card_ms",
+                                                     "card_route_host_ms")},
+         "tolerance": "q bit-equal to the C decoder's and to the plain version's on every stream; "
+                      "pixels bit-equal to the C route"},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

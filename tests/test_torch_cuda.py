@@ -1,5 +1,8 @@
 """Kernels K1 and K2 on the card against their plain PyTorch twins, the
-receive path, the batched sender, the pixel formats, DXT, postprocess, the
+receive path, the JPEG entropy decode on the card against the C scan
+decoder (coefficients and pixels equal, one launch a frame, the same
+refusals and the same reading of a missing last extension, the C path for
+streams without restart markers), the batched sender, the pixel formats, DXT, postprocess, the
 filters, the local loop, the stitcher, the H.264 device encoders, the
 wavelet and intra codecs and the audio RS parity on the card against the
 CPU, the import capture of a recording on the card, the standards-mode
@@ -249,6 +252,85 @@ def test_truncated_stream_on_card_as_on_cpu(cuda):
         assert got.is_cuda
         d = (got.cpu().long() - JpegDecompress(device="cpu").decompress(frame, Codec.UYVY).data.long()).abs()
         assert int(d.max()) <= 1 and int((d != 0).sum()) <= 0.001 * d.numel()
+
+
+@pytest.mark.parametrize("w,h,q,ri,noise", [
+    (1920, 1080, 80, None, False), (1920, 1080, 95, 1, False), (3840, 2160, 80, None, False),
+    (208, 56, 50, None, False),
+    (512, 128, 100, None, True),  # noise at q100: more exceptions than the packed upload takes
+])
+def test_card_entropy_decode_equals_c_decoder(cuda, w, h, q, ri, noise):
+    from ultragrid_tpu_torch.ops import jpeg_decode_cuda
+    from ultragrid_tpu_torch.ops.jpeg import JpegDecoder, entropy_decode_422
+
+    src = (np.random.default_rng(0).integers(0, 256, (h, 2 * w), dtype=np.uint8) if noise
+           else content(w, h, Codec.UYVY, 9))
+    data = bytes(JpegEncoder(w, h, quality=q, restart_interval=ri).encode(src, device="cpu"))
+    hdr, (cy, cu, cv), nmcux, nmcuy = entropy_decode_422(data)
+    nmcu = nmcux * nmcuy
+    want = torch.cat([torch.as_tensor(cy).view(nmcu, 128), torch.as_tensor(cu), torch.as_tensor(cv)], 1).float()
+    file = torch.zeros(len(data) + jpeg_decode_cuda.PAD, dtype=torch.uint8, device=cuda)
+    file[: len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(cuda)
+    tables = torch.as_tensor(jpeg_decode_cuda.huffman_tables(hdr["htabs"])).to(cuda)
+    before = jpeg_decode_cuda.LAUNCHES.count
+    q, status = jpeg_decode_cuda.segment_decode(file, len(data), hdr["scan_start"], tables,
+                                                tuple(c["td"] for c in hdr["scan"]), nmcu, hdr["ri"])
+    assert jpeg_decode_cuda.LAUNCHES.count == before + 1
+    assert status.tolist() == [0, nmcu, -(-nmcu // hdr["ri"]) - 1, 0]
+    assert torch.equal(q.cpu(), want)
+
+    dec = JpegDecoder(cuda)
+    before, refused = jpeg_decode_cuda.LAUNCHES.count, jpeg_decode_cuda.REFUSED.count
+    for _ in range(3):
+        got, gh, gw = dec.decode_to_uyvy(data)
+    assert jpeg_decode_cuda.LAUNCHES.count == before + 3 and dec.host_scans == 0
+    assert jpeg_decode_cuda.REFUSED.count == refused
+    host, hh, hw = dec._decode_on_host(data)
+    assert dec.host_scans == 1 and (gh, gw) == (hh, hw) == (h, w)
+    assert got.is_cuda and torch.equal(got, host)
+
+
+def test_card_entropy_decode_falls_back_to_the_c_path(cuda):
+    from tests.test_torch_jpeg_decode import trim_segments
+    from ultragrid_tpu_torch.ops import jpeg_decode_cuda
+    from ultragrid_tpu_torch.ops.jpeg import JpegDecoder, _parse_headers
+
+    w, h = 208, 56
+    good = bytes(JpegEncoder(w, h).encode(content(w, h, Codec.UYVY, 3), device="cpu"))
+    hdr = _parse_headers(good)
+    rst = [i for i in range(hdr["scan_start"], len(good) - 1) if good[i] == 0xFF and 0xD0 <= good[i + 1] <= 0xD7]
+    bad = bytearray(good)
+    for i in range(rst[39] + 2, rst[40] - 1, 2):  # segment 40: all-ones bits, no code of the tables
+        bad[i: i + 2] = b"\xff\x00"
+    i = good.index(b"\xff\xdd")
+    one = bytes(JpegEncoder(w, h, restart_interval=91).encode(content(w, h, Codec.UYVY, 3), device="cpu"))
+    no_dri = one[:i] + one[i + 6:]
+    dec = JpegDecoder(cuda)
+    before, refused = jpeg_decode_cuda.LAUNCHES.count, jpeg_decode_cuda.REFUSED.count
+    with pytest.raises(ValueError):
+        dec.decode_to_uyvy(bytes(bad))
+    with pytest.raises(ValueError):
+        dec._decode_on_host(bytes(bad))  # the C path stops at the same segment
+    assert jpeg_decode_cuda.LAUNCHES.count == before + 1 and dec.host_scans == 1
+    assert jpeg_decode_cuda.REFUSED.count == refused + 1
+    got = dec.decode_to_uyvy(no_dri)[0]
+    assert jpeg_decode_cuda.LAUNCHES.count == before + 1 and dec.host_scans == 2
+    assert torch.equal(got, JpegDecoder(cuda)._decode_on_host(no_dri)[0])
+    got = dec.decode_to_uyvy(good)[0]
+    assert jpeg_decode_cuda.LAUNCHES.count == before + 2 and dec.host_scans == 2
+    assert torch.equal(got, dec._decode_on_host(good)[0])
+    # segments whose last symbol's extension is cut: 0, as the C decoder
+    # reads it; a segment cut further: refused by both
+    noise = np.random.default_rng(4).integers(0, 256, (h, 2 * w), dtype=np.uint8)
+    trimmed, cut, cut_further = trim_segments(bytes(JpegEncoder(w, h, quality=100, restart_interval=1)
+                                                .encode(noise, device="cpu")))
+    assert len(cut) >= 10
+    got = dec.decode_to_uyvy(trimmed)[0]
+    assert jpeg_decode_cuda.LAUNCHES.count == before + 3 and dec.host_scans == 3
+    assert torch.equal(got, dec._decode_on_host(trimmed)[0])
+    with pytest.raises(ValueError):
+        dec.decode_to_uyvy(cut_further)
+    assert jpeg_decode_cuda.LAUNCHES.count == before + 4 and jpeg_decode_cuda.REFUSED.count == refused + 2
 
 
 def test_rs_encode_on_card_equals_cpu(cuda):

@@ -47,6 +47,11 @@ _SIGNATURES = {
     # layout, nmcux, nmcu, restart_interval, wwords, stream
     "ug_jpeg_plane_encode": [_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P],
+    # pinned staging buffer, source, bytes, device buffer, stream
+    "ug_jpeg_upload": [_P, _P, _L, _P, _P],
+    # file, len, scan start, tables, table ids (Y, chroma), nmcu,
+    # restart interval, nseg, tile counts, ntiles, offsets, q, status, stream
+    "ug_jpeg_decode": [_P, _L, _L, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
     # part pointers, part words per frame, part first rows (host arrays),
     # nparts, nframes, psw, row_ptr, cols, m, nnz, staircase, out, stream
     "ug_gf2_parity": [_P, _P, _P, _I, _I, _L, _P, _P, _I, _I, _I, _P, _P],
@@ -123,8 +128,11 @@ def build_log() -> str:
 
 
 @lru_cache(maxsize=None)
-def kernels_lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(library_path())
+def kernels_lib(keep_gil: bool = False) -> ctypes.CDLL:
+    """The library.  ``keep_gil``: its functions hold the interpreter lock
+    while they run (``ctypes.PyDLL``), for calls short enough that handing
+    the lock to another thread and waiting to get it back costs more."""
+    lib = (ctypes.PyDLL if keep_gil else ctypes.CDLL)(library_path())
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -33,7 +33,7 @@ import torch
 
 from ultragrid_tpu_torch import native
 from ultragrid_tpu_torch.device import get_device
-from ultragrid_tpu_torch.ops import jpeg_cuda
+from ultragrid_tpu_torch.ops import jpeg_cuda, jpeg_decode_cuda
 from ultragrid_tpu_torch.types import Codec, VideoFrame, vc_get_linesize
 from ultragrid_tpu_torch.utils import profiler
 
@@ -1157,7 +1157,8 @@ def _decode_scan(data, pos, scan, qtabs, htabs, ri, h_img, w_img, collect_coeffs
 
 
 # ---------------------------------------------------------------------------
-# Split JPEG decoder: C entropy decode + dequant/IDCT/pack on tensors
+# Split JPEG decoder: entropy decode (on the card, or C on the host) +
+# dequant/IDCT/pack on tensors
 # ---------------------------------------------------------------------------
 
 
@@ -1430,11 +1431,88 @@ def packed_coefficients(lo, dc, idx, delta, nmcu: int) -> torch.Tensor:
     return q.to(torch.float32)
 
 
+class _CardStream:
+    """What :meth:`JpegDecoder.decode_to_uyvy` keeps of one stream's header
+    (the bytes up to and including SOS) for the card's entropy decode: the
+    parse, the geometry, the Huffman tables on the device, the decode's
+    output (``q``, the status word and its pinned host copy) and the
+    reverse product over it, or ``reason``, why the card does not take the
+    stream."""
+
+    def __init__(self, data: bytes, decoder: "JpegDecoder"):
+        hdr = _parse_headers(data)
+        self.header = bytes(data[: hdr["scan_start"]])
+        self.hdr = hdr
+        self.nmcux = (hdr["w"] + 15) // 16
+        self.nmcuy = (hdr["h"] + 7) // 8
+        self.nmcu = self.nmcux * self.nmcuy
+        self.ri = hdr["ri"]
+        self.reason = None
+        if not _is_422(hdr) or self.nmcu < 1:
+            self.reason = "not 4:2:2"
+        elif not self.ri:
+            self.reason = "no DRI"
+        else:
+            self.tds = tuple(c["td"] for c in hdr["scan"])
+            try:
+                tables = jpeg_decode_cuda.huffman_tables(hdr["htabs"])
+            except ValueError:
+                self.reason = "tables"
+            else:
+                if any(t not in (0, 1) for t in self.tds) or self.tds[1] != self.tds[2]:
+                    self.reason = "tables"
+        if self.reason is None:
+            dev = decoder.device
+            self.nseg = -(-self.nmcu // self.ri)
+            self.tables = torch.as_tensor(tables, device=dev)
+            self._product = decoder.reverse_product(hdr)
+            self.q = torch.empty(self.nmcu, 256, dtype=torch.float32, device=dev)
+            self.status = torch.empty(4, dtype=torch.int32, device=dev)
+            self.status_host = torch.empty(4, dtype=torch.int32, pin_memory=dev.type == "cuda")
+            self.offsets = torch.empty(self.nseg, dtype=torch.int64, device=dev)
+            self._graph = None
+            self._uyvy = None
+
+    def _run(self):
+        uyvy = JpegDecoder.uyvy_rows(self._product(self.q), self.nmcux, self.nmcuy)
+        self.status_host.copy_(self.status, non_blocking=True)
+        return uyvy
+
+    def product(self) -> torch.Tensor:
+        """UYVY rows of ``q`` through the reverse product, and the status
+        word copied to ``status_host``, enqueued.  On the card the chain is
+        captured once as a CUDA graph and replayed: one launch a frame in
+        place of one per operation, the same kernels on the same
+        addresses; the rows are copied out of the graph's buffer."""
+        if not self.q.is_cuda:
+            return self._run()
+        if self._graph is None:
+            # a first run outside the capture sets up cuBLAS on this stream
+            side = torch.cuda.Stream(self.q.device)
+            side.wait_stream(torch.cuda.current_stream(self.q.device))
+            with torch.cuda.stream(side):
+                self._run()
+            torch.cuda.current_stream(self.q.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._uyvy = self._run()
+            self._graph = graph
+        self._graph.replay()
+        return self._uyvy.clone()
+
+
 class JpegDecoder:
     """JPEG -> pixels on ``device`` (the card unless the caller names
-    another): C scan decode on the host (``native/jpeg_scan_decode.c``),
-    then dequantisation, inverse DCT and pixel layout on tensors (reference
-    ``JpegDecoder``, ops/jpeg.py:1431).
+    another), then dequantisation, inverse DCT and pixel layout on tensors
+    (reference ``JpegDecoder``, ops/jpeg.py:1431).
+
+    The entropy decode of a 4:2:2 three-component stream with restart
+    markers runs on the card (:mod:`ultragrid_tpu_torch.ops.jpeg_decode_cuda`)
+    when the decoder's device is one; every other stream, and every stream
+    on the CPU, takes the C scan decode on the host
+    (``native/jpeg_scan_decode.c``), counted in :attr:`host_scans`.  The
+    card keeps the state of the last header it saw; a new header builds it
+    anew.
 
     The reverse mega matrix folds the stream's quantisation tables, so it
     is cached under the table VALUES: two streams at different qualities
@@ -1445,6 +1523,13 @@ class JpegDecoder:
     def __init__(self, device="cuda"):
         self.device = get_device(device)
         self._fns = {}
+        self.host_scans = 0  # decode_to_uyvy calls that took the C scan decode
+        self._card = self.device.type == "cuda"
+        self._stream = None  # the _CardStream of the last header
+        # (host uint8, pinned on the card; device uint8, PAD bytes past the
+        # file; the decode's tile counts), grown to fit the file
+        self._staging = None
+        self._done = None  # the event after a frame's last operation
 
     # -- UYVY fast path ---------------------------------------------------
 
@@ -1466,10 +1551,11 @@ class JpegDecoder:
         return out.permute(0, 2, 1, 3).reshape(nmcuy * 8, nmcux * 32)
 
     def _make_mega_uyvy_fn(self, hdr, nmcux: int, nmcuy: int, packed: bool = False):
-        """The device half of :meth:`decode_to_uyvy` (reference
-        ops/jpeg.py:1541): ``fn(lo, dc, idx, delta)`` for the packed upload,
-        ``fn(cy, cu, cv)`` for int16 blocks -> uint8 UYVY rows [nmcuy * 8,
-        nmcux * 32] through ONE product with the reverse mega matrix."""
+        """The device half of the C path of :meth:`decode_to_uyvy`
+        (reference ops/jpeg.py:1541): ``fn(lo, dc, idx, delta)`` for the
+        packed upload, ``fn(cy, cu, cv)`` for int16 blocks -> uint8 UYVY rows
+        [nmcuy * 8, nmcux * 32] through ONE product with the reverse mega
+        matrix."""
         prod = self.reverse_product(hdr)
         nmcu = nmcux * nmcuy
         if packed:
@@ -1484,15 +1570,108 @@ class JpegDecoder:
 
         return fn
 
-    def decode_to_uyvy(self, data: bytes):
-        """4:2:2 3-component JPEG -> UYVY rows in wire layout through ONE
-        product with the reverse mega matrix (reference ops/jpeg.py:1493).
+    def decode_to_uyvy(self, data):
+        """4:2:2 3-component JPEG (bytes, or a uint8 array) -> UYVY rows in
+        wire layout through ONE product with the reverse mega matrix
+        (reference ops/jpeg.py:1493).
+
+        On the card, a stream with restart markers goes up as its file and
+        is entropy-decoded there (:meth:`_decode_on_card`); the C scan
+        decode takes the rest (:meth:`_decode_on_host`).  Both give the same
+        pixels, and raise ValueError for the same corrupt scans.  Returns
+        (uyvy uint8 [nmcuy * 8, nmcux * 32] on the device, h, w), or None if
+        the stream is not 4:2:2 with three components."""
+        if self._card:
+            res = self._decode_on_card(data)
+            if res is not None:
+                return res
+        return self._decode_on_host(data if isinstance(data, bytes) else bytes(data))
+
+    def _card_stream(self, data) -> _CardStream:
+        """The kept state of ``data``'s header, built anew where the last
+        header is not a prefix of ``data``."""
+        st = self._stream
+        if st is None or memoryview(data)[: len(st.header)] != st.header:
+            self._stream = None  # the old state goes before the new is built
+            st = self._stream = _CardStream(bytes(data), self)
+        return st
+
+    def _decode_on_card(self, data):
+        """The file up once (pinned), the RST markers and the entropy decode
+        on the card straight into the reverse product's input, the product,
+        then ONE wait for the device: the status word.  None, with a
+        ``decompress.fallback`` instant naming why, where the stream needs
+        the C path; ValueError where the scan stops early or its restart
+        markers are not the interval's, as the C decoder's, counted in
+        ``jpeg_decode_cuda.REFUSED`` with the same instant.  ``data``: the
+        file as bytes or a uint8 array."""
+        try:
+            st = self._card_stream(data)
+            reason = st.reason
+        except ValueError:
+            reason = "header"
+        if reason is not None:
+            profiler.instant("decompress.fallback", args={"reason": reason})
+            return None
+        with profiler.zone("decompress.upload"):
+            file = self._upload(data)
+        with profiler.zone("decompress.scan"):
+            jpeg_decode_cuda.segment_decode(file, len(data), len(st.header), st.tables, st.tds, st.nmcu,
+                                            st.ri, out=(st.q, st.status, self._staging[2], st.offsets))
+        with profiler.zone("decompress.product"):
+            uyvy = st.product()
+        with profiler.zone("decompress.wait"):
+            stopped, decoded, markers = self._read_status(st)
+        if markers != st.nseg - 1:
+            reason = "offset count"
+            msg = f"scan has {markers} restart markers, the interval gives {st.nseg - 1}"
+        elif stopped or decoded != st.nmcu:
+            reason = "status"
+            msg = f"scan decode stopped at MCU {decoded}/{st.nmcu} ({stopped} segments stopped early)"
+        else:
+            return uyvy, st.hdr["h"], st.hdr["w"]
+        jpeg_decode_cuda.REFUSED.count += 1
+        profiler.instant("decompress.fallback", args={"reason": reason})
+        raise ValueError(msg)
+
+    def _upload(self, data) -> torch.Tensor:
+        """``data`` copied into the reused staging buffer (pinned on the
+        card), then one asynchronous copy to the device buffer, which holds
+        ``PAD`` bytes more; on the card both in one call
+        (:func:`jpeg_decode_cuda.upload`)."""
+        need = len(data) + jpeg_decode_cuda.PAD
+        if self._staging is None or self._staging[0].numel() < need:
+            size = 1 << (need - 1).bit_length()
+            self._staging = (torch.empty(size, dtype=torch.uint8, pin_memory=self.device.type == "cuda"),
+                             torch.empty(size, dtype=torch.uint8, device=self.device),
+                             torch.empty(size // jpeg_decode_cuda.TILE + 1, dtype=torch.int32, device=self.device))
+        host, dev = self._staging[:2]
+        src = np.frombuffer(data, np.uint8)
+        if dev.is_cuda:
+            jpeg_decode_cuda.upload(host, src, dev)
+        else:
+            dev.numpy()[: src.size] = src
+        return dev
+
+    def _read_status(self, st: _CardStream):
+        """The frame's one host read of the device: the status word, which
+        the product's chain copies into pinned memory after every operation
+        of the frame."""
+        if self.device.type == "cuda":
+            if self._done is None:
+                self._done = torch.cuda.Event()
+            self._done.record(torch.cuda.current_stream(self.device))
+            if not self._done.query():  # a finished frame keeps the interpreter lock
+                self._done.synchronize()
+        return st.status_host.tolist()[:3]
+
+    def _decode_on_host(self, data: bytes):
+        """The C scan decode on the host, then the upload and the product.
 
         The packed layout goes up as int8 ACs, an int16 DC column and the
         exception list padded to ``_EXC_CAP`` entries; a frame with more
-        exceptions goes up as int16 blocks.  Returns (uyvy uint8 [nmcuy * 8,
-        nmcux * 32] on the device, h, w), or None if the stream is not 4:2:2
-        with three components."""
+        exceptions goes up as int16 blocks."""
+        self.host_scans += 1
         with profiler.zone("decompress.scan"):
             packed = entropy_decode_422_packed(data)
         if packed is not None:
@@ -1581,18 +1760,19 @@ def decode_jpeg_to_frame(frame: VideoFrame, out_codec: Codec,
     ``device`` (the card unless the caller names another).  The frame's
     data is a uint8 tensor there.
 
-    UYVY from 4:2:2: the C scan decode and one reverse mega product.  Other
+    UYVY from 4:2:2: the entropy decode (on the card where the stream has
+    restart markers, else the C scan decode) and one reverse mega product.  Other
     samplings, and RGB, take the planes path, then chroma upsampling and
     colour conversion in float64 (as the reference's numpy).  Where the C
     scan decoder rejects the stream (``ValueError``), the reference's own
     answer is its pure-Python decoder on the host, and so it is here;
     nothing else falls back."""
     dec = decoder if decoder is not None else JpegDecoder(device)
-    data = np.asarray(frame.data.cpu() if isinstance(frame.data, torch.Tensor) else frame.data)
-    data = bytes(data.reshape(-1))
+    arr = np.ascontiguousarray(np.asarray(frame.data.cpu() if isinstance(frame.data, torch.Tensor)
+                                          else frame.data).reshape(-1))
     if out_codec == Codec.UYVY:
         try:
-            res = dec.decode_to_uyvy(data)
+            res = dec.decode_to_uyvy(arr)
         except ValueError:
             res = None
         if res is not None:
@@ -1600,6 +1780,7 @@ def decode_jpeg_to_frame(frame: VideoFrame, out_codec: Codec,
             vf = VideoFrame(frame.desc.with_(color_spec=Codec.UYVY), [uyvy[:h, : 2 * w]])
             vf.timestamp = frame.timestamp
             return vf
+    data = bytes(arr)
     try:
         planes, h, w, sampling = dec.decode(data)
         y, cb, cr = (p.to(torch.float64) for p in planes)
