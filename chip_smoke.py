@@ -60,7 +60,12 @@ table, the card's name and power limit, and ``{"ok": true, "device":
 and K2 per band, the peel per band) against single-band encodes, K2's plain
 version, the CPU port and the unsharded decode, ``ShardedJpegDecoder``, the
 halo deinterlace, sharded H.264 at 1080p x 4, the dry run, and the file
-capture and display modules.  Phase ``tools`` runs the port's bench tools
+capture and display modules; with four cards present, the 8K JPEG + LDGM
+live session split over them by row band (``--param cuda-device=0,1,2,3``,
+120 frames; ``--only banded_session`` runs it alone), gated on K1 once a
+card and frame sent, the decode once a card and frame shown and never
+refused, sent files byte-equal to the one-card encode and shown frames
+bit-equal to the one-card decode.  Phase ``tools`` runs the port's bench tools
 (``ultragrid_tpu_torch/tools/bench_*.py``) at the reference tools' own
 sizes, each kernel row against its plain version and each tool's output
 against the CPU port's, with bench_latency's two-process 1080p60 session
@@ -2822,6 +2827,79 @@ def complete_profiles(fn, expect: dict, want: int = 5, attempts: int = 30):
             "kernels_per_call": {n[:60]: [c, ms] for n, (c, ms) in ks.items()}}
 
 
+BANDED_FRAMES = 120
+BANDED_CAPTURE = "testcard:s=7680x4320:f=10:c=UYVY"  # about the 8K link's rate on a host whose loopback UDP is slow
+BANDED_KEEP_EVERY = 20  # shown frames kept and checked
+
+
+def banded_session(dev):
+    """The 8K JPEG + LDGM live session split by row band over four cards
+    (``--param cuda-device=0,1,2,3``) through VideoSender and VideoReceiver:
+    K1 launched once a card and frame sent, the decode launched once a card
+    and frame shown and never refused, the files sent byte-equal to the
+    one-card encode of their capture at the bands' restart interval (every
+    ``BANDED_KEEP_EVERY``-th), and the frames shown bit-equal to the
+    one-card decode of their file."""
+    from ultragrid_tpu_torch.ops import jpeg_cuda, jpeg_decode_cuda
+    from ultragrid_tpu_torch.ops.jpeg import JpegDecoder, JpegEncoder
+    from ultragrid_tpu_torch.parallel.sharded_jpeg import ShardedJpegEncoder
+    from ultragrid_tpu_torch.utils import params
+
+    files, packets, shown = {}, [], []
+    held = {}
+
+    def tap(sender):
+        tap_sent_files(sender, files, packets)
+        held["sender"] = sender
+
+    def on_shown(frame):
+        if len(shown) % BANDED_KEEP_EVERY == 0:
+            shown.append((int(round(frame.timestamp * 90000)) & 0xFFFFFFFF, frame.data.clone()))
+        else:
+            shown.append(None)
+
+    # the param is process-wide: the phases after this one drive the one-card path
+    saved = dict(params._values)
+    params.set_commandline_param("cuda-device", ",".join(str(i) for i in range(PAR_BANDS)))
+    try:
+        row, _, sender = live_run(dev, BANDED_CAPTURE, "jpeg:80", FEC, BANDED_FRAMES, tap=tap,
+                                  on_shown=on_shown, grace_s=10.0, idle_s=5.0)
+    finally:
+        params._values.clear()
+        params._values.update(saved)
+    k1 = dict(jpeg_cuda.LAUNCHES.per_device)
+    dec = dict(jpeg_decode_cuda.LAUNCHES.per_device)
+    refused = jpeg_decode_cuda.REFUSED.count
+    enc = next(e for e in sender.compress.impl._encoders.values())
+    if not isinstance(enc, ShardedJpegEncoder) or [d.index for d in enc.devices] != list(range(PAR_BANDS)):
+        raise RuntimeError(f"banded session: the sender's encoder is {type(enc).__name__}")
+    want = {i: row["frames_sent"] for i in range(PAR_BANDS)}
+    if k1 != want:
+        raise RuntimeError(f"banded session: K1 launches per card {k1}, want one a card and frame sent {want}")
+    want = {i: row["frames_displayed"] for i in range(PAR_BANDS)}
+    if dec != want or refused:
+        raise RuntimeError(f"banded session: decode launches per card {dec}, want {want}; refused {refused}")
+    ri = enc.local.restart_interval
+    one = JpegEncoder(PAR_W, PAR_H, quality=80, restart_interval=ri)
+    ring = {one.encode(f).tobytes() for f in sender.capture.frames}
+    keys = sorted(files)
+    sampled = keys[::BANDED_KEEP_EVERY]
+    if not sampled or any(files[k_] not in ring for k_ in sampled):
+        raise RuntimeError(f"banded session: a sent file is not the one-card encode of a capture ({len(files)} sent)")
+    single = JpegDecoder(dev)
+    checked = 0
+    for key, pic in (x for x in shown if x is not None):
+        if key not in files or not torch.equal(pic, single.decode_to_uyvy(files[key])[0]):
+            raise RuntimeError(f"banded session: the frame shown under {key} is not the one-card decode of its file")
+        checked += 1
+    if row["frames_displayed"] < row["frames_sent"] // 2 or row["frames_off_card"] or not checked:
+        raise RuntimeError(f"banded session: {row}")
+    row.update(k1_launches_per_card=k1, decode_launches_per_card=dec, decode_refused=refused,
+               restart_interval=ri, segments_per_band=enc.local.nseg, files_checked=len(sampled),
+               shown_frames_checked=checked, file_bytes_mean=float(np.mean([len(f) for f in files.values()])))
+    return row
+
+
 def phase_parallel(dev):
     """This slice's path on the card: the multi-device steps over a mesh of
     four row bands on one card at 8K UYVY (7680x4320, bands of 7680x1080):
@@ -3007,6 +3085,11 @@ def phase_parallel(dev):
                                 "share_of_bound": bms / band_ms, "mbytes": b_k2 / 1e6, "xors": ops_k2}
     out["launches_sharded_sender"] = sender_l
     out["launches_sharded_receiver"] = receiver_l
+    # ---- the banded live session over four cards, where four are present ----
+    if torch.cuda.device_count() >= PAR_BANDS:
+        out["banded_session"] = banded_session(dev)
+    else:
+        out["banded_session"] = f"not run: {torch.cuda.device_count()} card(s), {PAR_BANDS} needed"
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -3793,6 +3876,9 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--only", "parallel"]:
         emit(phase_parallel(dev))
+        return 0
+    if sys.argv[1:] == ["--only", "banded_session"]:
+        emit({"phase": "banded_session", **banded_session(dev)})
         return 0
     if sys.argv[1:] == ["--only", "tools"]:
         emit(phase_tools(dev))

@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from functools import lru_cache
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
@@ -50,8 +51,9 @@ _SIGNATURES = {
     # pinned staging buffer, source, bytes, device buffer, stream
     "ug_jpeg_upload": [_P, _P, _L, _P, _P],
     # file, len, scan start, tables, table ids (Y, chroma), nmcu,
-    # restart interval, nseg, tile counts, ntiles, offsets, q, status, stream
-    "ug_jpeg_decode": [_P, _L, _L, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _P],
+    # restart interval, nseg, tile counts, ntiles, offsets, q, status,
+    # first segment, end segment, stream
+    "ug_jpeg_decode": [_P, _L, _L, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P],
     # part pointers, part words per frame, part first rows (host arrays),
     # nparts, nframes, psw, row_ptr, cols, m, nnz, staircase, out, stream
     "ug_gf2_parity": [_P, _P, _P, _I, _I, _L, _P, _P, _I, _I, _I, _P, _P],
@@ -59,14 +61,26 @@ _SIGNATURES = {
 
 
 class LaunchCounter:
-    """How many times a wrapper launched its kernel (never its plain version)."""
+    """How many times a wrapper launched its kernel (never its plain
+    version): ``count`` in all, ``per_device`` by card index.  Wrappers
+    called from several threads at once count with :meth:`add`."""
 
     def __init__(self, name: str):
         self.name = name
         self.count = 0
+        self.per_device = {}
+        self._lock = threading.Lock()
+
+    def add(self, device) -> None:
+        """One launch on ``device`` (a ``torch.device``)."""
+        with self._lock:
+            self.count += 1
+            self.per_device[device.index] = self.per_device.get(device.index, 0) + 1
 
     def reset(self) -> None:
-        self.count = 0
+        with self._lock:
+            self.count = 0
+            self.per_device = {}
 
 
 def _nvcc() -> str:

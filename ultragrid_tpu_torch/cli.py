@@ -16,6 +16,7 @@ The port of ``ultragrid_tpu/cli.py``: the same option grammar
   --rtsp             serve the session over RTSP (implies --rtp-standard)
   --window-title T   the title of a windowed display's window
   --device DEV       where frames live and kernels run: cuda (default) or cpu
+  --cuda-device I,J  the cards a JPEG session splits each frame over, by row band (help lists them)
 
 Run a sender ``python -m ultragrid_tpu_torch -t testcard -c jpeg -f ldgm
 <host>``, a receiver ``python -m ultragrid_tpu_torch -d dummy``, both on the
@@ -41,6 +42,19 @@ from ultragrid_tpu_torch.utils.params import print_param_doc, set_commandline_pa
 
 # protocols whose SDKs are absent (ref: src/rxtx/sage.cpp, omt.cpp)
 _SDK_PROTOCOLS = {"sage": "SAGE", "omt": "Open Media Transport"}
+
+
+def cuda_device_help() -> str:
+    """``--cuda-device help``: the CUDA cards, index and name, as the
+    reference lists them for the same option."""
+    import torch
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    lines = ["CUDA devices:"] + [f"\t{i} - {torch.cuda.get_device_name(i)}" for i in range(n)]
+    if not n:
+        lines.append("\t(none)")
+    return "\n".join(lines + ["--cuda-device <i,j,...> splits a JPEG session's frames over those cards, "
+                               "one row band a card"])
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -104,6 +118,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="print machine-readable capabilities JSON (GUI contract)")
     p.add_argument("--device", default="cuda",
                    help="torch device of frames and kernels: cuda (default) or cpu")
+    p.add_argument("--cuda-device", default=None, metavar="<i,j,...>|help",
+                   help="the CUDA cards a JPEG session splits each frame over, one row band a card "
+                        "(--param cuda-device); help lists the cards (ref: --cuda-device, host.h:98-100)")
     p.add_argument("-I", "--playback", default=None, metavar="DIR",
                    help="replay a recorded session directory as the capture "
                         "(ref: -I/--playback, main.cpp:904-915)")
@@ -230,6 +247,19 @@ def main(argv=None) -> int:
 
     if args.window_title:
         set_commandline_param("window-title", args.window_title)
+
+    if args.cuda_device is not None:
+        if args.cuda_device == "help":
+            print(cuda_device_help())
+            return 0
+        from ultragrid_tpu_torch.parallel.mesh import cuda_device_list
+
+        try:
+            cuda_device_list(args.cuda_device)
+        except ValueError as e:
+            print(e, file=sys.stderr)
+            return 1
+        set_commandline_param("cuda-device", args.cuda_device)
 
     if args.capabilities:
         from ultragrid_tpu_torch.utils.capabilities import print_capabilities

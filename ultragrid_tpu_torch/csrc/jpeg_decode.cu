@@ -17,7 +17,9 @@
 //   2. jpeg_rst_place_kernel, the same tiles: each warp adds the counts of
 //      the tiles before its own and writes its markers' segment offsets in
 //      file order.  Nothing on the host walks the entropy-coded bytes.
-//   3. jpeg_segment_decode_kernel, one warp per restart segment:
+//   3. jpeg_segment_decode_kernel, one warp per restart segment of the
+//      range asked for (the whole scan, or one row band's segments when a
+//      frame is decoded by band over several cards):
 //      - the 32 lanes unstuff the segment into a 2 KB ring in shared
 //        memory, 512 bytes at a time: one 16-byte load per lane, a ballot
 //        for the segment's end (0xFF not followed by 0x00, or the file's
@@ -346,7 +348,7 @@ __device__ __forceinline__ void unstuff(const uint8_t* __restrict__ file, long l
 __global__ void __launch_bounds__(WARPS * 32) jpeg_segment_decode_kernel(
     const uint8_t* __restrict__ file, long long len, const HuffTab* __restrict__ tabs_g,
     int td_y, int td_c, const long long* __restrict__ off, int nmcu, int ri, int nseg,
-    float* __restrict__ q, int* __restrict__ status)
+    int seg0, int seg1, float* __restrict__ q, int* __restrict__ status)
 {
     __shared__ HuffTab tabs[4];  // Y DC, Y AC, chroma DC, chroma AC
     __shared__ __align__(16) uint8_t rings[WARPS][RING];
@@ -364,8 +366,8 @@ __global__ void __launch_bounds__(WARPS * 32) jpeg_segment_decode_kernel(
     }
     __syncthreads();
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int seg = blockIdx.x * WARPS + warp;
-    if (seg >= nseg || status[2] != nseg - 1) return;  // a wrong marker count: the host falls back
+    const int seg = seg0 + blockIdx.x * WARPS + warp;
+    if (seg >= seg1 || status[2] != nseg - 1) return;  // a wrong marker count: the host falls back
 
     uint8_t* ring = rings[warp];
     int* row = rows[warp];
@@ -399,7 +401,7 @@ __global__ void __launch_bounds__(WARPS * 32) jpeg_segment_decode_kernel(
         ok = __shfl_sync(FULL, ok, 0);
         __syncwarp();
         if (!ok) break;
-        float4* dst = reinterpret_cast<float4*>(q + (long long)m * 256);
+        float4* dst = reinterpret_cast<float4*>(q + (long long)(m - seg0 * ri) * 256);
         int4* r = reinterpret_cast<int4*>(row);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -422,14 +424,18 @@ __global__ void __launch_bounds__(WARPS * 32) jpeg_segment_decode_kernel(
 // tabs: 4 HuffTab (slot = table id * 2 + class), 16-byte aligned; td_y,
 // td_c: the table ids of Y and of both chroma components (0 or 1, used for
 // both classes as the C decoder does); counts: int32 [ntiles] scratch, ntiles = the tiles of TILE
-// bytes from start & ~15 to len; off: int64 [nseg] scratch; q: float32
-// [nmcu, 256], 16-byte aligned; status: int32 [4].
+// bytes from start & ~15 to len; off: int64 [nseg] scratch; segments seg0 to
+// seg1 - 1 are decoded (0 and nseg for the whole scan; the markers are
+// found over the whole scan either way); q: float32 [MCUs of those
+// segments, 256], its row 0 MCU seg0 * ri, 16-byte aligned; status: int32
+// [4], counting the stopped segments and the decoded MCUs of the range.
 extern "C" int ug_jpeg_decode(const void* file, long long len, long long start, const void* tabs,
                               int td_y, int td_c, int nmcu, int ri, int nseg, void* counts,
-                              int ntiles, void* off, void* q, void* status, void* stream)
+                              int ntiles, void* off, void* q, void* status, int seg0, int seg1,
+                              void* stream)
 {
     if (len <= start || start < 2 || nmcu < 1 || ri < 1 || nseg != (nmcu - 1) / ri + 1 || td_y < 0 ||
-        td_y > 1 || td_c < 0 || td_c > 1 ||
+        td_y > 1 || td_c < 0 || td_c > 1 || seg0 < 0 || seg1 <= seg0 || seg1 > nseg ||
         ntiles != (int)((len - (start & ~15LL) + TILE - 1) / TILE) ||
         reinterpret_cast<uintptr_t>(file) % 16 || reinterpret_cast<uintptr_t>(tabs) % 16 ||
         reinterpret_cast<uintptr_t>(q) % 16)
@@ -446,8 +452,8 @@ extern "C" int ug_jpeg_decode(const void* file, long long len, long long start, 
     jpeg_rst_place_kernel<<<tile_blocks, TILE_WARPS * 32, 0, s>>>(f, len, start, ntiles, c, nseg, o);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    jpeg_segment_decode_kernel<<<(nseg + WARPS - 1) / WARPS, WARPS * 32, 0, s>>>(
-        f, len, static_cast<const HuffTab*>(tabs), td_y, td_c, o, nmcu, ri, nseg,
+    jpeg_segment_decode_kernel<<<(seg1 - seg0 + WARPS - 1) / WARPS, WARPS * 32, 0, s>>>(
+        f, len, static_cast<const HuffTab*>(tabs), td_y, td_c, o, nmcu, ri, nseg, seg0, seg1,
         static_cast<float*>(q), st);
     return (int)cudaGetLastError();
 }

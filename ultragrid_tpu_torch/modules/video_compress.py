@@ -44,6 +44,8 @@ from ultragrid_tpu_torch.ops.h264_transcode import Transcoder, _handle
 from ultragrid_tpu_torch.ops.j2k import J2KEncoder
 from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
 from ultragrid_tpu_torch.ops.jpegxs import JpegXsCodec
+from ultragrid_tpu_torch.parallel.mesh import mesh_from_param
+from ultragrid_tpu_torch.parallel.sharded_jpeg import ShardedJpegEncoder
 from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame
 from ultragrid_tpu_torch.utils import profiler
 from ultragrid_tpu_torch.utils.log import Logger
@@ -134,7 +136,15 @@ class JpegCompress(VideoCompress):
     420).  ``rate=`` (or a fixed ``-l`` on the sender, through
     :meth:`set_target_bitrate`) turns on closed-loop rate control: the
     quality ladder of :mod:`ultragrid_tpu_torch.utils.ratectl` follows the
-    measured file sizes, one encoder per quality."""
+    measured file sizes, one encoder per quality.
+
+    With ``--param cuda-device`` naming several cards (the CLI's
+    ``--cuda-device``), each frame is encoded by row band, one band a card,
+    each on a worker thread of its own (``parallel/sharded_jpeg.py``
+    ``ShardedJpegEncoder``); the file is the one-card file at the bands'
+    restart interval, byte for byte.  A geometry whose MCU rows do not
+    split into the bands, or a subsampling asked for, runs on the module's
+    device alone."""
 
     def __init__(self, cfg: str = "", device="cuda"):
         super().__init__(cfg, device)
@@ -149,6 +159,7 @@ class JpegCompress(VideoCompress):
         self._desc: Optional[VideoDesc] = None
         self._rate_bps = parse_rate(kv["rate"]) if "rate" in kv else 0
         self._rc = None
+        self.mesh = mesh_from_param(self.device)
 
     def set_target_bitrate(self, bps: int) -> None:
         """Sender hook for a fixed ``-l`` rate; an explicit ``rate=`` wins."""
@@ -169,15 +180,28 @@ class JpegCompress(VideoCompress):
         enc = self._encoders.get(q)
         if enc is None:
             with profiler.zone("compress.build"):
-                enc = self._encoders[q] = JpegEncoder(
-                    desc.width, desc.height, in_codec=desc.color_spec, quality=q,
-                    restart_interval=self.restart_interval, subsampling=self.subsampling)
+                enc = self._encoders[q] = self._encoder(desc, q)
         data = enc.encode(on_device(frame.data, self.device))
         if self._rc is not None:
             self._rc.update(int(data.size))
         return self._out(frame, Codec.JPEG, data)
 
+    def _encoder(self, desc: VideoDesc, quality: int):
+        """The banded encoder over the mesh where the geometry splits into
+        its bands, else the one-device encoder."""
+        if self.mesh is not None and self.subsampling is None:
+            try:
+                return ShardedJpegEncoder(desc.width, desc.height, self.mesh, desc.color_spec, quality,
+                                          restart_interval=self.restart_interval)
+            except ValueError as e:
+                log.warning(f"jpeg: {desc.width}x{desc.height} on one card: {e}")
+        return JpegEncoder(desc.width, desc.height, in_codec=desc.color_spec, quality=quality,
+                           restart_interval=self.restart_interval, subsampling=self.subsampling)
+
     def done(self) -> None:
+        for enc in self._encoders.values():
+            if isinstance(enc, ShardedJpegEncoder):
+                enc.close()
         self._encoders.clear()
 
 

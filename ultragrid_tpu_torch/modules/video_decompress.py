@@ -36,6 +36,8 @@ from ultragrid_tpu_torch.ops.j2k import UnsupportedStream as J2kUnsupported
 from ultragrid_tpu_torch.ops.jpeg import JpegDecoder, decode_jpeg_to_frame
 from ultragrid_tpu_torch.ops.jpegxs import JpegXsCodec
 from ultragrid_tpu_torch.ops.planar import i420_8_to_uyvy
+from ultragrid_tpu_torch.parallel.mesh import mesh_from_param
+from ultragrid_tpu_torch.parallel.sharded_jpeg import ShardedJpegDecoder
 from ultragrid_tpu_torch.types import Codec, VideoFrame, get_codec_info
 from ultragrid_tpu_torch.utils.log import Logger
 from ultragrid_tpu_torch.utils.params import add_to_param, get_commandline_param
@@ -118,16 +120,21 @@ class I420Decompress(VideoDecompress):
 
 class JpegDecompress(VideoDecompress):
     """JPEG -> UYVY / RGB.  One decoder per module keeps the per-stream
-    matrices of its session."""
+    matrices of its session.  With ``--param cuda-device`` naming several
+    cards, the UYVY decode runs by row band, one a card, and the bands are
+    gathered onto the module's device (``parallel/sharded_jpeg.py``
+    ``ShardedJpegDecoder``)."""
 
     SUPPORTS = [(Codec.JPEG, Codec.UYVY), (Codec.JPEG, Codec.RGB)]
 
     def __init__(self, device="cuda"):
         super().__init__(device)
         self.decoder = JpegDecoder(self.device)
+        mesh = mesh_from_param(self.device)
+        self.banded = None if mesh is None else ShardedJpegDecoder(mesh, self.device)
 
     def decompress(self, frame: VideoFrame, out_codec: Codec) -> Optional[VideoFrame]:
-        return decode_jpeg_to_frame(frame, out_codec, self.decoder)
+        return decode_jpeg_to_frame(frame, out_codec, self.decoder, uyvy_decoder=self.banded)
 
 
 class JpegToDxtDecompress(JpegDecompress):

@@ -3,8 +3,7 @@
 ``native/jpeg_assemble.c`` (slots -> byte-stuffed JPEG entropy stream),
 ``native/jpeg_scan_decode.c`` (the receiver's entropy decode, restart
 segments across host threads), ``native/ldgm_xor.c`` (the host LDGM
-staircase encoder), ``native/udp_tx.c`` (the sender's sendmmsg batches),
-``native/udp_rx.c`` (recvmmsg batches), ``native/h264_assemble.c`` (per-macroblock
+staircase encoder), ``native/udp_rx.c`` (recvmmsg batches), ``native/h264_assemble.c`` (per-macroblock
 H.264 slot windows -> emulation-prevented slice payload) and
 ``native/h264_entropy.c`` (the own H.264 decoder and the CABAC transcoder)
 and ``native/j2k_t1.c`` (the JPEG 2000 Tier-1 block coder) are plain C
@@ -18,7 +17,9 @@ FFmpeg headers are absent the lavc modules are unavailable, as in the
 reference, and where they are present a failed build raises.  So is the
 receiver's C depacketizer, ``ultragrid_tpu_torch/csrc/video_rx_fast.c``
 (``native/video_rx_fast.c`` with fault F12 repaired: it grows the slots
-before it scatters a frame wider than them).
+before it scatters a frame wider than them), and the sender's sendmmsg
+batches, ``ultragrid_tpu_torch/csrc/udp_tx.c`` (``native/udp_tx.c`` whose
+pacer sleeps only while it is ahead of the schedule).
 """
 
 from __future__ import annotations
@@ -101,8 +102,10 @@ def ldgm_xor_lib() -> ctypes.CDLL:
 
 @lru_cache(maxsize=None)
 def udp_tx_lib() -> ctypes.CDLL:
-    """sendmmsg batch sender (reference loader ``native.py:291``)."""
-    lib = ctypes.CDLL(_build("udp_tx"))
+    """sendmmsg batch sender (reference loader ``native.py:291``), from the
+    port's copy ``csrc/udp_tx.c``, whose pacer never sleeps behind its
+    schedule."""
+    lib = ctypes.CDLL(_build("udp_tx", src_dir=_CSRC_DIR))
     lib.udp_send_packets.restype = _I64
     # fd, headers, header len, payload, offsets, sizes, npkt, pace_ns,
     # sockaddr, sockaddr len

@@ -1,7 +1,7 @@
 """Minimal RTP session over UDP (RFC 3550 data path + basic RTCP).
 
 The port's copy of ``ultragrid_tpu/net/rtp.py`` (jax-free).  Video is sent
-in batches through the shared C helper ``native/udp_tx.c``; audio, a few
+in batches through the C helper ``csrc/udp_tx.c``; audio, a few
 packets every 40 ms, one packet at a time from the caller's thread
 (:meth:`RtpSession.send_data_hdr`, where the reference hands each packet to
 a send thread: the same bytes in the same order).  Batch receives go through
@@ -240,7 +240,7 @@ class RtpSession:
     def send_batch(self, ts: int, pt: int, payload_hdrs, payload: "bytes|object",
                    offsets, sizes, m_last: bool, pace_ns: int = 0) -> int:
         """Batch scatter-gather send through the C hot path
-        (native/udp_tx.c); the RTP headers are built here, vectorised.
+        (csrc/udp_tx.c); the RTP headers are built here, vectorised.
 
         payload_hdrs: [npkt, hdr_len] uint8 array (payload headers only);
         offsets/sizes: per-packet slices of `payload` (a contiguous buffer).

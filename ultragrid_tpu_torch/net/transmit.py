@@ -241,7 +241,7 @@ class Tx:
         npkt = len(sizes) * self.mult_count
         packet_rate = self._packet_rate(desc.fps, npkt, data.size)
 
-        # vectorized headers + the C sendmmsg batch sender (native/udp_tx.c,
+        # vectorized headers + the C sendmmsg batch sender (csrc/udp_tx.c,
         # the reference's native transmit loop role)
         offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
         szs = np.asarray(sizes, np.int32)

@@ -839,7 +839,6 @@ class JpegEncoder:
     def assemble(self, ys, ybits, us, ubits, vs, vbits) -> np.ndarray:
         """Merge per-block slots into the stuffed entropy stream with the
         shared C assembler (``native/jpeg_assemble.c``)."""
-        lib = native.jpeg_assemble_lib()
 
         def host(a, dt):
             a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
@@ -848,6 +847,13 @@ class JpegEncoder:
         with profiler.zone("compress.download"):
             arrs = [host(a, np.uint32) for a in (ys, us, vs)]
             bitsarr = [host(b, np.int32) for b in (ybits, ubits, vbits)]
+        return self.assemble_host(arrs[0], bitsarr[0], arrs[1], bitsarr[1], arrs[2], bitsarr[2])
+
+    def assemble_host(self, ys, ybits, us, ubits, vs, vbits) -> np.ndarray:
+        """:meth:`assemble` of slots already on the host: contiguous arrays,
+        the slots uint32 and the bit counts int32."""
+        lib = native.jpeg_assemble_lib()
+        arrs, bitsarr = (ys, us, vs), (ybits, ubits, vbits)
         if arrs[0].shape[0] != self.nmcu * self.ky:
             raise ValueError(f"ys has {arrs[0].shape[0]} rows, expected {self.nmcu * self.ky}")
         total_bits = int(sum(int(b.sum()) for b in bitsarr))
@@ -1437,9 +1443,15 @@ class _CardStream:
     parse, the geometry, the Huffman tables on the device, the decode's
     output (``q``, the status word and its pinned host copy) and the
     reverse product over it, or ``reason``, why the card does not take the
-    stream."""
+    stream.
 
-    def __init__(self, data: bytes, decoder: "JpegDecoder"):
+    ``band`` (index, count) keeps the state of one of ``count`` equal row
+    bands of the frame: its restart segments ``seg0`` to ``seg1`` - 1, its
+    ``band_nmcu`` MCUs and ``band_rows`` MCU rows; the whole frame is band
+    (0, 1).  A frame whose MCU rows or segments do not split into the bands
+    has the reason "bands"."""
+
+    def __init__(self, data: bytes, decoder: "JpegDecoder", band=(0, 1)):
         hdr = _parse_headers(data)
         self.header = bytes(data[: hdr["scan_start"]])
         self.hdr = hdr
@@ -1447,11 +1459,17 @@ class _CardStream:
         self.nmcuy = (hdr["h"] + 7) // 8
         self.nmcu = self.nmcux * self.nmcuy
         self.ri = hdr["ri"]
+        self.band = band
+        index, count = band
+        self.band_rows = self.nmcuy // count
+        self.band_nmcu = self.nmcux * self.band_rows
         self.reason = None
         if not _is_422(hdr) or self.nmcu < 1:
             self.reason = "not 4:2:2"
         elif not self.ri:
             self.reason = "no DRI"
+        elif count > 1 and (self.nmcuy % count or self.band_nmcu % self.ri):
+            self.reason = "bands"
         else:
             self.tds = tuple(c["td"] for c in hdr["scan"])
             try:
@@ -1464,9 +1482,14 @@ class _CardStream:
         if self.reason is None:
             dev = decoder.device
             self.nseg = -(-self.nmcu // self.ri)
+            if count == 1:
+                self.seg0, self.seg1 = 0, self.nseg
+            else:
+                self.seg0 = index * self.band_nmcu // self.ri
+                self.seg1 = self.seg0 + self.band_nmcu // self.ri
             self.tables = torch.as_tensor(tables, device=dev)
             self._product = decoder.reverse_product(hdr)
-            self.q = torch.empty(self.nmcu, 256, dtype=torch.float32, device=dev)
+            self.q = torch.empty(self.band_nmcu, 256, dtype=torch.float32, device=dev)
             self.status = torch.empty(4, dtype=torch.int32, device=dev)
             self.status_host = torch.empty(4, dtype=torch.int32, pin_memory=dev.type == "cuda")
             self.offsets = torch.empty(self.nseg, dtype=torch.int64, device=dev)
@@ -1474,7 +1497,7 @@ class _CardStream:
             self._uyvy = None
 
     def _run(self):
-        uyvy = JpegDecoder.uyvy_rows(self._product(self.q), self.nmcux, self.nmcuy)
+        uyvy = JpegDecoder.uyvy_rows(self._product(self.q), self.nmcux, self.band_rows)
         self.status_host.copy_(self.status, non_blocking=True)
         return uyvy
 
@@ -1486,19 +1509,21 @@ class _CardStream:
         addresses; the rows are copied out of the graph's buffer."""
         if not self.q.is_cuda:
             return self._run()
-        if self._graph is None:
-            # a first run outside the capture sets up cuBLAS on this stream
-            side = torch.cuda.Stream(self.q.device)
-            side.wait_stream(torch.cuda.current_stream(self.q.device))
-            with torch.cuda.stream(side):
-                self._run()
-            torch.cuda.current_stream(self.q.device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self._uyvy = self._run()
-            self._graph = graph
-        self._graph.replay()
-        return self._uyvy.clone()
+        dev = self.q.device
+        with torch.cuda.device(dev):  # a band's decoder runs on a card other than the current one
+            if self._graph is None:
+                # a first run outside the capture sets up cuBLAS on this stream
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    self._run()
+                torch.cuda.current_stream(dev).wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev), capture_error_mode="thread_local"):
+                    self._uyvy = self._run()
+                self._graph = graph
+            self._graph.replay()
+            return self._uyvy.clone()
 
 
 class JpegDecoder:
@@ -1587,13 +1612,14 @@ class JpegDecoder:
                 return res
         return self._decode_on_host(data if isinstance(data, bytes) else bytes(data))
 
-    def _card_stream(self, data) -> _CardStream:
+    def _card_stream(self, data, band=(0, 1)) -> _CardStream:
         """The kept state of ``data``'s header, built anew where the last
-        header is not a prefix of ``data``."""
+        header is not a prefix of ``data`` (``band``: see
+        :class:`_CardStream`)."""
         st = self._stream
-        if st is None or memoryview(data)[: len(st.header)] != st.header:
+        if st is None or st.band != band or memoryview(data)[: len(st.header)] != st.header:
             self._stream = None  # the old state goes before the new is built
-            st = self._stream = _CardStream(bytes(data), self)
+            st = self._stream = _CardStream(bytes(data), self, band)
         return st
 
     def _decode_on_card(self, data):
@@ -1605,8 +1631,27 @@ class JpegDecoder:
         markers are not the interval's, as the C decoder's, counted in
         ``jpeg_decode_cuda.REFUSED`` with the same instant.  ``data``: the
         file as bytes or a uint8 array."""
+        issued = self.issue_band(data)
+        if issued is None:
+            return None
+        uyvy, st = issued
+        with profiler.zone("decompress.wait"):
+            self.check_band(st)
+        return uyvy, st.hdr["h"], st.hdr["w"]
+
+    def issue_band(self, data, band=(0, 1), pinned=None):
+        """The first half of :meth:`_decode_on_card` for the row band
+        ``band`` (index, count) of the frame, the whole frame by default:
+        the upload, the entropy decode of the band's restart segments and
+        the reverse product of its rows, enqueued on the current stream of
+        this decoder's device, with no wait.  ``pinned``: a pinned host
+        buffer that already holds ``data`` (another band's decoder put it
+        there), copied up from in place of the decoder's own.  Returns
+        (UYVY rows of the band, state for :meth:`check_band`), or None with
+        a ``decompress.fallback`` instant where the stream needs the C path
+        (for a band, the whole frame's)."""
         try:
-            st = self._card_stream(data)
+            st = self._card_stream(data, band)
             reason = st.reason
         except ValueError:
             reason = "header"
@@ -1614,31 +1659,41 @@ class JpegDecoder:
             profiler.instant("decompress.fallback", args={"reason": reason})
             return None
         with profiler.zone("decompress.upload"):
-            file = self._upload(data)
+            file = self._upload(data, pinned)
         with profiler.zone("decompress.scan"):
             jpeg_decode_cuda.segment_decode(file, len(data), len(st.header), st.tables, st.tds, st.nmcu,
-                                            st.ri, out=(st.q, st.status, self._staging[2], st.offsets))
+                                            st.ri, out=(st.q, st.status, self._staging[2], st.offsets),
+                                            segments=(st.seg0, st.seg1))
         with profiler.zone("decompress.product"):
             uyvy = st.product()
-        with profiler.zone("decompress.wait"):
-            stopped, decoded, markers = self._read_status(st)
+        return uyvy, st
+
+    def check_band(self, st: _CardStream) -> None:
+        """The second half: the one wait for the device, on the status word
+        of :meth:`issue_band`'s state; ValueError, counted in
+        ``jpeg_decode_cuda.REFUSED`` with a ``decompress.fallback`` instant,
+        where the scan stopped early in the band's segments or its restart
+        markers are not the interval's."""
+        stopped, decoded, markers = self._read_status(st)
         if markers != st.nseg - 1:
             reason = "offset count"
             msg = f"scan has {markers} restart markers, the interval gives {st.nseg - 1}"
-        elif stopped or decoded != st.nmcu:
+        elif stopped or decoded != st.band_nmcu:
             reason = "status"
-            msg = f"scan decode stopped at MCU {decoded}/{st.nmcu} ({stopped} segments stopped early)"
+            msg = (f"scan decode stopped at MCU {decoded}/{st.band_nmcu} of segments {st.seg0}-{st.seg1} "
+                   f"({stopped} segments stopped early)")
         else:
-            return uyvy, st.hdr["h"], st.hdr["w"]
-        jpeg_decode_cuda.REFUSED.count += 1
+            return
+        jpeg_decode_cuda.REFUSED.add(self.device)
         profiler.instant("decompress.fallback", args={"reason": reason})
         raise ValueError(msg)
 
-    def _upload(self, data) -> torch.Tensor:
+    def _upload(self, data, pinned=None) -> torch.Tensor:
         """``data`` copied into the reused staging buffer (pinned on the
         card), then one asynchronous copy to the device buffer, which holds
         ``PAD`` bytes more; on the card both in one call
-        (:func:`jpeg_decode_cuda.upload`)."""
+        (:func:`jpeg_decode_cuda.upload`).  ``pinned``: a pinned buffer
+        that holds ``data`` already, copied up from alone."""
         need = len(data) + jpeg_decode_cuda.PAD
         if self._staging is None or self._staging[0].numel() < need:
             size = 1 << (need - 1).bit_length()
@@ -1646,12 +1701,21 @@ class JpegDecoder:
                              torch.empty(size, dtype=torch.uint8, device=self.device),
                              torch.empty(size // jpeg_decode_cuda.TILE + 1, dtype=torch.int32, device=self.device))
         host, dev = self._staging[:2]
+        if pinned is not None:
+            dev[: len(data)].copy_(pinned[: len(data)], non_blocking=True)
+            return dev
         src = np.frombuffer(data, np.uint8)
         if dev.is_cuda:
             jpeg_decode_cuda.upload(host, src, dev)
         else:
             dev.numpy()[: src.size] = src
         return dev
+
+    @property
+    def staging_host(self) -> Optional[torch.Tensor]:
+        """The pinned host buffer that holds the last file :meth:`_upload`
+        copied up without a ``pinned`` buffer."""
+        return None if self._staging is None else self._staging[0]
 
     def _read_status(self, st: _CardStream):
         """The frame's one host read of the device: the status word, which
@@ -1754,11 +1818,14 @@ def decode_jpeg_device(data: bytes, device="cuda"):
 
 
 def decode_jpeg_to_frame(frame: VideoFrame, out_codec: Codec,
-                         decoder: Optional[JpegDecoder] = None, device="cuda") -> Optional[VideoFrame]:
+                         decoder: Optional[JpegDecoder] = None, device="cuda",
+                         uyvy_decoder=None) -> Optional[VideoFrame]:
     """Receiver-side JPEG decode to UYVY or RGB (reference
     ops/jpeg.py:1181), on ``decoder``'s device, or a new decoder's on
     ``device`` (the card unless the caller names another).  The frame's
-    data is a uint8 tensor there.
+    data is a uint8 tensor there.  ``uyvy_decoder`` takes the UYVY decode
+    in ``decoder``'s place (``ShardedJpegDecoder``, whose
+    ``decode_frame`` gathers its bands onto ``decoder``'s device).
 
     UYVY from 4:2:2: the entropy decode (on the card where the stream has
     restart markers, else the C scan decode) and one reverse mega product.  Other
@@ -1772,7 +1839,7 @@ def decode_jpeg_to_frame(frame: VideoFrame, out_codec: Codec,
                                           else frame.data).reshape(-1))
     if out_codec == Codec.UYVY:
         try:
-            res = dec.decode_to_uyvy(arr)
+            res = dec.decode_to_uyvy(arr) if uyvy_decoder is None else uyvy_decoder.decode_frame(arr)
         except ValueError:
             res = None
         if res is not None:

@@ -95,7 +95,7 @@ def fused_encode(frame: torch.Tensor, wc: torch.Tensor, rows: torch.Tensor,
             ubits.data_ptr(), vs.data_ptr(), vbits.data_ptr(), ovf.data_ptr(),
             layout, nmcux, nmcu, restart_interval, wwords, stream)
     _build.check(err, "jpeg_encode launch")
-    LAUNCHES.count += 1
+    LAUNCHES.add(dev)
     return ys, ybits, us, ubits, vs, vbits, ovf[0]
 
 
@@ -137,5 +137,5 @@ def plane_encode(frame: torch.Tensor, w: torch.Tensor, const: torch.Tensor, huff
             ys.data_ptr(), ybits.data_ptr(), us.data_ptr(), ubits.data_ptr(), vs.data_ptr(),
             vbits.data_ptr(), ovf.data_ptr(), layout, nmcux, nmcu, restart_interval, wwords, stream)
     _build.check(err, "jpeg_plane_encode launch")
-    PLANE_LAUNCHES.count += 1
+    PLANE_LAUNCHES.add(dev)
     return ys, ybits, us, ubits, vs, vbits, ovf[0]

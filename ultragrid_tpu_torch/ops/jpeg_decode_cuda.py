@@ -142,35 +142,49 @@ def _outputs(nmcu: int, nseg: int, ntiles: int, dev: torch.device, out):
     return out
 
 
+def segment_range(nmcu: int, ri: int, segments=None):
+    """(first segment, end segment, MCUs they hold) of a scan of ``nmcu``
+    MCUs at restart interval ``ri``: ``segments`` checked, or the whole
+    scan."""
+    nseg = -(-nmcu // ri)
+    seg0, seg1 = (0, nseg) if segments is None else segments
+    if not 0 <= seg0 < seg1 <= nseg:
+        raise ValueError(f"segments {seg0}-{seg1} of a scan of {nseg}")
+    return seg0, seg1, min(seg1 * ri, nmcu) - seg0 * ri
+
+
 def segment_decode(file: torch.Tensor, length: int, scan_start: int, tables: torch.Tensor, tds,
-                   nmcu: int, ri: int, out=None):
+                   nmcu: int, ri: int, out=None, segments=None):
     """Decode the scan of the JPEG file held in ``file[:length]`` (uint8,
     at least ``length + PAD`` long) from ``scan_start``, the first byte
     after SOS; ``tables`` is :func:`huffman_tables` on the file's device,
     ``tds`` the three components' table ids (the two chroma components'
-    the same).  Returns (q float32 [nmcu, 256], status int32 [4]) on the
-    file's device, without waiting for it: one launch of the kernel on the
-    card, the plain version on the CPU.  q is valid where status reads (0,
-    nmcu, ceil(nmcu / ri) - 1, 0).  ``out``: (q, status, int32 [>= the
-    scan's 512-byte tiles], int64 [segments]) to use in place of new
-    tensors."""
+    the same).  ``segments`` (first, end) decodes those restart segments
+    alone (a row band of the frame), the whole scan by default.  Returns (q
+    float32 [MCUs of the segments, 256], status int32 [4]) on the file's
+    device, without waiting for it: one launch of the kernel on the card,
+    the plain version on the CPU.  q is valid where status reads (0, its
+    MCUs, ceil(nmcu / ri) - 1, 0): the markers are counted over the whole
+    scan.  ``out``: (q, status, int32 [>= the scan's 512-byte tiles],
+    int64 [all segments]) to use in place of new tensors."""
     _check(file, length, scan_start, tables, tds, nmcu, ri)
+    seg0, seg1, nq = segment_range(nmcu, ri, segments)
     if file.device.type == "cpu":
-        return segment_decode_plain(file, length, scan_start, tables, tds, nmcu, ri, out)
+        return segment_decode_plain(file, length, scan_start, tables, tds, nmcu, ri, out, (seg0, seg1))
     if not file.is_cuda:
         raise ValueError(f"segment_decode: unsupported device {file.device}")
     dev = file.device
     nseg = -(-nmcu // ri)
     ntiles = -(-(length - (scan_start & ~15)) // TILE)
-    q, status, counts, off = _outputs(nmcu, nseg, ntiles, dev, out)
+    q, status, counts, off = _outputs(nq, nseg, ntiles, dev, out)
     lib = _build.kernels_lib(keep_gil=True)  # a launch: shorter than a hand-off of the lock
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ug_jpeg_decode(file.data_ptr(), length, scan_start, tables.data_ptr(), tds[0], tds[1], nmcu, ri,
                                  nseg, counts.data_ptr(), ntiles, off.data_ptr(), q.data_ptr(),
-                                 status.data_ptr(), stream)
+                                 status.data_ptr(), seg0, seg1, stream)
     _build.check(err, "jpeg_decode launch")
-    LAUNCHES.count += 1
+    LAUNCHES.add(dev)
     return q, status
 
 
@@ -202,15 +216,16 @@ def _table_parts(tables: torch.Tensor):
 
 
 def segment_decode_plain(file: torch.Tensor, length: int, scan_start: int, tables: torch.Tensor, tds,
-                         nmcu: int, ri: int, out=None):
+                         nmcu: int, ri: int, out=None, segments=None):
     """The plain version of :func:`segment_decode`: the same segments, the
     same q and status, in tensor operations.  The segments' symbol chains
     advance together, one symbol of each per step."""
     _check(file, length, scan_start, tables, tds, nmcu, ri)
+    seg0, seg1, nq = segment_range(nmcu, ri, segments)
     dev = file.device
     i64 = dict(dtype=torch.int64, device=dev)
     nseg = -(-nmcu // ri)
-    q, status = _outputs(nmcu, nseg, -(-(length - (scan_start & ~15)) // TILE), dev, out)[:2]
+    q, status = _outputs(nq, nseg, -(-(length - (scan_start & ~15)) // TILE), dev, out)[:2]
     q.zero_()
     status.zero_()
 
@@ -246,17 +261,19 @@ def segment_decode_plain(file: torch.Tensor, length: int, scan_start: int, table
     bit_of = torch.arange(17, **i64)
     qf = q.view(-1)
 
-    bitpos = ustart * 8
-    limit = (ustart + ulen) * 8
-    m = torch.arange(nseg, **i64) * ri
+    # the chains of the segments asked for, q's rows from their first MCU
+    nlane = seg1 - seg0
+    bitpos = ustart[seg0:seg1] * 8
+    limit = (ustart + ulen)[seg0:seg1] * 8
+    m = torch.arange(seg0, seg1, **i64) * ri
     m_first = m.clone()
     m_end = (m + ri).clamp(max=nmcu)
-    blk = torch.zeros(nseg, **i64)
-    k = torch.zeros(nseg, **i64)
-    pred = torch.zeros(nseg, 3, **i64)
-    failed = torch.zeros(nseg, dtype=torch.bool, device=dev)
-    active = torch.ones(nseg, dtype=torch.bool, device=dev)
-    lane = torch.arange(nseg, **i64)
+    blk = torch.zeros(nlane, **i64)
+    k = torch.zeros(nlane, **i64)
+    pred = torch.zeros(nlane, 3, **i64)
+    failed = torch.zeros(nlane, dtype=torch.bool, device=dev)
+    active = torch.ones(nlane, dtype=torch.bool, device=dev)
+    lane = torch.arange(nlane, **i64)
     while bool(active.any()):
         # 40 bits from the symbol's first byte: <= 7 bits of offset, a code of
         # <= 16 bits, <= 16 bits of extension
@@ -302,7 +319,7 @@ def segment_decode_plain(file: torch.Tensor, length: int, scan_start: int, table
         pred[lane[dc], comp[dc]] += val[dc]
         dcv = ((pred[lane, comp] + 32768) & 0xFFFF) - 32768
         ac = ok & ~isdc & has_ext
-        row = m * 256 + blk * 64
+        row = (m - seg0 * ri) * 256 + blk * 64
         qf[row[dc]] = dcv[dc].to(torch.float32)
         qf[row[ac] + kk[ac]] = val[ac].to(torch.float32)
         k_next = torch.where(isdc, 1, k + step)

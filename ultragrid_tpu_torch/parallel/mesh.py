@@ -6,12 +6,17 @@ substreams, round-robined over the CUDA devices of one process (ref:
 src/host.h:98, src/utils/video.c:67-74).  So the port's mesh is not a
 ``torch.distributed`` process group: it is a ``[data, spatial]`` grid of
 ``torch.device`` in one process, and "sharding" a tensor splits it into
-per-device blocks, each moved to its device.  No global array is built and
-nothing is gathered; the only traffic between blocks is the one-row halo of
-``sharded_post`` (a peer copy across cards, nothing on one card).
+per-device blocks, each moved to its device.  No global array is built; the
+traffic between blocks is the one-row halo of ``sharded_post`` (a peer copy
+across cards, nothing on one card) and the live decode's gather of its
+bands onto the display's card (``ShardedJpegDecoder.decode_frame``).
 
 A device may repeat: ``make_mesh(devices=["cuda:0"] * 4)`` puts four row
 bands on one card, as the reference's tiles share one GPU where it has one.
+
+The live session takes its mesh from ``--param cuda-device=<i,j,...>`` (the
+CLI's ``--cuda-device``, the reference's ``cuda_devices[]``, src/host.h:98-100):
+:func:`mesh_from_param`.
 """
 
 from __future__ import annotations
@@ -23,6 +28,13 @@ import numpy as np
 import torch
 
 from ultragrid_tpu_torch.device import get_device
+from ultragrid_tpu_torch.utils.params import add_to_param, get_commandline_param
+
+add_to_param("cuda-device",
+             "* cuda-device=<i,j,...>\n"
+             "  the CUDA cards a JPEG session splits each frame over, one row band a card, "
+             "for both its encode and its decode (ref: --cuda-device, src/host.h:98-100); "
+             "unset or one card: the session's device alone.  On the CPU, as many CPU entries")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,3 +136,34 @@ def replicated(x, mesh: Mesh) -> List[torch.Tensor]:
     """One copy of ``x`` per device of the mesh, data-major."""
     t = _tensor(x)
     return [t.to(d) for d in mesh.devices]
+
+
+def cuda_device_list(value: Optional[str]) -> List[int]:
+    """The card indices of a ``cuda-device`` value ("0,1,2,3"); [] for
+    None or an empty value.  Raises ValueError for anything else."""
+    if not value:
+        return []
+    try:
+        idx = [int(x) for x in value.split(",")]
+    except ValueError:
+        raise ValueError(f"cuda-device: {value!r} is not a list of card indices") from None
+    if any(i < 0 for i in idx):
+        raise ValueError(f"cuda-device: {value!r} names a negative index")
+    return idx
+
+
+def mesh_from_param(device="cuda") -> Optional[Mesh]:
+    """The row-band mesh of the ``cuda-device`` param for a pipeline on
+    ``device``: one band a listed card, in the list's order, or on the CPU
+    as many CPU entries as the list has.  None where the param is unset or
+    names one card: the pipeline then runs on ``device`` alone, as
+    without it."""
+    idx = cuda_device_list(get_commandline_param("cuda-device"))
+    if len(idx) < 2:
+        return None
+    dev = get_device(str(device))
+    if dev.type != "cuda":
+        return make_mesh(len(idx), device=str(dev))
+    if max(idx) >= torch.cuda.device_count():
+        raise ValueError(f"cuda-device: card {max(idx)} requested, {torch.cuda.device_count()} present")
+    return make_mesh(devices=[torch.device("cuda", i) for i in idx])

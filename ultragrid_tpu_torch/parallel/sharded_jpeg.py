@@ -8,53 +8,106 @@ mesh's 'spatial' axis; the restart interval divides the band's MCU count, so
 no entropy segment crosses a band and the bands' slots, concatenated, are
 bit-identical to a single-device encode of the frame.
 
-Each band runs on its own device, one after the other from this process:
-kernel K1 (``JpegEncoder._encode``) once per band, K2 (``Gf2Parity``) once
-per band in the sender step, and K2 once per peel round per band in the
-receiver step.  Outputs stay per band (lists), as the deployment sends each
-band as its own substream: nothing is gathered.
+:class:`ShardedJpegEncoder` and :class:`ShardedJpegDecoder` are what the
+live session runs over ``--param cuda-device`` (``modules/video_compress.py``
+and ``modules/video_decompress.py``): the bands live on the cards, and the
+wire carries one file a frame, the single-device session's, byte for byte.
+The encoder runs each band's K1 (``JpegEncoder._encode``), its download and
+its C assembly on a worker thread of its own; the decoder decodes each
+band's restart segments on its card and gathers the rows onto one device.
+The library steps :class:`ShardedSenderStep` and
+:class:`ShardedReceiverStep` keep their outputs per band (lists), as a
+deployment that sends each band as its own substream would: nothing is
+gathered there.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from ultragrid_tpu_torch.device import get_device
 from ultragrid_tpu_torch.models.encode import ldgm_container_params
 from ultragrid_tpu_torch.ops.fec import Gf2Parity, LdgmSession, build_ldgm_matrix
 from ultragrid_tpu_torch.ops.jpeg import JpegDecoder, JpegEncoder, entropy_decode_422
 from ultragrid_tpu_torch.parallel.mesh import Mesh, shard_frame_rows
 from ultragrid_tpu_torch.types import Codec
+from ultragrid_tpu_torch.utils import profiler
 
 
-def _band_encoder(width: int, height: int, nshards: int, in_codec: Codec, quality: int) -> JpegEncoder:
+def _band_encoder(width: int, height: int, nshards: int, in_codec: Codec, quality: int,
+                  restart_interval: Optional[int] = None) -> JpegEncoder:
     """The encoder of one band, its restart interval a divisor of the MCU
-    row width so that segments never span bands (ref :43-54)."""
+    row width so that segments never span bands (ref :43-54); a
+    ``restart_interval`` asked for is kept where it divides the band's MCUs."""
     if height % (8 * nshards):
         raise ValueError("height must split into MCU rows per shard")
     local_h = height // nshards
     probe = JpegEncoder(width, local_h, in_codec=in_codec, quality=quality)
     ri = probe.restart_interval
-    while probe.nmcux % ri:
-        ri -= 1
+    if restart_interval and probe.nmcu % restart_interval == 0:
+        ri = restart_interval
+    else:
+        while probe.nmcux % ri:
+            ri -= 1
     return JpegEncoder(width, local_h, in_codec=in_codec, quality=quality, restart_interval=ri)
 
 
+def _on(device: torch.device, stream=None):
+    """``device`` current (and ``stream`` on it) in this thread, on a card."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.cuda.device(device))
+    if stream is not None:
+        stack.enter_context(torch.cuda.stream(stream))
+    return stack
+
+
+def renumber_markers(body: np.ndarray, offset: int) -> None:
+    """Add ``offset`` (mod 8) to the index of every RST marker of an
+    entropy-coded ``body``, in place: a band's segments counted on from the
+    bands before it.  Stuffing puts 0x00 after every 0xFF of data, so each
+    0xFF followed by 0xD0-0xD7 is a marker."""
+    if offset % 8 == 0 or body.size < 2:
+        return
+    ff = np.flatnonzero(body[:-1] == 0xFF) + 1
+    at = ff[(body[ff] & 0xF8) == 0xD0]
+    body[at] = 0xD0 | ((body[at] + offset % 8) & 7)
+
+
 class ShardedJpegEncoder:
-    """JPEG encode over the 'spatial' axis of a mesh (rows -> devices)."""
+    """JPEG encode over the 'spatial' axis of a mesh (rows -> devices).
+
+    :meth:`encode` gives the file of a single-device ``JpegEncoder`` at the
+    band encoder's restart interval, byte for byte.  The frame's rows are
+    copied from its device to the bands' (``compress.split``); then each
+    band runs on a worker thread of its own, on a stream of its own on its
+    device (``compress.band``): K1 (``compress.k1``, escalated on overflow
+    like ``JpegEncoder.encode``), the slots down into pinned memory
+    (``compress.download``) and the band's C assembly
+    (``compress.assemble``), its restart markers counted on from the bands
+    before it.  The bodies are joined here with the header."""
 
     def __init__(self, width: int, height: int, mesh: Mesh, in_codec: Codec = Codec.UYVY,
-                 quality: int = 80):
+                 quality: int = 80, restart_interval: Optional[int] = None):
         self.mesh = mesh
         self.nshards = mesh.shape["spatial"]
         self.devices = mesh.spatial
-        self.local = _band_encoder(width, height, self.nshards, in_codec, quality)
-        # a whole-frame encoder for the header and the assembly
+        self.local = _band_encoder(width, height, self.nshards, in_codec, quality, restart_interval)
+        # a whole-frame encoder for the header
         self.full = JpegEncoder(width, height, in_codec=in_codec, quality=quality,
                                 restart_interval=self.local.restart_interval, state=self.local.state)
         self.full.wwords = self.local.wwords
+        self._lock = threading.Lock()
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._streams = [None] * self.nshards  # a band's stream on its card
+        self._pinned = [None] * self.nshards  # a band's pinned host parts
 
     def shard(self, frame) -> List[torch.Tensor]:
         """A frame (array or tensor) -> its row bands, each on its device; a
@@ -68,57 +121,158 @@ class ShardedJpegEncoder:
         band's device: one K1 launch per band on the card."""
         return [self.local._encode(b) for b in self.shard(frame)]
 
-    def _escalate(self) -> None:
-        """Double the slot width on overflow (as ``JpegEncoder.escalate_and_retry``;
-        keeps the band and whole-frame encoders in step)."""
-        ww = min(self.local.wwords * 2, 64)
-        self.local.wwords = self.full.wwords = ww
+    def _escalate(self, used: int) -> None:
+        """Double the slot width past ``used``, the width a band overflowed
+        at (as ``JpegEncoder.escalate_and_retry``; keeps the band and
+        whole-frame encoders in step, once for bands that overflow
+        together)."""
+        with self._lock:
+            if self.local.wwords <= used:
+                self.local.wwords = self.full.wwords = min(used * 2, 64)
+
+    def _download(self, s: int, parts) -> list:
+        """A band's six slot parts on the host as arrays: on a card copied
+        into the band's pinned buffers, one wait; on the CPU as they are."""
+        if not parts[0].is_cuda:
+            return [p.numpy() for p in parts]
+        pinned = self._pinned[s]
+        if pinned is None or any(h.shape != p.shape for h, p in zip(pinned, parts)):
+            pinned = self._pinned[s] = [torch.empty(p.shape, dtype=p.dtype, pin_memory=True) for p in parts]
+        for h, p in zip(pinned, parts):
+            h.copy_(p, non_blocking=True)
+        torch.cuda.current_stream(parts[0].device).synchronize()
+        return [h.numpy() for h in pinned]
+
+    def _encode_band(self, s: int, band: torch.Tensor, frame_key) -> np.ndarray:
+        """One band's entropy-coded body, its markers numbered in the frame."""
+        dev = band.device
+        if dev.type == "cuda" and self._streams[s] is None:
+            self._streams[s] = torch.cuda.Stream(dev)
+        enc = self.local
+        with _on(dev, self._streams[s]), profiler.zone("compress.band", frame=frame_key):
+            out, over = JpegEncoder._k1(enc._encode, band)
+            while over and out[0].shape[1] < 64:
+                self._escalate(out[0].shape[1])
+                out, over = JpegEncoder._k1(enc._encode, band)
+            with profiler.zone("compress.download"):
+                ys, yb, us, ub, vs, vb = self._download(s, out[:-1])
+            body = enc.assemble_host(ys.view(np.uint32), yb, us.view(np.uint32), ub, vs.view(np.uint32), vb)
+            renumber_markers(body, s * enc.nseg)
+        return body
 
     def encode(self, frame) -> np.ndarray:
         """-> the whole frame's JPEG file, byte-equal to a single-device
         ``JpegEncoder`` with the same restart interval."""
-        bands = self.shard(frame)
-        parts = self.encode_device(bands)
-        while self.local.wwords < 64 and any(bool(p[-1]) for p in parts):
-            self._escalate()
-            parts = self.encode_device(bands)
-        host = [np.concatenate([p[i].cpu().numpy() for p in parts]) for i in range(6)]
-        body = self.full.assemble(*host)
-        return np.concatenate([np.frombuffer(self.full._header, np.uint8), body,
-                               np.frombuffer(b"\xff\xd9", np.uint8)])
+        with profiler.zone("compress.split"):
+            bands = self.shard(frame)
+            src = frame.device if isinstance(frame, torch.Tensor) else None
+            if src is not None and src.type == "cuda" and any(b.device != src for b in bands):
+                # the copies run on the frame's stream: wait for them here
+                torch.cuda.current_stream(src).synchronize()
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(self.nshards, thread_name_prefix="compress.band")
+        key = profiler.current_frame()
+        jobs = [self._pool.submit(self._encode_band, s, b, key) for s, b in enumerate(bands)]
+        bodies = [j.result() for j in jobs]
+        parts = [np.frombuffer(self.full._header, np.uint8)]
+        for s, body in enumerate(bodies):
+            if s:  # the marker before the band's first segment
+                parts.append(np.array([0xFF, 0xD0 + (s * self.local.nseg - 1) % 8], np.uint8))
+            parts.append(body)
+        parts.append(np.frombuffer(b"\xff\xd9", np.uint8))
+        return np.concatenate(parts)
+
+    def close(self) -> None:
+        """Stop the band workers (a later :meth:`encode` starts them anew)."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
 
 
 class ShardedJpegDecoder:
-    """Receive-side twin of :class:`ShardedJpegEncoder`: the host C entropy
-    decode fills per-MCU coefficient blocks, which split into MCU-row bands
-    (one per device), and the reverse mega product
-    (``JpegDecoder._make_mega_uyvy_fn``) runs per band on its device (ref
-    :127-183).  The bands are bit-identical to the single-device decode's
-    rows."""
+    """Receive-side twin of :class:`ShardedJpegEncoder` (ref :127-183): each
+    band's decoder takes the restart segments of its MCU rows straight from
+    the file, on its device, through ``JpegDecoder``'s card route
+    (``JpegDecoder.issue_band``: the file up, the entropy decode of the
+    band's segment range, the reverse product of its rows; on the CPU its
+    plain version), one band after the other from this thread and none
+    waited for until all are enqueued (``decompress.band``).  The file goes
+    up to each card from one pinned copy.  The bands are bit-identical to
+    the single-device decode's rows.
 
-    def __init__(self, mesh: Mesh):
+    :meth:`decode_to_uyvy` keeps the bands on their devices;
+    :meth:`decode_frame` gathers them onto ``device`` (``decompress.gather``),
+    the display's.  A stream the bands cannot take (not 4:2:2, no restart
+    markers, MCU rows or segments that do not split into the bands) takes
+    the single-device decode on ``device``."""
+
+    def __init__(self, mesh: Mesh, device=None):
         self.mesh = mesh
         self.nshards = mesh.shape["spatial"]
         self.devices = mesh.spatial
-        self._single = JpegDecoder(self.devices[0])
+        self.device = self.devices[0] if device is None else get_device(str(device))
+        self._single = JpegDecoder(self.device)
+        self._bands = [JpegDecoder(d) for d in self.devices]
 
-    def decode_to_uyvy(self, data: bytes):
+    def _issue(self, data):
+        """Every band's decode enqueued: [(rows, state)], or None where the
+        stream needs the single-device decode."""
+        issued, pinned = [], None
+        for s, (dec, dev) in enumerate(zip(self._bands, self.devices)):
+            with _on(dev), profiler.zone("decompress.band"):
+                got = dec.issue_band(data, (s, self.nshards), pinned)
+            if got is None:
+                return None
+            issued.append(got)
+            if dev.type == "cuda" and pinned is None:
+                pinned = dec.staging_host
+        return issued
+
+    def _check(self, issued) -> None:
+        """Each band's one wait and status check; the first refusal is
+        raised once every band has been read."""
+        refused = None
+        for dec, (_, st) in zip(self._bands, issued):
+            try:
+                with _on(dec.device):
+                    dec.check_band(st)
+            except ValueError as e:
+                refused = refused or e
+        if refused is not None:
+            raise refused
+
+    def decode_to_uyvy(self, data):
         """Returns (UYVY row bands [H / n, 2W] uint8, each on its device, h,
-        w); a stream that is not 4:2:2 or whose MCU rows do not split takes
-        the single-device decode, one band on the first device; None where
-        that gives None."""
-        decoded = entropy_decode_422(data)
-        if decoded is None or decoded[3] % self.nshards:
+        w); a stream the bands cannot take gives the single-device decode,
+        one band on ``device``; None where that gives None.  ValueError
+        where a band's segments do not decode, as the single-device
+        decoder raises."""
+        issued = self._issue(data)
+        if issued is None:
             res = self._single.decode_to_uyvy(data)
             return None if res is None else ([res[0]], res[1], res[2])
-        hdr, outs, nmcux, nmcuy = decoded
-        ns = self.nshards
-        fn = self._single._make_mega_uyvy_fn(hdr, nmcux, nmcuy // ns)
-        bands = []
-        for s, dev in enumerate(self.devices):
-            coeffs = [torch.as_tensor(o.reshape(ns, -1, 64)[s], device=dev) for o in outs]
-            bands.append(fn(*coeffs))
-        return bands, hdr["h"], hdr["w"]
+        with profiler.zone("decompress.wait"):
+            self._check(issued)
+        hdr = issued[0][1].hdr
+        return [rows for rows, _ in issued], hdr["h"], hdr["w"]
+
+    def decode_frame(self, data):
+        """Returns (UYVY uint8 [nmcuy * 8, nmcux * 32] on ``device``, h, w),
+        the bands copied there in order, or the single-device decode; None
+        and ValueError as :meth:`decode_to_uyvy`."""
+        issued = self._issue(data)
+        if issued is None:
+            return self._single.decode_to_uyvy(data)
+        with profiler.zone("decompress.gather"):
+            first = issued[0][0]
+            out = torch.empty(first.shape[0] * len(issued), first.shape[1], dtype=first.dtype,
+                              device=self.device)
+            for s, (rows, _) in enumerate(issued):
+                out[s * rows.shape[0]: (s + 1) * rows.shape[0]].copy_(rows, non_blocking=True)
+        with profiler.zone("decompress.wait"):
+            self._check(issued)
+        hdr = issued[0][1].hdr
+        return out, hdr["h"], hdr["w"]
 
 
 def slot_container_geometry(local: JpegEncoder, k: int):
@@ -139,9 +293,10 @@ def slot_container_geometry(local: JpegEncoder, k: int):
 class ShardedSenderStep:
     """The multi-device sender step (ref :207-286): per band, JPEG encode
     (K1) and LDGM parity (K2, staircase on) over that band's slot container,
-    on the band's device.  Every output stays per band: each band is an
-    independent RTP substream (ref: tiled substream IDs, src/transmit.c:490),
-    packetised from its device's memory.
+    on the band's device.  Every output stays per band, as for a
+    deployment that sends each band as an RTP substream of its own (ref:
+    tiled substream IDs, src/transmit.c:490); the live session sends one
+    file a frame instead (:class:`ShardedJpegEncoder`).
 
     ``step(frame)`` returns one tuple per band, as ``EncodePipeline``'s JPEG
     + LDGM step: (ys, ybits, us, ubits, vs, vbits, parity uint8 [m, ps],

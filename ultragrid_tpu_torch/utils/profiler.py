@@ -156,6 +156,16 @@ def zone(name: str, frame: Optional[int] = None):
     return _Zone(name, frame)
 
 
+def current_frame() -> Optional[int]:
+    """The frame of the innermost zone open on this thread (None where none
+    is, or tracing is off): what a worker thread's zones are given, since
+    they open no zone of the caller's."""
+    if not enabled:
+        return None
+    zones = _open_zones()
+    return zones[-1].frame if zones else None
+
+
 def interval(name: str, t0_ns: int, frame: Optional[int] = None, args: Optional[dict] = None) -> None:
     """Record a finished interval from ``t0_ns`` (``time.monotonic_ns()``)
     to now."""
