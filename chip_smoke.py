@@ -84,8 +84,13 @@ plain version on the card and the CPU), ``jpeg_encode_core`` (one K1 launch
 a call, its parts assembling to the CPU's file), and ``lavc_encoders()``
 with the registered audio codecs.  ``python3 chip_smoke.py --only
 standards`` (or ``--only parallel``, ``--only tools``, ``--only
-remaining``, ``--only api``, ``--only card_decode``) builds the kernels and runs that phase alone,
-printing no result line.
+remaining``, ``--only api``, ``--only card_decode``, ``--only assemble``) builds the kernels and runs
+that phase alone, printing no result line.  Phase ``assemble`` checks the
+sender's entropy assembly on the card (``csrc/jpeg_assemble.cu``) against
+the host C assembly at 1080p, 4K and an 8K band, at q80 and q95, and an
+escalation; the LDGM buffer built on the card against the host's; and the
+1080p60 JPEG + LDGM session on one card with every frame's file assembled
+and its LDGM buffer built on the card.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -795,21 +800,22 @@ PLANE_CASES = [(W1080, H1080, *g) for g in P2_GEOMS] + [(W4K, H4K, "UYVY", "444"
 def kernel_counts():
     """Each hand kernel's launches since the counts were last set to 0."""
     from ultragrid_tpu_torch.ops import fec as fec_ops
-    from ultragrid_tpu_torch.ops import jpeg_cuda, jpeg_decode_cuda
+    from ultragrid_tpu_torch.ops import jpeg_assemble_cuda, jpeg_cuda, jpeg_decode_cuda
 
     return {"jpeg_encode": jpeg_cuda.LAUNCHES.count, "jpeg_plane_encode": jpeg_cuda.PLANE_LAUNCHES.count,
             "gf2_parity": fec_ops.LAUNCHES.count, "jpeg_decode": jpeg_decode_cuda.LAUNCHES.count,
-            "jpeg_decode_refused": jpeg_decode_cuda.REFUSED.count}
+            "jpeg_decode_refused": jpeg_decode_cuda.REFUSED.count,
+            "jpeg_assemble": jpeg_assemble_cuda.LAUNCHES.count}
 
 
 def reset_kernel_counts():
     """Set every hand kernel's launch count to 0, after the card's queue."""
     from ultragrid_tpu_torch.ops import fec as fec_ops
-    from ultragrid_tpu_torch.ops import jpeg_cuda, jpeg_decode_cuda
+    from ultragrid_tpu_torch.ops import jpeg_assemble_cuda, jpeg_cuda, jpeg_decode_cuda
 
     torch.cuda.synchronize()
     for c in (jpeg_cuda.LAUNCHES, jpeg_cuda.PLANE_LAUNCHES, fec_ops.LAUNCHES, jpeg_decode_cuda.LAUNCHES,
-              jpeg_decode_cuda.REFUSED):
+              jpeg_decode_cuda.REFUSED, jpeg_assemble_cuda.LAUNCHES):
         c.reset()
 
 
@@ -2832,6 +2838,155 @@ BANDED_CAPTURE = "testcard:s=7680x4320:f=10:c=UYVY"  # about the 8K link's rate 
 BANDED_KEEP_EVERY = 20  # shown frames kept and checked
 
 
+ASSEMBLE_FRAMES = 60  # frames of the one-card 1080p60 JPEG + LDGM session of phase assemble
+
+
+def assemble_case(dev, w, h, q, ri=None, first_segment=0, seed=1):
+    """One geometry of the entropy assembly on the card: K1's slots of a
+    content frame assembled by the kernel (its first segment
+    ``first_segment``) against the host C assembly of the same slots (its
+    markers counted on and the marker before the first segment added, as a
+    band of a frame), and the file of ``JpegEncoder.encode_file`` against
+    ``JpegEncoder.encode``'s; the kernels' device time against their bound
+    (the slots' used words and the bit counts read once, the body written
+    once)."""
+    from ultragrid_tpu_torch.ops import jpeg_assemble_cuda
+    from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
+    from ultragrid_tpu_torch.types import Codec, vc_get_linesize
+
+    enc = JpegEncoder(w, h, quality=q, restart_interval=ri)
+    fr = torch.as_tensor(content(h, vc_get_linesize(w, Codec.UYVY), seed)).to(dev)
+    parts = enc._encode(fr)
+    if bool(parts[-1]):
+        raise RuntimeError(f"assembly {w}x{h} q{q}: K1 overflowed at {enc.wwords} words")
+    c_body = enc.assemble(*parts[:-1])
+    want = c_body.copy()
+    if first_segment:
+        ff = np.flatnonzero(want[:-1] == 0xFF) + 1
+        at = ff[(want[ff] & 0xF8) == 0xD0]
+        want[at] = 0xD0 | ((want[at] + first_segment % 8) & 7)
+        want = np.concatenate([np.array([0xFF, 0xD0 + (first_segment - 1) % 8], np.uint8), want])
+
+    def run():
+        asm = jpeg_assemble_cuda.Assembly(parts, ky=enc.ky, restart_interval=enc.restart_interval,
+                                          first_segment=first_segment)
+        _, n = asm.read()
+        out = torch.empty(n, dtype=torch.uint8, device=dev)
+        asm.write(out)
+        return out
+
+    got = run().cpu().numpy()
+    if not np.array_equal(got, want):
+        diff = np.flatnonzero(got[: min(got.size, want.size)] != want[: min(got.size, want.size)])
+        raise RuntimeError(f"assembly {w}x{h} q{q} ri{enc.restart_interval} first {first_segment}: "
+                           f"{got.size} bytes against the C path's {want.size}, first difference at "
+                           f"{diff[:1].tolist()}")
+    label = f"{w}x{h} q{q} ri{enc.restart_interval}" + (f" from segment {first_segment}" if first_segment else "")
+    row = {"what": f"jpeg_assemble {label}", "bytes": int(got.size), "segments": enc.nseg,
+           "ff_bytes": int((c_body == 0xFF).sum()), "equal_to_c": True}
+    if not first_segment:
+        file = enc.encode_file(fr)
+        if not np.array_equal(np.asarray(file), enc.encode(fr)):
+            raise RuntimeError(f"assembly {label}: encode_file differs from encode")
+        row["file_equal_to_encode"] = True
+    ks = device_kernels(run, runs=20, expect="jpeg_assemble")
+    mine = {k: v for k, v in ks.items() if "jpeg_assemble" in k}
+    if len(mine) != 3:
+        raise RuntimeError(f"assembly {label}: the profiler saw {sorted(ks)}")
+    dev_ms = sum(ms for _, ms in mine.values())
+    words = sum(int(torch.minimum((b.long() + 31) // 32, torch.tensor(enc.wwords, device=dev)).sum())
+                for b in parts[1:6:2])
+    nbytes = 4 * words + 4 * enc.nblocks + got.size  # used slot words and bit counts read, body written
+    bound, what = bound_ms(nbytes, 0)
+    plain = cuda_ms(lambda: jpeg_assemble_cuda.assemble_plain(*parts[:-1], ky=enc.ky,
+                                                               restart_interval=enc.restart_interval,
+                                                               first_segment=first_segment),
+                    runs=PLAIN_RUNS, warmup=1)
+    row.update(device_ms=dev_ms, kernels={k: v[1] for k, v in mine.items()}, bound_ms=bound, bound_by=what,
+               share_of_bound=bound / dev_ms, host_ms_read_and_write=host_ms(lambda: run(), 20),
+               plain_ms=plain)
+    return row
+
+
+def phase_assemble(dev):
+    """The entropy assembly on the card and the LDGM buffer built on the
+    card (this phase alone: ``--only assemble``).  The assembly kernel
+    against the host C assembly at 1080p and 4K at q80 and q95 and on an 8K
+    band (7680x1080, restart interval 32, as the third band of four:
+    markers numbered from segment 4050); an escalation forced on a noise
+    frame (slots of 2 words at q95) against the CPU's file;
+    ``LdgmSession.encode_tensor`` of a file on the card against
+    ``LdgmSession.encode`` on the host at 1080p and 8K sizes; and the
+    1080p60 JPEG + LDGM session on one card: every frame's file assembled
+    on the card (one assembly a frame sent) and its LDGM buffer built on
+    the card (``Tx.fec_routes``), none on the host, every file sent the
+    C path's encode of its capture."""
+    from ultragrid_tpu_torch.ops import jpeg_assemble_cuda
+    from ultragrid_tpu_torch.ops.fec import LdgmSession
+    from ultragrid_tpu_torch.ops.jpeg import JpegEncoder
+    from ultragrid_tpu_torch.types import Codec, vc_get_linesize
+
+    out = {"phase": "assemble", "cases": []}
+    for w, h, q, ri, first in ((W1080, H1080, 80, None, 0), (W1080, H1080, 95, None, 0),
+                               (W4K, H4K, 80, None, 0), (W4K, H4K, 95, None, 0),
+                               (7680, 1080, 80, 32, 2 * 2025), (7680, 1080, 95, 32, 2 * 2025),
+                               (W1080, H1080, 80, 1, 0), (W1080, H1080, 80, 7, 5)):
+        out["cases"].append(assemble_case(dev, w, h, q, ri, first))
+    # an escalation: slots of 2 words cannot hold noise at q95
+    noise = torch.as_tensor(np.random.default_rng(3).integers(0, 256, (64, 512), dtype=np.uint8)).to(dev)
+    card, cpu = JpegEncoder(256, 64, quality=95), JpegEncoder(256, 64, quality=95)
+    card.wwords = cpu.wwords = 2
+    file = np.asarray(card.encode_file(noise))
+    want = cpu.encode(noise.cpu(), device="cpu")
+    if card.wwords != cpu.wwords or card.wwords <= 2 or not np.array_equal(file, want):
+        raise RuntimeError(f"assembly escalation: {card.wwords} / {cpu.wwords} words, files equal "
+                           f"{np.array_equal(file, want)}")
+    out["escalation"] = {"wwords": card.wwords, "file_bytes": int(file.size), "equal_to_cpu": True}
+    # the LDGM buffer on the card
+    sess = LdgmSession(256, 26, 5)
+    hdr = bytes(range(24))
+    rows = []
+    for w, h in ((W1080, H1080), (7680, 4320)):
+        enc = JpegEncoder(w, h)
+        f = enc.encode_file(torch.as_tensor(content(h, vc_get_linesize(w, Codec.UYVY), 2)).to(dev))
+        buf, fd = sess.encode_tensor(f, hdr=hdr)
+        host, hd = sess.encode(np.concatenate([np.frombuffer(hdr, np.uint8), np.asarray(f)]))
+        if fd != hd or not np.array_equal(buf.cpu().numpy(), host):
+            raise RuntimeError(f"LDGM buffer on the card {w}x{h}: differs from the host's")
+        ms_card = host_ms(lambda: (sess.encode_tensor(f, hdr=hdr)[0].cpu()), 20)
+        f_host = np.asarray(f)
+        ms_host = host_ms(lambda: sess.encode(np.concatenate([np.frombuffer(hdr, np.uint8), f_host])), 20)
+        rows.append({"what": f"LDGM buffer {w}x{h}", "file_bytes": int(f.numel()), "buffer_bytes": int(host.size),
+                     "equal_to_host": True, "host_ms_card_and_download": ms_card, "host_ms_host_c": ms_host})
+    out["ldgm_buffer"] = rows
+    # the 1080p60 session on one card
+    files, packets = {}, []
+    held = {}
+
+    def tap(sender):
+        tap_sent_files(sender, files, packets)
+        held["sender"] = sender
+
+    row, _, sender = live_run(dev, LIVE_CAPTURE, "jpeg:80", FEC, ASSEMBLE_FRAMES, tap=tap)
+    routes = dict(sender.tx.fec_routes)
+    la = row["launches"]
+    if (routes != {"card": row["frames_sent"], "host": 0} or la["jpeg_assemble"] != row["frames_sent"]
+            or la["jpeg_encode"] != row["frames_sent"]):
+        raise RuntimeError(f"assembly session: routes {routes}, launches {la}, {row['frames_sent']} frames sent")
+    enc = next(iter(sender.compress.impl._encoders.values()))
+    ring = {JpegEncoder(W1080, H1080, quality=80, restart_interval=enc.restart_interval).encode(f).tobytes()
+            for f in sender.capture.frames}
+    if not files or any(v not in ring for v in files.values()):
+        raise RuntimeError(f"assembly session: a sent file is not the C path's encode of a capture")
+    if row["frames_displayed"] < row["frames_sent"] // 2 or row["frames_off_card"]:
+        raise RuntimeError(f"assembly session: {row}")
+    check_card_decode("assembly session", la, row["frames_displayed"])
+    row.update(fec_routes=routes, files_checked=len(files))
+    out["session"] = row
+    out["launches"] = {"jpeg_assemble": jpeg_assemble_cuda.LAUNCHES.count}
+    return out
+
+
 def banded_session(dev):
     """The 8K JPEG + LDGM live session split by row band over four cards
     (``--param cuda-device=0,1,2,3``) through VideoSender and VideoReceiver:
@@ -2840,7 +2995,7 @@ def banded_session(dev):
     one-card encode of their capture at the bands' restart interval (every
     ``BANDED_KEEP_EVERY``-th), and the frames shown bit-equal to the
     one-card decode of their file."""
-    from ultragrid_tpu_torch.ops import jpeg_cuda, jpeg_decode_cuda
+    from ultragrid_tpu_torch.ops import jpeg_assemble_cuda, jpeg_cuda, jpeg_decode_cuda
     from ultragrid_tpu_torch.ops.jpeg import JpegDecoder, JpegEncoder
     from ultragrid_tpu_torch.parallel.sharded_jpeg import ShardedJpegEncoder
     from ultragrid_tpu_torch.utils import params
@@ -2868,14 +3023,19 @@ def banded_session(dev):
         params._values.clear()
         params._values.update(saved)
     k1 = dict(jpeg_cuda.LAUNCHES.per_device)
+    assembled = dict(jpeg_assemble_cuda.LAUNCHES.per_device)
     dec = dict(jpeg_decode_cuda.LAUNCHES.per_device)
     refused = jpeg_decode_cuda.REFUSED.count
+    routes = dict(sender.tx.fec_routes)
     enc = next(e for e in sender.compress.impl._encoders.values())
     if not isinstance(enc, ShardedJpegEncoder) or [d.index for d in enc.devices] != list(range(PAR_BANDS)):
         raise RuntimeError(f"banded session: the sender's encoder is {type(enc).__name__}")
     want = {i: row["frames_sent"] for i in range(PAR_BANDS)}
-    if k1 != want:
-        raise RuntimeError(f"banded session: K1 launches per card {k1}, want one a card and frame sent {want}")
+    if k1 != want or assembled != want:
+        raise RuntimeError(f"banded session: K1 launches per card {k1}, assemblies {assembled}, want one a card "
+                           f"and frame sent {want}")
+    if routes != {"card": row["frames_sent"], "host": 0}:
+        raise RuntimeError(f"banded session: LDGM buffers built {routes}, want every one on the card")
     want = {i: row["frames_displayed"] for i in range(PAR_BANDS)}
     if dec != want or refused:
         raise RuntimeError(f"banded session: decode launches per card {dec}, want {want}; refused {refused}")
@@ -2894,7 +3054,8 @@ def banded_session(dev):
         checked += 1
     if row["frames_displayed"] < row["frames_sent"] // 2 or row["frames_off_card"] or not checked:
         raise RuntimeError(f"banded session: {row}")
-    row.update(k1_launches_per_card=k1, decode_launches_per_card=dec, decode_refused=refused,
+    row.update(k1_launches_per_card=k1, assembly_launches_per_card=assembled, fec_routes=routes,
+               decode_launches_per_card=dec, decode_refused=refused,
                restart_interval=ri, segments_per_band=enc.local.nseg, files_checked=len(sampled),
                shown_frames_checked=checked, file_bytes_mean=float(np.mean([len(f) for f in files.values()])))
     return row
@@ -2990,7 +3151,7 @@ def phase_parallel(dev):
     if not cpu_ok.all():
         raise RuntimeError("parallel receiver step: the CPU plain path recovered fewer bands")
     vs_cpu = par_diff(got, torch.cat(cpu_bands), "receiver step against the CPU plain path")
-    jfile = bytes(step.base.encode(bands))
+    jfile = step.base.encode(bands).tobytes()
     whole = JpegDecoder(dev).decode_to_uyvy(jfile)[0]
     vs_whole = par_diff(got, whole, "receiver step against the unsharded 8K decode")
     out["receiver"] = {"launches": receiver_l, "peel_rounds": rx.rounds, "lost_rows": lost.tolist(),
@@ -3880,6 +4041,9 @@ def main() -> int:
     if sys.argv[1:] == ["--only", "banded_session"]:
         emit({"phase": "banded_session", **banded_session(dev)})
         return 0
+    if sys.argv[1:] == ["--only", "assemble"]:
+        emit(phase_assemble(dev))
+        return 0
     if sys.argv[1:] == ["--only", "tools"]:
         emit(phase_tools(dev))
         return 0
@@ -4135,7 +4299,7 @@ def main() -> int:
     rounds_bad = sess256.rounds
     out = dec_r.decompress(VideoFrame(desc_j, [rec]), Codec.UYVY)
     torch.cuda.synchronize()
-    rx_launches = {k: v for k, v in kernel_counts().items() if k not in ("jpeg_plane_encode", "jpeg_decode_refused")}
+    rx_launches = {k: v for k, v in kernel_counts().items() if k not in ("jpeg_plane_encode", "jpeg_decode_refused", "jpeg_assemble")}
     if min(rx_launches.values()) < 1:  # one frame decoded: one jpeg_decode launch
         raise RuntimeError(f"receive path skipped a kernel: {rx_launches}")
     check_card_decode("receive path", kernel_counts(), 1)
@@ -4343,6 +4507,8 @@ def main() -> int:
     emit(phase_codecs(dev))
     live = phase_live_session(dev)
     emit(live)
+    assembled = phase_assemble(dev)
+    emit(assembled)
     audio = phase_audio_session(dev)
     emit(audio)
 
@@ -4644,6 +4810,29 @@ def main() -> int:
                                                      "card_route_host_ms")},
          "tolerance": "q bit-equal to the C decoder's and to the plain version's on every stream; "
                       "pixels bit-equal to the C route"},
+        {"name": "jpeg_assemble", "route": "cuda", "source": "ultragrid_tpu_torch/csrc/jpeg_assemble.cu",
+         "replaces": "none: no Pallas kernel (the JAX package assembles the scan on the host, "
+                     "native/jpeg_assemble.c); the port's C assembly for a JPEG frame on the card",
+         "launches": live_l["jpeg_assemble"], "frames_sent": live["jpeg_ldgm_1080p"]["frames_sent"],
+         "launches_on": "one call (count pass, scan, write pass) a JPEG frame encoded on the card: live "
+                        "session 1080p jpeg + LDGM, " + str(LIVE_FRAMES) + " frames; launches_audio_session / "
+                        "launches_replay_session: the same with audio, and -I of a recording; launches_duplex: "
+                        "the duplex call through cli.main; launches_standards_session: --rtp-standard 1080p "
+                        "jpeg; launches_assemble_session: phase assemble's 1080p60 session, checked one a "
+                        "frame sent; launches_api: phase api's encodes",
+         "launches_audio_session": audio_l["jpeg_assemble"], "launches_replay_session": replay_l["jpeg_assemble"],
+         "launches_duplex": duplex_l["jpeg_assemble"],
+         "launches_standards_session": std["standards_session"]["launches"]["jpeg_assemble"],
+         "launches_assemble_session": assembled["session"]["launches"]["jpeg_assemble"],
+         "launches_api": api["launches"]["jpeg_assemble"],
+         "ms": assembled["cases"][0]["host_ms_read_and_write"], "device_ms": assembled["cases"][0]["device_ms"],
+         "plain_ms": assembled["cases"][0]["plain_ms"], "bound_ms": assembled["cases"][0]["bound_ms"],
+         "bound_by": assembled["cases"][0]["bound_by"], "library_ms": None,
+         "library": "none: no PyTorch call packs bits into a byte-stuffed stream",
+         "at": assembled["cases"][0]["what"] + "; ms: host time of the count pass, the read and the write pass",
+         "geometries": {r["what"]: {k: r[k] for k in ("device_ms", "plain_ms", "bound_ms", "share_of_bound")}
+                        for r in assembled["cases"]},
+         "tolerance": "byte-equal to the host C assembly in every geometry, quality and first segment"},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

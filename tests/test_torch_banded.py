@@ -21,7 +21,8 @@ from ultragrid_tpu_torch.modules.video_decompress import JpegDecompress
 from ultragrid_tpu_torch.ops import jpeg
 from ultragrid_tpu_torch.ops import jpeg_decode_cuda as jd
 from ultragrid_tpu_torch.parallel import mesh as mesh_mod
-from ultragrid_tpu_torch.parallel.sharded_jpeg import ShardedJpegDecoder, ShardedJpegEncoder, renumber_markers
+from ultragrid_tpu_torch.ops import jpeg_assemble_cuda
+from ultragrid_tpu_torch.parallel.sharded_jpeg import ShardedJpegDecoder, ShardedJpegEncoder
 from ultragrid_tpu_torch.types import Codec, VideoDesc, VideoFrame, vc_get_linesize
 from ultragrid_tpu_torch.utils import params, profiler
 
@@ -89,6 +90,21 @@ def test_banded_compress_gives_the_one_device_file(cards, w, h, spec, nseg):
     one = jpeg.JpegEncoder(w, h, quality=enc.local.quality, restart_interval=ri).encode(pixels, device="cpu")
     assert np.array_equal(got, one)
     mod.done()
+
+
+@pytest.mark.parametrize("w,h,ri", [(240, 96, None), (256, 64, 2)])
+def test_banded_file_is_the_one_card_file_on_the_device(cards, w, h, ri):
+    """The banded encoder's file stays a tensor on the frame's device, and
+    equals the one-card encoder's tensor file and its C file."""
+    from ultragrid_tpu_torch.device import DeviceFile
+
+    pixels = torch.as_tensor(uyvy(w, h, 12))
+    enc = ShardedJpegEncoder(w, h, mesh_mod.mesh_from_param("cpu"), restart_interval=ri)
+    got = enc.encode_file(pixels)
+    one = jpeg.JpegEncoder(w, h, restart_interval=enc.local.restart_interval)
+    assert isinstance(got, DeviceFile) and got.device == pixels.device
+    assert torch.equal(got, one.encode_file(pixels)) and np.array_equal(np.asarray(got), one.encode(pixels))
+    assert np.array_equal(enc.encode(pixels), np.asarray(got))
 
 
 def test_banded_compress_escalates_each_band_and_stays_equal(cards):
@@ -211,14 +227,23 @@ def test_a_segment_range_decodes_to_the_rows_of_the_whole_scan(w, h, ri, bands):
             jd.segment_decode(file, len(data), hdr["scan_start"], tables, tds, nmcu, hdr["ri"], segments=bad)
 
 
-def test_renumber_markers_counts_on_from_the_bands_before():
-    body = np.array([0x12, 0xFF, 0x00, 0xFF, 0xD0, 0x34, 0xFF, 0xD6, 0xFF, 0xD7, 0x56], np.uint8)
-    got = body.copy()
-    renumber_markers(got, 2 * 2025)  # 4050 = 2 (mod 8)
-    assert got.tolist() == [0x12, 0xFF, 0x00, 0xFF, 0xD2, 0x34, 0xFF, 0xD0, 0xFF, 0xD1, 0x56]
-    same = body.copy()
-    renumber_markers(same, 16)
-    assert np.array_equal(same, body)
+@pytest.mark.parametrize("first", [2 * 2025, 16, 3])
+def test_a_band_numbers_its_markers_in_the_frame(first):
+    """A band's body from the assembly that starts at segment ``first`` of
+    the frame: the marker before its first segment, then the one-band C
+    body with each marker counted on by ``first`` (mod 8)."""
+    enc = jpeg.JpegEncoder(256, 64, restart_interval=4)
+    parts = enc.encode_plain(torch.as_tensor(uyvy(256, 64, 4)))
+    c_body = enc.assemble(*parts[:-1])
+    got = jpeg_assemble_cuda.assemble_plain(*parts[:-1], ky=enc.ky, restart_interval=4, first_segment=first)
+    ff = np.flatnonzero(c_body[:-1] == 0xFF) + 1
+    at = ff[(c_body[ff] & 0xF8) == 0xD0]
+    assert at.size == enc.nseg - 1
+    want = c_body.copy()
+    want[at] = 0xD0 | ((want[at] + first % 8) & 7)
+    lead = [0xFF, 0xD0 + (first - 1) % 8]
+    assert got.tolist() == lead + want.tolist()
+    assert jpeg_assemble_cuda.assemble_plain(*parts[:-1], ky=enc.ky, restart_interval=4).tolist() == c_body.tolist()
 
 
 def test_the_banded_path_records_its_spans(cards, trace):
@@ -233,7 +258,7 @@ def test_the_banded_path_records_its_spans(cards, trace):
     recs = list(trace)
     names = [r[0] for r in recs]
     assert names.count("compress.split") == 1 and names.count("compress.band") == BANDS
-    for child in ("compress.k1", "compress.download", "compress.assemble"):
+    for child in ("compress.k1", "compress.assemble"):
         inner = [r for r in recs if r[0] == child]
         assert len(inner) == BANDS and all(r.parent == "compress.band" for r in inner), child
     assert all(r.frame == 77 for r in recs if r[0].startswith("compress."))

@@ -313,3 +313,44 @@ def test_fec_from_spec_matches_reference(spec):
         assert isinstance(got, port_fec.RsSession) and (got.k, got.n) == (want.k, want.n)
     with pytest.raises(ValueError, match="unknown FEC"):
         port_fec.fec_from_spec("xor:3")
+
+
+# (k, file bytes): with a 24-byte header and the 4-byte length word, data
+# parts that need no pad, one pad byte, a whole symbol of pad but one, an
+# empty file, and a file shorter than a symbol
+@pytest.mark.parametrize("k,n", [(32, 32 * 4 * 3 - 28), (32, 32 * 4 * 3 - 29), (32, 32 * 4 * 2 - 27), (32, 0),
+                                 (256, 5), (256, 390_001), (8, 12_345)])
+def test_ldgm_buffer_built_on_a_tensor_is_the_host_buffer(k, n):
+    sess = port_fec.LdgmSession(k, max(4, k // 8), 3)
+    hdr = bytes(range(100, 124))
+    frame = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8)
+    want, want_desc = sess.encode(np.concatenate([np.frombuffer(hdr, np.uint8), frame]))
+    got, desc = sess.encode_tensor(torch.as_tensor(frame), hdr=hdr)
+    assert desc == want_desc and got.dtype == torch.uint8 and np.array_equal(got.numpy(), want)
+    ref_buf, _ = ref_fec.LdgmSession(k, max(4, k // 8), 3).encode(
+        np.concatenate([np.frombuffer(hdr, np.uint8), frame]))
+    assert np.array_equal(got.numpy(), np.asarray(ref_buf))
+
+
+def test_ldgm_buffer_of_a_frame_view_and_bad_input():
+    """A 2-D frame, taken flat, and a strided view: the bytes in order."""
+    sess = port_fec.LdgmSession(16, 8, 3)
+    frame = torch.as_tensor(np.random.default_rng(3).integers(0, 256, (24, 64), dtype=np.uint8))
+    view = frame[:, 8:40]
+    for t in (frame, view):
+        got, _ = sess.encode_tensor(t)
+        assert np.array_equal(got.numpy(), sess.encode(t.contiguous().numpy().reshape(-1))[0])
+    with pytest.raises(ValueError, match="uint8"):
+        sess.encode_tensor(torch.zeros(10, dtype=torch.int32))
+
+
+def test_a_parity_at_another_width_is_a_fresh_one_and_shares_its_lists():
+    mask = port_fec.build_ldgm_matrix(32, 12, 3)
+    base = port_fec.Gf2Parity(mask, 1)
+    for psw in (1, 7, 64):
+        words = torch.as_tensor(np.random.default_rng(psw).integers(-2 ** 31, 2 ** 31, (32, psw), dtype=np.int32))
+        par = base.with_width(psw)
+        assert par._csr is base._csr and par.psw == psw and base.psw == 1
+        assert torch.equal(par(words), port_fec.Gf2Parity(mask, psw)(words))
+    with pytest.raises(ValueError, match="one-part"):
+        port_fec.Gf2Parity(mask, 4, part_words=[64, 64]).with_width(8)

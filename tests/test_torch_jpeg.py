@@ -250,3 +250,100 @@ def test_warm_leaves_the_encoder_as_it_was():
         assert torch.equal(a, b)
     assert np.array_equal(warm.encode(frame, device="cpu"), cold.encode(frame, device="cpu"))
     assert warm.wwords == cold.wwords
+
+
+# the entropy assembly on tensors (ops/jpeg_assemble_cuda.py): its plain
+# version against the host C assembly that both packages share, at every
+# geometry K1 takes, on the slots of the CASES above and on the whole frame
+# in one segment
+ASSEMBLY_CASES = [c[:6] for c in CASES] + [(256, 32, Codec.UYVY, 80, 10 ** 6, None),
+                                           (64, 64, Codec.UYVY, 90, 2, "444")]
+
+
+@pytest.mark.parametrize("w,h,codec,q,ri,sub", ASSEMBLY_CASES)
+def test_assembly_plain_is_the_c_assembly(w, h, codec, q, ri, sub):
+    from ultragrid_tpu_torch.ops import jpeg_assemble_cuda
+
+    enc = port_jpeg.JpegEncoder(w, h, in_codec=port_types.Codec(codec), quality=q,
+                                restart_interval=ri if ri != 10 ** 6 else (w // 16) * (h // 8), subsampling=sub)
+    frame = torch.as_tensor(frame_for(w, h, codec, 21, "noise" if q >= 90 else "content"))
+    parts = enc.encode_plain(frame)
+    while bool(parts[-1]):
+        parts = enc.escalate_and_retry(frame)
+    want = enc.assemble(*parts[:-1])
+    got = jpeg_assemble_cuda.assemble_plain(*parts[:-1], ky=enc.ky, restart_interval=enc.restart_interval)
+    assert got.dtype == torch.uint8 and np.array_equal(got.numpy(), want)
+    asm = jpeg_assemble_cuda.Assembly(parts, ky=enc.ky, restart_interval=enc.restart_interval)
+    with pytest.raises(ValueError, match="read first"):
+        asm.write(torch.empty(want.size, dtype=torch.uint8))
+    assert asm.read() == (False, want.size)
+    out = torch.empty(want.size + 2, dtype=torch.uint8)
+    asm.write(out, eoi=True)
+    assert np.array_equal(out.numpy(), np.concatenate([want, [0xFF, 0xD9]]))
+    with pytest.raises(ValueError, match="bytes for a body"):
+        asm.write(out)
+
+
+def random_slots(rng, nmcu, ky, ww, ones: bool):
+    """K1-shaped parts of random bits (``ones``: most bits 1, so data bytes
+    and pads make many 0xFF) and counts up to the slot's width."""
+    def slots(n):
+        s = rng.integers(0, 2 ** 32, (n, ww), dtype=np.uint64)
+        if ones:
+            s |= np.uint64(0xFFFFFF00FFFF0000)
+        return torch.as_tensor((s & 0xFFFFFFFF).astype(np.uint32).view(np.int32))
+
+    def bits(n):
+        return torch.as_tensor(rng.integers(0, 32 * ww + 1, n).astype(np.int32))
+
+    return [slots(nmcu * ky), bits(nmcu * ky), slots(nmcu), bits(nmcu), slots(nmcu), bits(nmcu)]
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_assembly_plain_stuffs_and_numbers_as_the_c_assembly(seed):
+    """Random slots, many of their bytes 0xFF: the plain version against
+    the C assembly, and from a later first segment against the C body with
+    each marker counted on and the marker before its first segment."""
+    from ultragrid_tpu_torch.ops import jpeg_assemble_cuda
+
+    rng = np.random.default_rng(seed)
+    ky, ww = (1, 2, 4)[seed % 3], (1, 2, 4)[seed // 3 % 3]
+    nmcu = int(rng.integers(1, 60))
+    ri = int(rng.integers(1, nmcu + 2))
+    parts = random_slots(rng, nmcu, ky, ww, ones=seed % 2 == 1)
+    enc = port_jpeg.JpegEncoder.__new__(port_jpeg.JpegEncoder)  # the C assembly's geometry alone
+    enc.nmcu, enc.ky, enc.restart_interval = nmcu, ky, ri
+    enc.nblocks, enc.nseg = nmcu * (ky + 2), -(-nmcu // ri)
+    want = enc.assemble(*parts)
+    got = jpeg_assemble_cuda.assemble_plain(*parts, ky=ky, restart_interval=ri)
+    assert np.array_equal(got.numpy(), want)
+    first = int(rng.integers(1, 30))
+    body = want.copy()
+    ff = np.flatnonzero(body[:-1] == 0xFF) + 1
+    at = ff[(body[ff] & 0xF8) == 0xD0]
+    assert at.size == enc.nseg - 1
+    body[at] = 0xD0 | ((body[at] + first % 8) & 7)
+    got = jpeg_assemble_cuda.assemble_plain(*parts, ky=ky, restart_interval=ri, first_segment=first, eoi=True)
+    assert got.tolist() == [0xFF, 0xD0 + (first - 1) % 8] + body.tolist() + [0xFF, 0xD9]
+
+
+@pytest.mark.parametrize("w,h,codec,q,ri,sub", [
+    (256, 32, Codec.UYVY, 80, None, None),
+    (128, 128, Codec.YUYV, 80, None, "420"),
+    (64, 64, Codec.RGB, 90, None, None),
+])
+def test_encode_file_is_the_reference_file(w, h, codec, q, ri, sub):
+    ref, enc = pair(w, h, codec, q, ri, sub)
+    frame = frame_for(w, h, codec, 13)
+    got = enc.encode_file(torch.as_tensor(frame))
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.uint8 and got.device.type == "cpu"
+    assert np.array_equal(np.asarray(got), ref.encode(frame))
+
+
+def test_encode_file_escalates_as_encode():
+    ref, enc = pair(256, 32, Codec.UYVY, 95, None)
+    ref.wwords = enc.wwords = 2
+    frame = frame_for(256, 32, Codec.UYVY, 9, "noise")
+    got = enc.encode_file(torch.as_tensor(frame))
+    want = ref.encode(frame)
+    assert enc.wwords == ref.wwords > 2 and np.array_equal(np.asarray(got), want)

@@ -179,6 +179,74 @@ def test_tx_packets_equal_reference(kind, fec):
     assert len(port_rec.packets) > 2
 
 
+class _PacedRecorder(_Recorder):
+    """A _Recorder that keeps each batch's pacing too."""
+
+    def __init__(self):
+        super().__init__()
+        self.paces = []
+
+    def send_batch(self, ts, pt, hdrs, data, offsets, sizes, m_last, pace_ns=0):
+        self.paces.append(pace_ns)
+        return super().send_batch(ts, pt, hdrs, data, offsets, sizes, m_last, pace_ns)
+
+
+_ROUTES = [("jpeg", "ldgm:256:26:5"), ("jpeg", "ldgm:16:8:3"), ("raw", "ldgm:16:8:3"), ("tiles", "ldgm:32:12:3")]
+
+
+@pytest.mark.parametrize("kind,fec", _ROUTES, ids=[f"{k}-{f}" for k, f in _ROUTES])
+def test_tx_tensor_route_sends_the_host_routes_datagrams(kind, fec, monkeypatch):
+    """The same frames as tensors (a JPEG file as ``JpegCompress`` leaves
+    it, ``device.DeviceFile``; a frame; tiles) and as host arrays: the
+    card's route builds each LDGM buffer on the tensor's device
+    (``LdgmSession.encode_tensor``; here the CPU stands in for the card),
+    the host route by the C encoder, and the datagrams (headers, payloads,
+    order) and their pacing are equal.  A tensor off the card takes the
+    host route."""
+    from ultragrid_tpu_torch.device import DeviceFile
+    from ultragrid_tpu_torch.ops.fec import LdgmSession
+
+    calls = {"tensor": 0, "host": 0}
+    on_tensor, on_host = LdgmSession.encode_tensor, LdgmSession.encode
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(LdgmSession, "encode_tensor", count("tensor", on_tensor))
+    monkeypatch.setattr(LdgmSession, "encode", count("host", on_host))
+    w, h, tiles = 96, 64, 1
+    recs = {}
+    on_card = transmit._on_card
+    for route in ("host", "card", "cpu_tensor"):
+        # the card's route taken by a CPU tensor; then the route as it is
+        monkeypatch.setattr(transmit, "_on_card",
+                            (lambda t: isinstance(t, torch.Tensor)) if route == "card" else on_card)
+        tx = transmit.Tx(mtu=1500, fec_spec=fec, device="cpu")
+        rec = recs[route] = _PacedRecorder()
+        for i in range(3):  # three frames, each of another size: other pads
+            if kind == "jpeg":
+                parts, codec = [_jpeg_like(20000 + 997 * i, seed=i)], Codec.JPEG
+            else:
+                parts, codec = [_uyvy(w, h, seed=i)], Codec.UYVY
+            if kind == "tiles":
+                tiles = 2
+                parts = [parts[0][:, : w].copy(), parts[0][:, w:].copy()]
+            if route != "host":
+                parts = [torch.as_tensor(p).reshape(-1).as_subclass(DeviceFile) if kind == "jpeg"
+                         else torch.as_tensor(p) for p in parts]
+            desc = VideoDesc(w // tiles, h, codec, 24.0, tile_count=tiles)
+            tx.send_video(rec, VideoFrame(desc, parts, timestamp=3.0 + i / 24))
+        want = {"card": 3 * tiles, "host": 0} if route == "card" else {"card": 0, "host": 3 * tiles}
+        assert tx.fec_routes == want, route
+    assert calls == {"tensor": 3 * tiles, "host": 6 * tiles}
+    assert recs["card"].packets == recs["host"].packets and len(recs["host"].packets) > 3 * tiles
+    assert recs["cpu_tensor"].packets == recs["host"].packets
+    assert recs["card"].paces == recs["host"].paces == recs["cpu_tensor"].paces
+
+
 def test_rtp_batch_datagrams_equal_reference():
     """The C batch sender through both sessions: the same datagrams."""
     rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)

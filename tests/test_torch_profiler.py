@@ -153,9 +153,10 @@ def test_a_full_receiver_queue_marks_the_dropped_frame(tmp_path):
 
 
 # spans of a frame's path that the CPU session runs, by process side; K1's
-# span is the device half's, here its plain version
+# span is the device half's, here its plain version; the sender's LDGM
+# buffer is built where the file lies, here on the host (tx.fec.host)
 SENDER_SPANS = ("compress.queue", "compress", "compress.k1", "compress.download", "compress.assemble",
-                "send.queue", "fec+tx.send", "tx.fec", "tx.pace")
+                "send.queue", "fec+tx.send", "tx.fec", "tx.fec.host", "tx.pace")
 RECEIVER_SPANS = ("rx.playout", "rx.reassemble", "fec.queue", "rx.fec", "fec.peel.round", "decompress.queue",
                   "rx.decompress", "decompress.scan", "decompress.upload", "decompress.product",
                   "rx.postprocess", "rx.display")

@@ -54,6 +54,13 @@ _SIGNATURES = {
     # restart interval, nseg, tile counts, ntiles, offsets, q, status,
     # first segment, end segment, stream
     "ug_jpeg_decode": [_P, _L, _L, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P],
+    # ys, ybits, us, ubits, vs, vbits, overflow byte, nmcu, ky, wwords,
+    # restart interval, first segment, scratch, segment bytes, segment
+    # lengths, offsets, info, stream
+    "ug_jpeg_assemble_count": [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # scratch, segment bytes, offsets, nmcu, ky, wwords, restart interval,
+    # first segment, eoi, body, stream
+    "ug_jpeg_assemble_write": [_P, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P],
     # part pointers, part words per frame, part first rows (host arrays),
     # nparts, nframes, psw, row_ptr, cols, m, nnz, staircase, out, stream
     "ug_gf2_parity": [_P, _P, _P, _I, _I, _L, _P, _P, _I, _I, _I, _P, _P],

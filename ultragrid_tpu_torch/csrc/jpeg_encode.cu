@@ -64,6 +64,7 @@ constexpr int CPT = 4;   // columns per front-end thread
 constexpr int LPB = 4;   // pack: lanes per 8x8 block
 constexpr int CPL = 64 / LPB;  // pack: coefficients per lane
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_DEVICES = 64;  // cards whose launch set-up is kept
 
 __device__ __forceinline__ int bit_length(int v)
 {
@@ -459,16 +460,18 @@ int launch(const uint8_t* f, long long linesize, const float* wc, int n_wc_rows,
                         + (size_t)(MT + 1) * (K + RAW_PAD);
     auto kern = jpeg_encode_kernel<K, NC, NY, MCU_H, BPR>;
     // the resident CTAs the card holds for this shared memory size, set up
-    // once per device and size (the host calls cost more than a 1080p launch)
+    // once per device and size (the host calls cost more than a 1080p launch;
+    // the banded sender launches on every card of its mesh, each frame)
     static std::mutex mu;
-    static int cached_dev = -1, cached_cap = 0;
-    static size_t cached_smem = 0;
+    static int cached_cap[MAX_DEVICES] = {};
+    static size_t cached_smem[MAX_DEVICES] = {};
     int dev = 0, cap = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
     {
         std::lock_guard<std::mutex> lock(mu);
-        if (dev != cached_dev || smem != cached_smem) {
+        if (smem != cached_smem[dev]) {
             int sms = 0, per_sm = 0;
             if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
                 != cudaSuccess)
@@ -478,11 +481,10 @@ int launch(const uint8_t* f, long long linesize, const float* wc, int n_wc_rows,
             if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NC, smem)) != cudaSuccess)
                 return (int)err;
             if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-            cached_dev = dev;
-            cached_smem = smem;
-            cached_cap = per_sm * sms;
+            cached_smem[dev] = smem;
+            cached_cap[dev] = per_sm * sms;
         }
-        cap = cached_cap;
+        cap = cached_cap[dev];
     }
     const int ntiles = (nmcu + MT - 1) / MT;
     const int grid = ntiles < cap ? ntiles : cap;
@@ -727,14 +729,15 @@ int launch_plane(const uint8_t* f, long long linesize, const float* w, const flo
     // the resident CTAs the card holds for this shared memory size, set up
     // once per device and size, as launch() does
     static std::mutex mu;
-    static int cached_dev = -1, cached_cap = 0;
-    static size_t cached_smem = 0;
+    static int cached_cap[MAX_DEVICES] = {};
+    static size_t cached_smem[MAX_DEVICES] = {};
     int dev = 0, cap = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
     {
         std::lock_guard<std::mutex> lock(mu);
-        if (dev != cached_dev || smem != cached_smem) {
+        if (smem != cached_smem[dev]) {
             int sms = 0, per_sm = 0;
             if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
                 != cudaSuccess)
@@ -744,11 +747,10 @@ int launch_plane(const uint8_t* f, long long linesize, const float* w, const flo
             if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NC, smem)) != cudaSuccess)
                 return (int)err;
             if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-            cached_dev = dev;
-            cached_smem = smem;
-            cached_cap = per_sm * sms;
+            cached_smem[dev] = smem;
+            cached_cap[dev] = per_sm * sms;
         }
-        cap = cached_cap;
+        cap = cached_cap[dev];
     }
     const int ntiles = (nmcu + MT - 1) / MT;
     const int grid = ntiles < cap ? ntiles : cap;

@@ -62,3 +62,25 @@ def on_device(x, device) -> torch.Tensor:
         raise ValueError(f"tensor is on {x.device}, but this pipeline runs on {device}; "
                          "move it explicitly or build the pipeline for that device")
     return x
+
+
+class DeviceFile(torch.Tensor):
+    """A compressed tile that stays on its device: a flat uint8 tensor that a
+    consumer on the host reads as an array (``np.asarray`` copies it down
+    once).  Work on the card needs no event of its own: the threads of a
+    pipeline enqueue on its one stream (:func:`pipeline_stream`).
+    Operations on it give plain tensors."""
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    def __array__(self, dtype=None, copy=None):
+        arr = torch.Tensor.cpu(self).numpy()
+        return arr if dtype is None else arr.astype(dtype, copy=False)
+
+
+def host_bytes(tile) -> np.ndarray:
+    """A tile's bytes as a flat host array: a tensor on the card is copied to
+    the host here (one copy of the whole tile)."""
+    if isinstance(tile, torch.Tensor):
+        tile = tile.cpu().numpy()
+    return np.asarray(tile, dtype=np.uint8).reshape(-1)

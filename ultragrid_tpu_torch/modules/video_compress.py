@@ -139,10 +139,9 @@ class JpegCompress(VideoCompress):
     measured file sizes, one encoder per quality.
 
     With ``--param cuda-device`` naming several cards (the CLI's
-    ``--cuda-device``), each frame is encoded by row band, one band a card,
-    each on a worker thread of its own (``parallel/sharded_jpeg.py``
-    ``ShardedJpegEncoder``); the file is the one-card file at the bands'
-    restart interval, byte for byte.  A geometry whose MCU rows do not
+    ``--cuda-device``), each frame is encoded by row band, one band a card
+    (``parallel/sharded_jpeg.py`` ``ShardedJpegEncoder``); the file is the
+    one-card file at the bands' restart interval, byte for byte.  A geometry whose MCU rows do not
     split into the bands, or a subsampling asked for, runs on the module's
     device alone."""
 
@@ -168,8 +167,12 @@ class JpegCompress(VideoCompress):
             self._rc = None  # rebuilt against the new target at the next geometry
 
     def compress(self, frame: VideoFrame) -> VideoFrame:
-        """Uncompressed frame -> VideoFrame whose data is the JPEG file
-        (np.uint8, 1-D)."""
+        """Uncompressed frame -> VideoFrame whose data is the JPEG file,
+        1-D uint8, where the frame is: from a frame on the card a tensor
+        there (``device.DeviceFile``: the entropy assembly runs on the card
+        and the send loop builds the FEC buffer there; a host consumer reads
+        it as an array), from a frame on the host an array (the C
+        assembly)."""
         desc = frame.desc
         if self._desc != desc:
             self._encoders.clear()
@@ -181,9 +184,10 @@ class JpegCompress(VideoCompress):
         if enc is None:
             with profiler.zone("compress.build"):
                 enc = self._encoders[q] = self._encoder(desc, q)
-        data = enc.encode(on_device(frame.data, self.device))
+        pixels = on_device(frame.data, self.device)
+        data = enc.encode_file(pixels) if pixels.is_cuda else enc.encode(pixels)
         if self._rc is not None:
-            self._rc.update(int(data.size))
+            self._rc.update(len(data))
         return self._out(frame, Codec.JPEG, data)
 
     def _encoder(self, desc: VideoDesc, quality: int):
@@ -199,9 +203,6 @@ class JpegCompress(VideoCompress):
                            restart_interval=self.restart_interval, subsampling=self.subsampling)
 
     def done(self) -> None:
-        for enc in self._encoders.values():
-            if isinstance(enc, ShardedJpegEncoder):
-                enc.close()
         self._encoders.clear()
 
 

@@ -6,10 +6,13 @@ video/FEC payload headers, M bit on the frame's last packet, packet pacing
 modes unlimited/auto (75% of frame time)/fixed (get_packet_rate,
 transmit.c:653-689), mult:N duplication.
 
-FEC goes through the port's :func:`ultragrid_tpu_torch.ops.fec.fec_from_spec`;
-the LDGM encode is the shared host C XOR, as in the reference.  An
-uncompressed frame that lives on the card is copied to the host once per
-frame, in :meth:`Tx.send_video`, before FEC and packetisation.  Audio
+FEC goes through the port's :func:`ultragrid_tpu_torch.ops.fec.fec_from_spec`.
+The route of an LDGM tile is chosen by where the tile lives: a tensor on
+the card (the JPEG file that ``JpegCompress`` leaves there, or a frame) has
+its whole buffer built on that card (``LdgmSession.encode_tensor``: one
+copy and kernel K2) and brought down once into a pinned buffer the Tx
+reuses; any other tile takes the shared host C XOR, as in the reference.  Every other tile on the card is copied to the host once, in
+:meth:`Tx.send_video`, before FEC and packetisation.  Audio
 (:meth:`Tx.send_audio`) is per-channel packets with the 5-word audio header,
 optionally Reed-Solomon protected with the parity product on the Tx's
 device.  Standards mode (``Tx(rfc2435=True)``) sends a JPEG frame as RFC 2435
@@ -34,11 +37,11 @@ import torch
 from ultragrid_tpu_torch.audio.codecs import get_audio_codec
 from ultragrid_tpu_torch.audio.resampler import resample_channel
 from ultragrid_tpu_torch.audio.types import AUDIO_TAGS, AudioFrame
-from ultragrid_tpu_torch.device import get_device
+from ultragrid_tpu_torch.device import get_device, host_bytes
 from ultragrid_tpu_torch.net import rtp_types as rt
 from ultragrid_tpu_torch.net.rtp import RtpSession, get_local_mediatime
 from ultragrid_tpu_torch.net.rtpdec_jpeg import packetize as rfc2435_packetize
-from ultragrid_tpu_torch.ops.fec import FecDesc, RsSession, fec_from_spec
+from ultragrid_tpu_torch.ops.fec import FecDesc, LdgmSession, RsSession, fec_from_spec
 from ultragrid_tpu_torch.types import (
     PIX_BLOCK_LCM,
     Codec,
@@ -129,20 +132,21 @@ def get_packet_sizes(
     return sizes
 
 
-def host_bytes(tile) -> np.ndarray:
-    """A tile's bytes as a flat host array: a tensor on the card is copied to
-    the host here (one copy of the whole tile)."""
-    if isinstance(tile, torch.Tensor):
-        tile = tile.cpu().numpy()
-    return np.asarray(tile, dtype=np.uint8).reshape(-1)
+def _on_card(tile) -> bool:
+    """Whether an LDGM tile's buffer is built where the tile lives: a
+    tensor on the card.  Every other tile takes the host C encoder."""
+    return isinstance(tile, torch.Tensor) and tile.is_cuda
 
 
 class Tx:
     """Sender packetizer state (ref: struct tx + tx_init, transmit.c).
 
     ``device`` is where the RS parity product runs, for video and audio (the
-    card unless the caller names another; it raises without one); the LDGM
-    encode is host C."""
+    card unless the caller names another; it raises without one).  An LDGM
+    tile that is a tensor on the card has its buffer built on that card,
+    any other tile by the host C encoder; ``fec_routes`` counts the frames' tiles by
+    where their buffer was built ("card" or "host"), as do the profiler's
+    instants ``tx.fec.card`` and ``tx.fec.host``."""
 
     def __init__(
         self,
@@ -173,6 +177,8 @@ class Tx:
         # standards mode: JPEG frames go out as RFC 2435 / PT 26 instead of
         # the UltraGrid payload header (interop with ffmpeg/GStreamer/RTSP)
         self.rfc2435 = rfc2435
+        self.fec_routes = {"card": 0, "host": 0}
+        self._pinned: Optional[torch.Tensor] = None  # the card's LDGM buffers come down here
 
     def _get_fec(self, frame_size: int):
         if self.fec_spec in ("", "none"):
@@ -186,17 +192,16 @@ class Tx:
 
         Multi-tile frames send each tile as its own RTP substream with the
         same timestamp; only the very last packet carries the M bit
-        (ref: tx_send, transmit.c:440-478).  Each tile is fetched to the host
-        once, here.
+        (ref: tx_send, transmit.c:440-478).  Each tile, or the LDGM buffer of
+        a tile on the card, comes to the host once, here.
         """
         ts = get_local_mediatime() if frame.timestamp < 0 else rt.video_rtp_ts(frame.timestamp)
         if self.rfc2435 and frame.desc.color_spec == Codec.JPEG:
             return self._send_rfc2435(session, frame, ts)
-        tiles = [host_bytes(t) for t in frame.tiles]
         sent = 0
-        for ti, data in enumerate(tiles):
-            sent += self._send_tile(session, frame, data, ts, substream=ti,
-                                    send_m=(ti == len(tiles) - 1))
+        for ti, tile in enumerate(frame.tiles):
+            sent += self._send_tile(session, frame, tile, ts, substream=ti,
+                                    send_m=(ti == len(frame.tiles) - 1))
         self.buffer = (self.buffer + 1) & 0x3FFFFF
         return sent
 
@@ -209,21 +214,28 @@ class Tx:
         self.buffer = (self.buffer + 1) & 0x3FFFFF
         return len(payloads)
 
-    def _send_tile(self, session: RtpSession, frame: VideoFrame, data: np.ndarray, ts: int,
+    def _send_tile(self, session: RtpSession, frame: VideoFrame, tile, ts: int,
                    substream: int, send_m: bool) -> int:
         """ref: tx_send_base, transmit.c:698-827."""
         desc = frame.desc
-        fec = self._get_fec(data.size)
+        size = tile.numel() if isinstance(tile, torch.Tensor) else np.asarray(tile).size
+        fec = self._get_fec(size)
         fec_desc = None
         if fec is not None:
             # the reference prepends the video payload header to the protected
             # payload (encode_hdr_frame, ldgm.cpp:455-460)
-            video_hdr = rt.pack_video_header(desc, self.buffer, 0, data.size, substream)
+            video_hdr = rt.pack_video_header(desc, self.buffer, 0, size, substream)
             with profiler.zone("tx.fec"):
-                if isinstance(fec, RsSession):
-                    data, fec_desc = fec.encode(data, hdr=video_hdr, device=self.device)
+                if isinstance(fec, LdgmSession) and _on_card(tile):
+                    data, fec_desc = self._ldgm_on_card(fec, tile, video_hdr)
+                elif isinstance(fec, RsSession):
+                    data, fec_desc = fec.encode(host_bytes(tile), hdr=video_hdr, device=self.device)
                 else:
-                    data, fec_desc = fec.encode(np.concatenate([np.frombuffer(video_hdr, np.uint8), data]))
+                    data, fec_desc = fec.encode(np.concatenate([np.frombuffer(video_hdr, np.uint8),
+                                                                host_bytes(tile)]))
+                    self._count_route("host")
+        else:
+            data = host_bytes(tile)
 
         enc = self.encryption is not None
         netto = self.mtu - (IPV4_HDR_LEN + UDP_HDR_LEN + rt.RTP_HDR_LEN)
@@ -267,6 +279,28 @@ class Tx:
                     pace_ns=int(packet_rate * 1e9),
                 )
         return total
+
+    def _ldgm_on_card(self, fec: LdgmSession, tile: torch.Tensor, video_hdr: bytes):
+        """The LDGM buffer of ``video_hdr`` ++ ``tile`` built on the tile's
+        device, after its writer on the pipeline's stream, and brought down
+        once into the pinned buffer this Tx reuses (the send of the frame
+        before is over), waited for by an event.  (host array view,
+        FecDesc)."""
+        buf, fec_desc = fec.encode_tensor(tile, hdr=video_hdr)
+        host = self._pinned
+        if host is None or host.numel() < buf.numel():
+            grown = buf.numel() if host is None else max(buf.numel(), host.numel() * 3 // 2)
+            host = self._pinned = torch.empty(grown, dtype=torch.uint8, pin_memory=buf.is_cuda)
+        host = host[: buf.numel()]
+        host.copy_(buf, non_blocking=True)
+        if buf.is_cuda:
+            torch.cuda.current_stream(buf.device).record_event().synchronize()
+        self._count_route("card")
+        return host.numpy(), fec_desc
+
+    def _count_route(self, route: str) -> None:
+        self.fec_routes[route] += 1
+        profiler.instant(f"tx.fec.{route}")
 
     def _encrypted(self, hdrs: np.ndarray, data: np.ndarray, offsets: np.ndarray, sizes: np.ndarray):
         """A batch with each packet's payload encrypted, its payload header

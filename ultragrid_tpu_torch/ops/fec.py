@@ -17,6 +17,7 @@ host Gaussian elimination.  :func:`fec_from_spec` parses the ``-f`` grammar.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from functools import lru_cache
 from typing import List, Optional, Tuple
@@ -176,6 +177,16 @@ class Gf2Parity:
         self.cols = (np.concatenate(self.members) if self.members else np.zeros(0)).astype(np.int32)
         self._csr = {}  # torch.device -> (row_ptr, cols) on the device
 
+    def with_width(self, psw: int) -> "Gf2Parity":
+        """This one-part, one-frame parity over rows of ``psw`` words: the
+        member lists and their copies on each device are shared, so a new
+        symbol width (a live sender's, each frame) costs no upload."""
+        if len(self.part_words) != 1 or self.frames != 1:
+            raise ValueError("with_width: a one-part, one-frame parity only")
+        par = copy.copy(self)
+        par.psw, par.part_words = psw, [self.rows * psw]
+        return par
+
     def _check(self, parts) -> None:
         if len(parts) != len(self.part_words):
             raise ValueError(f"parity input: expected {len(self.part_words)} parts, got {len(parts)}")
@@ -215,8 +226,10 @@ class Gf2Parity:
             return self.plain(*parts)
         raise ValueError(f"gf2 parity: unsupported device {parts[0].device}")
 
-    def launch(self, *parts) -> torch.Tensor:
-        """Kernel K2 on CUDA tensors: one launch for all frames."""
+    def launch(self, *parts, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Kernel K2 on CUDA tensors: one launch for all frames, into
+        ``out`` where given (contiguous int32 of the parity's shape on the
+        parts' device, e.g. the parity rows of a container)."""
         self._check(parts)
         if not all(p.is_cuda and p.is_contiguous() for p in parts):
             raise ValueError("K2 needs contiguous CUDA tensors")
@@ -226,7 +239,11 @@ class Gf2Parity:
             csr = self._csr[dev] = (torch.as_tensor(self.row_ptr, device=dev),
                                     torch.as_tensor(self.cols, device=dev))
         shape = (self.m, self.psw) if self.frames == 1 else (self.frames, self.m, self.psw)
-        out = torch.empty(shape, dtype=torch.int32, device=dev)
+        if out is None:
+            out = torch.empty(shape, dtype=torch.int32, device=dev)
+        elif out.dtype != torch.int32 or tuple(out.shape) != shape or out.device != dev or not out.is_contiguous():
+            raise ValueError(f"K2 output: expected contiguous int32 {shape} on {dev}, got {out.dtype} "
+                             f"{tuple(out.shape)} on {out.device}")
         ptrs = np.array([p.data_ptr() for p in parts], np.int64)
         words = np.array(self.part_words, np.int64)
         lib = _build.kernels_lib()
@@ -384,7 +401,7 @@ class LdgmSession:
             idx = np.nonzero(self.matrix[i])[0]
             rows[i, : idx.size] = idx
         self._rows = np.ascontiguousarray(rows)
-        self._encoders = {}  # psw -> K2 over the mask, staircase on
+        self._parity = Gf2Parity(self.matrix, 1)  # K2 over the mask, staircase on; any width by with_width
         # (psw, device) -> (K2 of the full check matrix, no staircase; it as
         # bool): the last _PEEL_WIDTHS widths (a camera's file sizes rarely
         # repeat, so a new width comes most frames)
@@ -412,6 +429,35 @@ class LdgmSession:
         buf = np.concatenate([data, parity.reshape(-1)])
         return buf, FecDesc("ldgm", self.k, self.m, self.c, self.seed, ps)
 
+    def encode_tensor(self, frame: torch.Tensor, hdr: bytes = b"") -> Tuple[torch.Tensor, FecDesc]:
+        """The buffer of :meth:`encode` (``hdr`` ++ ``frame``) built on the
+        frame's device: (uint8 [data part + m * ps] there, FecDesc),
+        byte-equal to ``encode(hdr ++ frame)``.  One copy of the frame into
+        the buffer on the device, the length word and ``hdr`` from the host,
+        the pad zeroed, then the parity of the data part, with the
+        staircase, written after it (on the card one K2 launch; on the CPU
+        its plain version).  ``frame``: uint8, any shape (taken flat)."""
+        flat = frame.reshape(-1)
+        if flat.dtype != torch.uint8:
+            raise ValueError(f"LDGM frame: expected uint8, got {flat.dtype}")
+        size = len(hdr) + flat.numel()
+        head = torch.frombuffer(bytearray(np.uint32(size).tobytes() + bytes(hdr)), dtype=torch.uint8)
+        ps, buf_size = self.encode_params(size)
+        data_size = buf_size - self.m * ps
+        dev = flat.device
+        buf = torch.empty(buf_size, dtype=torch.uint8, device=dev)
+        buf[: head.numel()].copy_(head, non_blocking=True)  # staged at once: no wait for the stream
+        buf[head.numel(): LDGM_HEADER_SIZE + size].copy_(flat)
+        buf[LDGM_HEADER_SIZE + size: data_size].zero_()
+        psw = ps // 4
+        par = self._parity.with_width(psw)
+        words = buf[:data_size].view(torch.int32)
+        if dev.type == "cuda":
+            par.launch(words, out=buf[data_size:].view(torch.int32).view(self.m, psw))
+        else:
+            buf[data_size:] = par.plain(words).reshape(-1).view(torch.uint8)
+        return buf, FecDesc("ldgm", self.k, self.m, self.c, self.seed, ps)
+
     def _encode_host(self, data: np.ndarray, ps: int) -> np.ndarray:
         """The shared C XOR encoder (the reference's SSE CPU path analogue)."""
         parity = np.empty((self.m, ps), np.uint8)
@@ -432,10 +478,7 @@ class LdgmSession:
             raise ValueError(f"expected [{self.k}, ps] data symbols, got {tuple(sym.shape)}")
         ps = sym.shape[1]
         words = symbol_words(sym)
-        par = self._encoders.get(words.shape[1])
-        if par is None:
-            par = self._encoders[words.shape[1]] = Gf2Parity(self.matrix, words.shape[1])
-        return par(words).view(torch.uint8)[:, :ps]
+        return self._parity.with_width(words.shape[1])(words).view(torch.uint8)[:, :ps]
 
     def decode(self, symbols: np.ndarray, present: np.ndarray) -> Optional[np.ndarray]:
         """Erasure-recover the frame from received symbols, on the host.

@@ -5,7 +5,10 @@ block, the zigzag-quantised coefficients (one matmul of the raw interleaved
 MCU bytes by the "mega matrix"), the Huffman symbols and a fixed-width slot
 of MSB-first packed bits; the host C assembler (``native/jpeg_assemble.c``,
 shared with the reference) concatenates the slots into byte-stuffed restart
-segments and the file.
+segments and the file.  :meth:`JpegEncoder.encode_file`, the live
+sender's route, keeps the frame on its device instead: the entropy assembly
+there (:mod:`ultragrid_tpu_torch.ops.jpeg_assemble_cuda`, a kernel on the
+card) writes the file as a tensor, and only its length comes to the host.
 
 On a CUDA tensor the device half is ONE hand-written kernel
 (:mod:`ultragrid_tpu_torch.ops.jpeg_cuda`); on a CPU tensor it is the plain
@@ -32,8 +35,8 @@ import numpy as np
 import torch
 
 from ultragrid_tpu_torch import native
-from ultragrid_tpu_torch.device import get_device
-from ultragrid_tpu_torch.ops import jpeg_cuda, jpeg_decode_cuda
+from ultragrid_tpu_torch.device import DeviceFile, get_device, host_bytes
+from ultragrid_tpu_torch.ops import jpeg_assemble_cuda, jpeg_cuda, jpeg_decode_cuda
 from ultragrid_tpu_torch.types import Codec, VideoFrame, vc_get_linesize
 from ultragrid_tpu_torch.utils import profiler
 
@@ -423,6 +426,7 @@ class JpegEncoder:
         # slot width in 32-bit words; doubled on overflow
         self.wwords = 16 if quality <= 90 else 32
         self._dev_tables = {}  # torch.device -> device-resident tables
+        self._dev_headers = {}  # torch.device -> the header as a uint8 tensor there
 
     # -- state ----------------------------------------------------------
 
@@ -825,6 +829,54 @@ class JpegEncoder:
         with profiler.zone("compress.k1"):
             out = step(frame)
             return out, bool(out[-1])
+
+    def header_tensor(self, device) -> torch.Tensor:
+        """The file's header (SOI to SOS) as uint8 on ``device``, made once."""
+        device = torch.device(device)
+        t = self._dev_headers.get(device)
+        if t is None:
+            t = self._dev_headers[device] = torch.frombuffer(bytearray(self._header), dtype=torch.uint8).to(device)
+        return t
+
+    def _widen(self, used: int) -> None:
+        """Double the slot width past ``used``, the width K1 overflowed at."""
+        if self.wwords <= used:
+            self.wwords = min(used * 2, 64)
+
+    def encode_into(self, frame: torch.Tensor, *, prefix: int = 0, first_segment: int = 0, eoi: bool = True,
+                    widen=None) -> torch.Tensor:
+        """K1 and the entropy assembly on the frame's device, nothing on the
+        host but one (overflow, length) read: uint8 [prefix + body (+ 2)]
+        there, ``prefix`` bytes left for the caller, then the stuffed body,
+        its restart markers numbered from ``first_segment``, then the EOI
+        where ``eoi``.  K1 runs in ``compress.k1``; the assembly's count
+        pass, the read and its write pass in ``compress.assemble``.  Where
+        K1 overflows, ``widen(width used)`` (default: this encoder's slot
+        width doubled) and again, as :meth:`encode` escalates."""
+        while True:
+            with profiler.zone("compress.k1"):
+                out = self._encode(frame)
+            with profiler.zone("compress.assemble"):
+                asm = jpeg_assemble_cuda.Assembly(out, ky=self.ky, restart_interval=self.restart_interval,
+                                                  first_segment=first_segment)
+                over, n = asm.read()
+                if not over or out[0].shape[1] >= 64:
+                    buf = torch.empty(prefix + n + (2 if eoi else 0), dtype=torch.uint8, device=frame.device)
+                    asm.write(buf[prefix:], eoi=eoi)
+                    return buf
+            (widen or self._widen)(out[0].shape[1])
+
+    def encode_file(self, frame, device="cuda") -> DeviceFile:
+        """frame: uint8 [H, linesize] -> the complete JPEG file as a uint8
+        tensor on the frame's device (:class:`DeviceFile`), byte-equal to
+        :meth:`encode`'s: the slots never leave the device.  An array is
+        copied to ``device`` first."""
+        if not isinstance(frame, torch.Tensor):
+            frame = torch.as_tensor(np.asarray(frame), device=get_device(device))
+        h = len(self._header)
+        file = self.encode_into(frame, prefix=h)
+        file[:h].copy_(self.header_tensor(file.device), non_blocking=True)
+        return file.as_subclass(DeviceFile)
 
     def encode_device(self, frame, device="cuda"):
         """The device half without a host sync (reference ``encode_device``,
@@ -1835,8 +1887,7 @@ def decode_jpeg_to_frame(frame: VideoFrame, out_codec: Codec,
     answer is its pure-Python decoder on the host, and so it is here;
     nothing else falls back."""
     dec = decoder if decoder is not None else JpegDecoder(device)
-    arr = np.ascontiguousarray(np.asarray(frame.data.cpu() if isinstance(frame.data, torch.Tensor)
-                                          else frame.data).reshape(-1))
+    arr = host_bytes(frame.data)
     if out_codec == Codec.UYVY:
         try:
             res = dec.decode_to_uyvy(arr) if uyvy_decoder is None else uyvy_decoder.decode_frame(arr)

@@ -12,9 +12,11 @@ bit-identical to a single-device encode of the frame.
 live session runs over ``--param cuda-device`` (``modules/video_compress.py``
 and ``modules/video_decompress.py``): the bands live on the cards, and the
 wire carries one file a frame, the single-device session's, byte for byte.
-The encoder runs each band's K1 (``JpegEncoder._encode``), its download and
-its C assembly on a worker thread of its own; the decoder decodes each
-band's restart segments on its card and gathers the rows onto one device.
+The encoder runs each band's K1 (``JpegEncoder._encode``) and its entropy
+assembly on its card, one band after the other from the caller's thread,
+and copies the bands' bodies into one file on the frame's card; the
+decoder decodes each band's restart segments on its card and gathers the
+rows onto one device.
 The library steps :class:`ShardedSenderStep` and
 :class:`ShardedReceiverStep` keep their outputs per band (lists), as a
 deployment that sends each band as its own substream would: nothing is
@@ -24,14 +26,12 @@ gathered there.
 from __future__ import annotations
 
 import contextlib
-import threading
-from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from ultragrid_tpu_torch.device import get_device
+from ultragrid_tpu_torch.device import DeviceFile, get_device
 from ultragrid_tpu_torch.models.encode import ldgm_container_params
 from ultragrid_tpu_torch.ops.fec import Gf2Parity, LdgmSession, build_ldgm_matrix
 from ultragrid_tpu_torch.ops.jpeg import JpegDecoder, JpegEncoder, entropy_decode_422
@@ -69,30 +69,24 @@ def _on(device: torch.device, stream=None):
     return stack
 
 
-def renumber_markers(body: np.ndarray, offset: int) -> None:
-    """Add ``offset`` (mod 8) to the index of every RST marker of an
-    entropy-coded ``body``, in place: a band's segments counted on from the
-    bands before it.  Stuffing puts 0x00 after every 0xFF of data, so each
-    0xFF followed by 0xD0-0xD7 is a marker."""
-    if offset % 8 == 0 or body.size < 2:
-        return
-    ff = np.flatnonzero(body[:-1] == 0xFF) + 1
-    at = ff[(body[ff] & 0xF8) == 0xD0]
-    body[at] = 0xD0 | ((body[at] + offset % 8) & 7)
-
-
 class ShardedJpegEncoder:
     """JPEG encode over the 'spatial' axis of a mesh (rows -> devices).
 
-    :meth:`encode` gives the file of a single-device ``JpegEncoder`` at the
-    band encoder's restart interval, byte for byte.  The frame's rows are
-    copied from its device to the bands' (``compress.split``); then each
-    band runs on a worker thread of its own, on a stream of its own on its
-    device (``compress.band``): K1 (``compress.k1``, escalated on overflow
-    like ``JpegEncoder.encode``), the slots down into pinned memory
-    (``compress.download``) and the band's C assembly
-    (``compress.assemble``), its restart markers counted on from the bands
-    before it.  The bodies are joined here with the header."""
+    :meth:`encode_file` gives the file of a single-device ``JpegEncoder``
+    at the band encoder's restart interval, byte for byte, as a uint8
+    tensor on the frame's device (:class:`DeviceFile`); :meth:`encode`, as
+    a host array.  The frame's rows are copied from its device to the
+    bands' (``compress.split``); then each band in turn, on a stream of its
+    own on its device (``compress.band``): K1 (``compress.k1``, escalated on
+    overflow like ``JpegEncoder.encode``) and the entropy assembly on the
+    card (``compress.assemble``: the count pass, the one read of the band's
+    length, the write pass), its restart markers numbered in the frame, the
+    marker before its first segment included, and the last band's EOI.  A
+    band's host work is a few launches and one read, so the bands run from
+    the caller's thread: worker threads a band cost more on the interpreter
+    lock than they overlap.  The bands' bodies are then copied after the
+    header into one file on the frame's device (over NVLink from the other
+    cards), each on its band's stream, which the frame's stream waits for."""
 
     def __init__(self, width: int, height: int, mesh: Mesh, in_codec: Codec = Codec.UYVY,
                  quality: int = 80, restart_interval: Optional[int] = None):
@@ -104,10 +98,7 @@ class ShardedJpegEncoder:
         self.full = JpegEncoder(width, height, in_codec=in_codec, quality=quality,
                                 restart_interval=self.local.restart_interval, state=self.local.state)
         self.full.wwords = self.local.wwords
-        self._lock = threading.Lock()
-        self._pool: Optional[ThreadPoolExecutor] = None
         self._streams = [None] * self.nshards  # a band's stream on its card
-        self._pinned = [None] * self.nshards  # a band's pinned host parts
 
     def shard(self, frame) -> List[torch.Tensor]:
         """A frame (array or tensor) -> its row bands, each on its device; a
@@ -126,42 +117,27 @@ class ShardedJpegEncoder:
         at (as ``JpegEncoder.escalate_and_retry``; keeps the band and
         whole-frame encoders in step, once for bands that overflow
         together)."""
-        with self._lock:
-            if self.local.wwords <= used:
-                self.local.wwords = self.full.wwords = min(used * 2, 64)
+        if self.local.wwords <= used:
+            self.local.wwords = self.full.wwords = min(used * 2, 64)
 
-    def _download(self, s: int, parts) -> list:
-        """A band's six slot parts on the host as arrays: on a card copied
-        into the band's pinned buffers, one wait; on the CPU as they are."""
-        if not parts[0].is_cuda:
-            return [p.numpy() for p in parts]
-        pinned = self._pinned[s]
-        if pinned is None or any(h.shape != p.shape for h, p in zip(pinned, parts)):
-            pinned = self._pinned[s] = [torch.empty(p.shape, dtype=p.dtype, pin_memory=True) for p in parts]
-        for h, p in zip(pinned, parts):
-            h.copy_(p, non_blocking=True)
-        torch.cuda.current_stream(parts[0].device).synchronize()
-        return [h.numpy() for h in pinned]
-
-    def _encode_band(self, s: int, band: torch.Tensor, frame_key) -> np.ndarray:
-        """One band's entropy-coded body, its markers numbered in the frame."""
+    def _encode_band(self, s: int, band: torch.Tensor, frame_key) -> torch.Tensor:
+        """One band's entropy-coded body on its device, its markers numbered
+        in the frame; the last band's ends with the EOI."""
         dev = band.device
         if dev.type == "cuda" and self._streams[s] is None:
             self._streams[s] = torch.cuda.Stream(dev)
-        enc = self.local
         with _on(dev, self._streams[s]), profiler.zone("compress.band", frame=frame_key):
-            out, over = JpegEncoder._k1(enc._encode, band)
-            while over and out[0].shape[1] < 64:
-                self._escalate(out[0].shape[1])
-                out, over = JpegEncoder._k1(enc._encode, band)
-            with profiler.zone("compress.download"):
-                ys, yb, us, ub, vs, vb = self._download(s, out[:-1])
-            body = enc.assemble_host(ys.view(np.uint32), yb, us.view(np.uint32), ub, vs.view(np.uint32), vb)
-            renumber_markers(body, s * enc.nseg)
-        return body
+            return self.local.encode_into(band, first_segment=s * self.local.nseg, eoi=s == self.nshards - 1,
+                                          widen=self._escalate)
 
     def encode(self, frame) -> np.ndarray:
-        """-> the whole frame's JPEG file, byte-equal to a single-device
+        """-> the whole frame's JPEG file on the host (:meth:`encode_file`
+        copied down)."""
+        return np.asarray(self.encode_file(frame))
+
+    def encode_file(self, frame) -> DeviceFile:
+        """-> the whole frame's JPEG file on the frame's device (the first
+        band's for a list of bands), byte-equal to a single-device
         ``JpegEncoder`` with the same restart interval."""
         with profiler.zone("compress.split"):
             bands = self.shard(frame)
@@ -169,24 +145,26 @@ class ShardedJpegEncoder:
             if src is not None and src.type == "cuda" and any(b.device != src for b in bands):
                 # the copies run on the frame's stream: wait for them here
                 torch.cuda.current_stream(src).synchronize()
-        if self._pool is None:
-            self._pool = ThreadPoolExecutor(self.nshards, thread_name_prefix="compress.band")
         key = profiler.current_frame()
-        jobs = [self._pool.submit(self._encode_band, s, b, key) for s, b in enumerate(bands)]
-        bodies = [j.result() for j in jobs]
-        parts = [np.frombuffer(self.full._header, np.uint8)]
+        bodies = [self._encode_band(s, b, key) for s, b in enumerate(bands)]
+        dev = src if src is not None else bands[0].device
+        hdr = self.full.header_tensor(dev)
+        file = torch.empty(hdr.numel() + sum(b.numel() for b in bodies), dtype=torch.uint8, device=dev)
+        file[: hdr.numel()].copy_(hdr, non_blocking=True)
+        on_card = dev.type == "cuda"
+        # the file's block is free from here on the frame's stream
+        placed = torch.cuda.current_stream(dev).record_event() if on_card else None
+        off = hdr.numel()
         for s, body in enumerate(bodies):
-            if s:  # the marker before the band's first segment
-                parts.append(np.array([0xFF, 0xD0 + (s * self.local.nseg - 1) % 8], np.uint8))
-            parts.append(body)
-        parts.append(np.frombuffer(b"\xff\xd9", np.uint8))
-        return np.concatenate(parts)
-
-    def close(self) -> None:
-        """Stop the band workers (a later :meth:`encode` starts them anew)."""
-        if self._pool is not None:
-            self._pool.shutdown(wait=True)
-            self._pool = None
+            with _on(body.device, self._streams[s]):
+                if on_card:
+                    torch.cuda.current_stream(body.device).wait_event(placed)
+                file[off: off + body.numel()].copy_(body, non_blocking=True)
+                copied = torch.cuda.current_stream(body.device).record_event() if on_card else None
+            if on_card:
+                torch.cuda.current_stream(dev).wait_event(copied)
+            off += body.numel()
+        return file.as_subclass(DeviceFile)
 
 
 class ShardedJpegDecoder:

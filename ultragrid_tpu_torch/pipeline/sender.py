@@ -5,9 +5,10 @@ reference (capture thread src/main.cpp:347-397 -> compress
 worker src/video_compress.cpp -> sender loop src/rxtx.cpp:259-287).
 
 Threads and the card: the capture ring and the capture filters run on the
-card, ``-c jpeg`` encodes there (kernel K1) and hands the send loop a host
-file, ``-c none`` hands it the frame on the card and :meth:`Tx.send_video`
-copies it to the host once.  Every thread that enqueues device work enters
+card, ``-c jpeg`` encodes there (kernel K1 and the entropy assembly) and
+hands the send loop the file on the card, whose LDGM buffer the Tx builds
+there; ``-c none`` hands it the frame on the card and :meth:`Tx.send_video`
+copies it, or its LDGM buffer, to the host once.  Every thread that enqueues device work enters
 the pipeline's one CUDA stream, the stream current where the sender was
 built, so work handed from one thread to the next is ordered by the stream
 itself (``device.pipeline_stream``, the rule of ``pipeline/loop.py``).

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ultragrid_tpu_torch.audio.types import AudioDesc, AudioFrame
+from ultragrid_tpu_torch.device import host_bytes
 from ultragrid_tpu_torch.modules.registry import LibraryClass, register_module
 from ultragrid_tpu_torch.modules.video_capture import VideoCapture
 from ultragrid_tpu_torch.types import (
@@ -68,10 +69,7 @@ class Exporter:
         self.count += 1
         ext = get_codec_info(frame.desc.color_spec).file_extension or "raw"
         path = os.path.join(self.dir, f"{self.count:08d}.{ext}")
-        data = frame.data
-        if isinstance(data, torch.Tensor):
-            data = data.cpu().numpy()  # the one copy of a frame on the card
-        np.asarray(data).tofile(path)
+        host_bytes(frame.data).tofile(path)  # the one copy of a frame on the card
 
     def export_audio(self, frame: AudioFrame) -> None:
         if self._wav is None:
