@@ -289,7 +289,7 @@ def k2_peel_case(sess, block, what: str):
     from ultragrid_tpu_torch.ops.fec import Gf2Parity, symbol_words
 
     words = symbol_words(block)
-    par, _ = sess.peel_parity(words.shape[1], block.device)
+    par = sess.peel_parity(block.device)[0].with_width(words.shape[1])
     got, want = par(words), par.plain(words)
     err = max_abs_err([got], [want])
     if not torch.equal(got, want):
@@ -2846,8 +2846,9 @@ def assemble_case(dev, w, h, q, ri=None, first_segment=0, seed=1):
     content frame assembled by the kernel (its first segment
     ``first_segment``) against the host C assembly of the same slots (its
     markers counted on and the marker before the first segment added, as a
-    band of a frame), and the file of ``JpegEncoder.encode_file`` against
-    ``JpegEncoder.encode``'s; the kernels' device time against their bound
+    band of a frame), and the files of ``JpegEncoder.encode_file`` and
+    ``JpegEncoder.encode`` against the C assembly's; the kernels' device
+    time against their bound
     (the slots' used words and the bit counts read once, the body written
     once)."""
     from ultragrid_tpu_torch.ops import jpeg_assemble_cuda
@@ -2885,10 +2886,10 @@ def assemble_case(dev, w, h, q, ri=None, first_segment=0, seed=1):
     row = {"what": f"jpeg_assemble {label}", "bytes": int(got.size), "segments": enc.nseg,
            "ff_bytes": int((c_body == 0xFF).sum()), "equal_to_c": True}
     if not first_segment:
-        file = enc.encode_file(fr)
-        if not np.array_equal(np.asarray(file), enc.encode(fr)):
-            raise RuntimeError(f"assembly {label}: encode_file differs from encode")
-        row["file_equal_to_encode"] = True
+        c_file = jpeg_file(enc, parts)
+        if not (np.array_equal(np.asarray(enc.encode_file(fr)), c_file) and np.array_equal(enc.encode(fr), c_file)):
+            raise RuntimeError(f"assembly {label}: encode_file or encode differs from the C assembly's file")
+        row["file_and_encode_equal_to_c"] = True
     ks = device_kernels(run, runs=20, expect="jpeg_assemble")
     mine = {k: v for k, v in ks.items() if "jpeg_assemble" in k}
     if len(mine) != 3:
@@ -2914,7 +2915,8 @@ def phase_assemble(dev):
     against the host C assembly at 1080p and 4K at q80 and q95 and on an 8K
     band (7680x1080, restart interval 32, as the third band of four:
     markers numbered from segment 4050); an escalation forced on a noise
-    frame (slots of 2 words at q95) against the CPU's file;
+    frame (slots of 2 words at q95) against the CPU's file and the C
+    assembly's;
     ``LdgmSession.encode_tensor`` of a file on the card against
     ``LdgmSession.encode`` on the host at 1080p and 8K sizes; and the
     1080p60 JPEG + LDGM session on one card: every frame's file assembled
@@ -2936,12 +2938,16 @@ def phase_assemble(dev):
     noise = torch.as_tensor(np.random.default_rng(3).integers(0, 256, (64, 512), dtype=np.uint8)).to(dev)
     card, cpu = JpegEncoder(256, 64, quality=95), JpegEncoder(256, 64, quality=95)
     card.wwords = cpu.wwords = 2
+    c_enc = JpegEncoder(256, 64, quality=95)
+    c_enc.wwords = 2
     file = np.asarray(card.encode_file(noise))
-    want = cpu.encode(noise.cpu(), device="cpu")
-    if card.wwords != cpu.wwords or card.wwords <= 2 or not np.array_equal(file, want):
-        raise RuntimeError(f"assembly escalation: {card.wwords} / {cpu.wwords} words, files equal "
-                           f"{np.array_equal(file, want)}")
-    out["escalation"] = {"wwords": card.wwords, "file_bytes": int(file.size), "equal_to_cpu": True}
+    want, c_file = cpu.encode(noise.cpu(), device="cpu"), c_path_file(c_enc, noise)
+    if (card.wwords != cpu.wwords or card.wwords != c_enc.wwords or card.wwords <= 2
+            or not np.array_equal(file, want) or not np.array_equal(file, c_file)):
+        raise RuntimeError(f"assembly escalation: {card.wwords} / {cpu.wwords} / {c_enc.wwords} words, files "
+                           f"equal {np.array_equal(file, want)} / {np.array_equal(file, c_file)}")
+    out["escalation"] = {"wwords": card.wwords, "file_bytes": int(file.size), "equal_to_cpu": True,
+                         "equal_to_c_assembly": True}
     # the LDGM buffer on the card
     sess = LdgmSession(256, 26, 5)
     hdr = bytes(range(24))
@@ -2974,7 +2980,7 @@ def phase_assemble(dev):
             or la["jpeg_encode"] != row["frames_sent"]):
         raise RuntimeError(f"assembly session: routes {routes}, launches {la}, {row['frames_sent']} frames sent")
     enc = next(iter(sender.compress.impl._encoders.values()))
-    ring = {JpegEncoder(W1080, H1080, quality=80, restart_interval=enc.restart_interval).encode(f).tobytes()
+    ring = {c_path_file(JpegEncoder(W1080, H1080, quality=80, restart_interval=enc.restart_interval), f).tobytes()
             for f in sender.capture.frames}
     if not files or any(v not in ring for v in files.values()):
         raise RuntimeError(f"assembly session: a sent file is not the C path's encode of a capture")
@@ -3041,7 +3047,7 @@ def banded_session(dev):
         raise RuntimeError(f"banded session: decode launches per card {dec}, want {want}; refused {refused}")
     ri = enc.local.restart_interval
     one = JpegEncoder(PAR_W, PAR_H, quality=80, restart_interval=ri)
-    ring = {one.encode(f).tobytes() for f in sender.capture.frames}
+    ring = {c_path_file(one, f).tobytes() for f in sender.capture.frames}
     keys = sorted(files)
     sampled = keys[::BANDED_KEEP_EVERY]
     if not sampled or any(files[k_] not in ring for k_ in sampled):
@@ -3880,6 +3886,17 @@ def jpeg_file(enc, parts) -> np.ndarray:
                            np.frombuffer(b"\xff\xd9", np.uint8)])
 
 
+def c_path_file(enc, frame) -> np.ndarray:
+    """enc's file of ``frame`` as the host C assembly makes it: the device
+    half on the frame's device (K1 on the card), widened on overflow, then
+    :func:`jpeg_file`.  The independent check of ``JpegEncoder.encode``,
+    whose body the assembly kernel makes on the card."""
+    out = enc._encode(frame)
+    while bool(out[-1]) and enc.wwords < 64:
+        out = enc.escalate_and_retry(frame)
+    return jpeg_file(enc, out)
+
+
 def plain_file(enc, frame) -> np.ndarray:
     """enc's file of ``frame`` through the plain version on the frame's
     device, the slots widened on overflow as ``JpegEncoder.encode`` does."""
@@ -3926,13 +3943,13 @@ def api_warm_row(dev, subsampling):
     got_cold = cold.encode(noise)
     cold_ms = (time.perf_counter() - t0) * 1e3
     if not (np.array_equal(got, plain_file(q95(), noise)) and np.array_equal(got, q95().encode(noise.cpu()))
-            and np.array_equal(got, got_cold)):
+            and np.array_equal(got, got_cold) and np.array_equal(got, c_path_file(q95(), noise))):
         raise RuntimeError(f"api (a) {subsampling}: the escalated file differs from the plain version's "
-                           "on the card or the CPU's")
+                           "on the card, the CPU's or the C assembly's")
     return {"geometry": f"{W1080}x{H1080} UYVY q95 {warm.subsampling}, seeded noise",
             "start_wwords": start.wwords, "widest_block_bits_at_start": widest,
             "forced_start_wwords": API_START_WWORDS, "escalated_to_wwords": warm.wwords,
-            "file_equal_plain_card_and_cpu": True, "warm_s": warm_s, "escalated_encode_ms_after_warm": warm_ms,
+            "file_equal_plain_card_cpu_and_c_assembly": True, "warm_s": warm_s, "escalated_encode_ms_after_warm": warm_ms,
             "escalated_encode_ms_cold": cold_ms, "file_bytes": int(got.size)}
 
 
@@ -3940,7 +3957,9 @@ def phase_api(dev):
     """The names that close the port's public API, on the card at 1080p:
     (a) ``JpegEncoder.warm`` and a forced escalation (K1, and its per-plane
     entry); (b) ``jpeg_encode_core`` on a 1080p UYVY q80 frame, its parts
-    assembling to the CPU's file, one K1 launch a call by the profiler; (c)
+    assembling to the CPU's file, one K1 launch a call by the profiler, and
+    ``JpegEncoder.encode`` of the frame on the card (one K1 launch and one
+    assembly) byte-equal to the C assembly of those parts; (c)
     ``lavc_encoders()`` and the registered audio codecs on this machine,
     both empty of libavcodec where its headers are absent, as the
     reference's are.  K1's launches in the phase are read around it."""
@@ -3966,10 +3985,20 @@ def phase_api(dev):
     got, want = jpeg_file(enc, parts), enc.encode(frame.cpu())
     if not np.array_equal(got, want):
         raise RuntimeError(f"api (b): jpeg_encode_core's file ({got.size} bytes) is not the CPU's ({want.size})")
+    before = kernel_counts()
+    on_card = enc.encode(frame)
+    after = kernel_counts()
+    if not np.array_equal(on_card, got):
+        raise RuntimeError(f"api (b): JpegEncoder.encode on the card ({on_card.size} bytes) is not the C "
+                           f"assembly's file ({got.size})")
+    if (after["jpeg_encode"] - before["jpeg_encode"], after["jpeg_assemble"] - before["jpeg_assemble"]) != (1, 1):
+        raise RuntimeError(f"api (b): JpegEncoder.encode launched {before} -> {after}, want one K1 and one "
+                           "assembly")
     # single-call profiles (the profiler never adds a launch, and may drop one)
     prof = complete_profiles(lambda: jpeg_encode_core(frame, W1080, Codec.UYVY, 80), {"jpeg_encode_kernel": 1})
     out["encode_core"] = {
         "geometry": f"{W1080}x{H1080} UYVY q80", "file_bytes": int(got.size), "file_equal_cpu": True,
+        "encode_on_card_equal_c_assembly": True,
         "k1_launches_a_call": 1, "profile_a_call": prof,
         "host_ms_a_call": host_ms(lambda: [p.cpu() for p in jpeg_encode_core(frame, W1080, Codec.UYVY, 80)],
                                   runs=5)}
@@ -3984,7 +4013,7 @@ def phase_api(dev):
     out["lavc"] = {"libavcodec": "present" if present else "absent", "lavc_encoders": encoders,
                    "audio_codecs_registered": registered}
     out["launches"] = kernel_counts()
-    if out["launches"]["jpeg_encode"] < 1 or out["launches"]["jpeg_plane_encode"] < 1:
+    if min(out["launches"][k] for k in ("jpeg_encode", "jpeg_plane_encode", "jpeg_assemble")) < 1:
         raise RuntimeError(f"api: a kernel of the phase was not launched: {out['launches']}")
     out["seconds"] = time.perf_counter() - t_phase
     return out
@@ -4591,7 +4620,7 @@ def main() -> int:
         })
         # K2 without the staircase on the peel's first-round input
         words = symbol_words(torch.where(torch.as_tensor(present, device=dev)[:, None], sym_d, 0))
-        par, _ = sess256.peel_parity(words.shape[1], dev)
+        par = sess256.peel_parity(dev)[0].with_width(words.shape[1])
         b, ops = k2_peel_work(par)
         bms, by = bound_ms(b, ops)
         ks = device_kernels(lambda: par(words), expect="gf2_parity_kernel")

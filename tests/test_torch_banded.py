@@ -112,10 +112,10 @@ def test_banded_compress_escalates_each_band_and_stays_equal(cards):
     mod = JpegCompress("95", device="cpu")
     compress(mod, uyvy(w, h, 1), w, h)
     enc = next(iter(mod._encoders.values()))
-    enc.local.wwords = enc.full.wwords = 2
+    enc.local.wwords = 2
     noise = uyvy(w, h, 2, noise=True)
     got = compress(mod, noise, w, h)
-    assert enc.local.wwords > 2 and enc.full.wwords == enc.local.wwords
+    assert enc.local.wwords > 2
     one = jpeg.JpegEncoder(w, h, quality=95, restart_interval=enc.local.restart_interval)
     assert np.array_equal(got, one.encode(noise, device="cpu"))
     mod.done()

@@ -21,6 +21,7 @@ from ultragrid_tpu.ops import jpeg as ref_jpeg  # noqa: E402
 from ultragrid_tpu.ops import jpeg_pallas  # noqa: E402
 from ultragrid_tpu.types import Codec, VideoDesc, VideoFrame, vc_get_linesize  # noqa: E402
 from ultragrid_tpu_torch import types as port_types  # noqa: E402
+from ultragrid_tpu_torch.device import DeviceFile  # noqa: E402
 from ultragrid_tpu_torch.ops import jpeg as port_jpeg  # noqa: E402
 
 NAMES = ("ys", "ybits", "us", "ubits", "vs", "vbits", "overflow")
@@ -187,7 +188,13 @@ def test_jpeg_compress_module_matches_reference():
         assert dataclasses.astuple(got.desc) == dataclasses.astuple(want.desc)
         assert got.desc.color_spec == Codec.JPEG
         assert got.timestamp == 1.5
+        assert isinstance(got.data, DeviceFile) and got.data.device.type == "cpu"
         assert np.array_equal(got.data, np.asarray(want.data))
+    # a frame already a tensor on the CPU: the file made there, left there
+    tensor_frame = port_types.VideoFrame(frame.desc, [torch.as_tensor(data)], timestamp=1.5)
+    got = JpegCompress("", device="cpu").compress(tensor_frame)
+    assert isinstance(got.data, DeviceFile) and got.data.device.type == "cpu"
+    assert np.array_equal(np.asarray(got.data), np.asarray(RefCompress("").compress(ref_frame).data))
     meta = port_types.VideoFrame(frame.desc, [torch.zeros((64, 512), dtype=torch.uint8, device="meta")])
     with pytest.raises(ValueError, match="tensor is on meta"):
         JpegCompress("", device="cpu").compress(meta)

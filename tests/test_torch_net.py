@@ -196,13 +196,12 @@ _ROUTES = [("jpeg", "ldgm:256:26:5"), ("jpeg", "ldgm:16:8:3"), ("raw", "ldgm:16:
 
 @pytest.mark.parametrize("kind,fec", _ROUTES, ids=[f"{k}-{f}" for k, f in _ROUTES])
 def test_tx_tensor_route_sends_the_host_routes_datagrams(kind, fec, monkeypatch):
-    """The same frames as tensors (a JPEG file as ``JpegCompress`` leaves
-    it, ``device.DeviceFile``; a frame; tiles) and as host arrays: the
-    card's route builds each LDGM buffer on the tensor's device
-    (``LdgmSession.encode_tensor``; here the CPU stands in for the card),
-    the host route by the C encoder, and the datagrams (headers, payloads,
-    order) and their pacing are equal.  A tensor off the card takes the
-    host route."""
+    """The same frames as host arrays and as tensors (a JPEG file as
+    ``JpegCompress`` leaves it, ``device.DeviceFile``; a frame; tiles): an
+    array's LDGM buffer is built by the C encoder, a tensor's on the
+    tensor's own device (``LdgmSession.encode_tensor``, here the CPU), and
+    the datagrams (headers, payloads, order) and their pacing are equal.
+    ``fec_routes`` counts both where their buffers were built, the host."""
     from ultragrid_tpu_torch.device import DeviceFile
     from ultragrid_tpu_torch.ops.fec import LdgmSession
 
@@ -219,11 +218,7 @@ def test_tx_tensor_route_sends_the_host_routes_datagrams(kind, fec, monkeypatch)
     monkeypatch.setattr(LdgmSession, "encode", count("host", on_host))
     w, h, tiles = 96, 64, 1
     recs = {}
-    on_card = transmit._on_card
-    for route in ("host", "card", "cpu_tensor"):
-        # the card's route taken by a CPU tensor; then the route as it is
-        monkeypatch.setattr(transmit, "_on_card",
-                            (lambda t: isinstance(t, torch.Tensor)) if route == "card" else on_card)
+    for route in ("array", "tensor"):
         tx = transmit.Tx(mtu=1500, fec_spec=fec, device="cpu")
         rec = recs[route] = _PacedRecorder()
         for i in range(3):  # three frames, each of another size: other pads
@@ -234,17 +229,15 @@ def test_tx_tensor_route_sends_the_host_routes_datagrams(kind, fec, monkeypatch)
             if kind == "tiles":
                 tiles = 2
                 parts = [parts[0][:, : w].copy(), parts[0][:, w:].copy()]
-            if route != "host":
+            if route == "tensor":
                 parts = [torch.as_tensor(p).reshape(-1).as_subclass(DeviceFile) if kind == "jpeg"
                          else torch.as_tensor(p) for p in parts]
             desc = VideoDesc(w // tiles, h, codec, 24.0, tile_count=tiles)
             tx.send_video(rec, VideoFrame(desc, parts, timestamp=3.0 + i / 24))
-        want = {"card": 3 * tiles, "host": 0} if route == "card" else {"card": 0, "host": 3 * tiles}
-        assert tx.fec_routes == want, route
-    assert calls == {"tensor": 3 * tiles, "host": 6 * tiles}
-    assert recs["card"].packets == recs["host"].packets and len(recs["host"].packets) > 3 * tiles
-    assert recs["cpu_tensor"].packets == recs["host"].packets
-    assert recs["card"].paces == recs["host"].paces == recs["cpu_tensor"].paces
+        assert tx.fec_routes == {"card": 0, "host": 3 * tiles}, route
+    assert calls == {"tensor": 3 * tiles, "host": 3 * tiles}
+    assert recs["tensor"].packets == recs["array"].packets and len(recs["array"].packets) > 3 * tiles
+    assert recs["tensor"].paces == recs["array"].paces
 
 
 def test_rtp_batch_datagrams_equal_reference():

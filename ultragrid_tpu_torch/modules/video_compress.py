@@ -167,12 +167,11 @@ class JpegCompress(VideoCompress):
             self._rc = None  # rebuilt against the new target at the next geometry
 
     def compress(self, frame: VideoFrame) -> VideoFrame:
-        """Uncompressed frame -> VideoFrame whose data is the JPEG file,
-        1-D uint8, where the frame is: from a frame on the card a tensor
-        there (``device.DeviceFile``: the entropy assembly runs on the card
-        and the send loop builds the FEC buffer there; a host consumer reads
-        it as an array), from a frame on the host an array (the C
-        assembly)."""
+        """Uncompressed frame -> VideoFrame whose data is the JPEG file, a
+        1-D uint8 tensor on the module's device (``device.DeviceFile``: the
+        entropy assembly runs where the frame was encoded and the send loop
+        builds the FEC buffer there; a host consumer reads it as an
+        array)."""
         desc = frame.desc
         if self._desc != desc:
             self._encoders.clear()
@@ -184,8 +183,7 @@ class JpegCompress(VideoCompress):
         if enc is None:
             with profiler.zone("compress.build"):
                 enc = self._encoders[q] = self._encoder(desc, q)
-        pixels = on_device(frame.data, self.device)
-        data = enc.encode_file(pixels) if pixels.is_cuda else enc.encode(pixels)
+        data = enc.encode_file(on_device(frame.data, self.device))
         if self._rc is not None:
             self._rc.update(len(data))
         return self._out(frame, Codec.JPEG, data)

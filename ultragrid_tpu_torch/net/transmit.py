@@ -7,12 +7,13 @@ modes unlimited/auto (75% of frame time)/fixed (get_packet_rate,
 transmit.c:653-689), mult:N duplication.
 
 FEC goes through the port's :func:`ultragrid_tpu_torch.ops.fec.fec_from_spec`.
-The route of an LDGM tile is chosen by where the tile lives: a tensor on
-the card (the JPEG file that ``JpegCompress`` leaves there, or a frame) has
-its whole buffer built on that card (``LdgmSession.encode_tensor``: one
-copy and kernel K2) and brought down once into a pinned buffer the Tx
-reuses; any other tile takes the shared host C XOR, as in the reference.  Every other tile on the card is copied to the host once, in
-:meth:`Tx.send_video`, before FEC and packetisation.  Audio
+An LDGM tile that is a tensor (the JPEG file that ``JpegCompress`` leaves
+on its device, or a frame) has its whole buffer built on its own device
+(``LdgmSession.encode_tensor``: one copy and kernel K2 on the card, its
+plain version on the CPU) and brought down once into a buffer the Tx
+reuses, pinned for the card; an array tile takes the shared host C XOR, as
+in the reference.  Every other tile on the card is copied to the host once,
+in :meth:`Tx.send_video`, before FEC and packetisation.  Audio
 (:meth:`Tx.send_audio`) is per-channel packets with the 5-word audio header,
 optionally Reed-Solomon protected with the parity product on the Tx's
 device.  Standards mode (``Tx(rfc2435=True)``) sends a JPEG frame as RFC 2435
@@ -132,21 +133,14 @@ def get_packet_sizes(
     return sizes
 
 
-def _on_card(tile) -> bool:
-    """Whether an LDGM tile's buffer is built where the tile lives: a
-    tensor on the card.  Every other tile takes the host C encoder."""
-    return isinstance(tile, torch.Tensor) and tile.is_cuda
-
-
 class Tx:
     """Sender packetizer state (ref: struct tx + tx_init, transmit.c).
 
     ``device`` is where the RS parity product runs, for video and audio (the
     card unless the caller names another; it raises without one).  An LDGM
-    tile that is a tensor on the card has its buffer built on that card,
-    any other tile by the host C encoder; ``fec_routes`` counts the frames' tiles by
-    where their buffer was built ("card" or "host"), as do the profiler's
-    instants ``tx.fec.card`` and ``tx.fec.host``."""
+    tile that is a tensor has its buffer built on its own device, an array
+    tile by the host C encoder; ``fec_routes`` counts the frames' tiles by
+    where their buffer was built ("card" or "host")."""
 
     def __init__(
         self,
@@ -193,7 +187,7 @@ class Tx:
         Multi-tile frames send each tile as its own RTP substream with the
         same timestamp; only the very last packet carries the M bit
         (ref: tx_send, transmit.c:440-478).  Each tile, or the LDGM buffer of
-        a tile on the card, comes to the host once, here.
+        a tensor tile, comes to the host once, here.
         """
         ts = get_local_mediatime() if frame.timestamp < 0 else rt.video_rtp_ts(frame.timestamp)
         if self.rfc2435 and frame.desc.color_spec == Codec.JPEG:
@@ -226,14 +220,14 @@ class Tx:
             # payload (encode_hdr_frame, ldgm.cpp:455-460)
             video_hdr = rt.pack_video_header(desc, self.buffer, 0, size, substream)
             with profiler.zone("tx.fec"):
-                if isinstance(fec, LdgmSession) and _on_card(tile):
-                    data, fec_desc = self._ldgm_on_card(fec, tile, video_hdr)
-                elif isinstance(fec, RsSession):
+                if isinstance(fec, RsSession):
                     data, fec_desc = fec.encode(host_bytes(tile), hdr=video_hdr, device=self.device)
+                elif isinstance(tile, torch.Tensor):
+                    data, fec_desc = self._ldgm_on_tile_device(fec, tile, video_hdr)
                 else:
                     data, fec_desc = fec.encode(np.concatenate([np.frombuffer(video_hdr, np.uint8),
                                                                 host_bytes(tile)]))
-                    self._count_route("host")
+                    self.fec_routes["host"] += 1
         else:
             data = host_bytes(tile)
 
@@ -280,12 +274,12 @@ class Tx:
                 )
         return total
 
-    def _ldgm_on_card(self, fec: LdgmSession, tile: torch.Tensor, video_hdr: bytes):
+    def _ldgm_on_tile_device(self, fec: LdgmSession, tile: torch.Tensor, video_hdr: bytes):
         """The LDGM buffer of ``video_hdr`` ++ ``tile`` built on the tile's
         device, after its writer on the pipeline's stream, and brought down
-        once into the pinned buffer this Tx reuses (the send of the frame
-        before is over), waited for by an event.  (host array view,
-        FecDesc)."""
+        once into the buffer this Tx reuses (the send of the frame before
+        is over; pinned for the card), waited for by an event.  (host array
+        view, FecDesc)."""
         buf, fec_desc = fec.encode_tensor(tile, hdr=video_hdr)
         host = self._pinned
         if host is None or host.numel() < buf.numel():
@@ -295,12 +289,8 @@ class Tx:
         host.copy_(buf, non_blocking=True)
         if buf.is_cuda:
             torch.cuda.current_stream(buf.device).record_event().synchronize()
-        self._count_route("card")
+        self.fec_routes["card" if buf.is_cuda else "host"] += 1
         return host.numpy(), fec_desc
-
-    def _count_route(self, route: str) -> None:
-        self.fec_routes[route] += 1
-        profiler.instant(f"tx.fec.{route}")
 
     def _encrypted(self, hdrs: np.ndarray, data: np.ndarray, offsets: np.ndarray, sizes: np.ndarray):
         """A batch with each packet's payload encrypted, its payload header

@@ -326,7 +326,6 @@ def gf256_matmul(bitmat, data_u8: torch.Tensor) -> torch.Tensor:
 
 LDGM_HEADER_SIZE = 4  # ref: ldgm-session.h:124
 DEFAULT_LDGM_SEED = 1  # ref: src/rtp/ldgm.hpp:48
-_PEEL_WIDTHS = 8  # symbol widths whose peel an LdgmSession keeps
 
 # ref: suggested_configurations[], src/rtp/ldgm.cpp:116-139
 # (mtu_class, frame_size, loss_pct) -> (k, m, c)
@@ -402,10 +401,8 @@ class LdgmSession:
             rows[i, : idx.size] = idx
         self._rows = np.ascontiguousarray(rows)
         self._parity = Gf2Parity(self.matrix, 1)  # K2 over the mask, staircase on; any width by with_width
-        # (psw, device) -> (K2 of the full check matrix, no staircase; it as
-        # bool): the last _PEEL_WIDTHS widths (a camera's file sizes rarely
-        # repeat, so a new width comes most frames)
-        self._peels = {}
+        self._peel = None  # K2 over the full check matrix, no staircase; any width by with_width
+        self._checks = {}  # torch.device -> the full check matrix as bool there
         self.rounds = 0  # peel rounds of the last decode_device
 
     def encode_params(self, frame_size: int) -> Tuple[int, int]:
@@ -538,20 +535,18 @@ class LdgmSession:
         full[np.arange(1, m), k + np.arange(m - 1)] = 1
         return full
 
-    def peel_parity(self, psw: int, device: torch.device):
-        """K2 over the full check matrix without the staircase, and the
-        matrix as a bool tensor on ``device``, made once per width and kept
-        for the last :data:`_PEEL_WIDTHS` widths."""
-        key = (psw, device)
-        got = self._peels.get(key)
-        if got is None:
+    def peel_parity(self, device: torch.device):
+        """K2 over the full check matrix without the staircase, at a width
+        of one word (``with_width`` gives any other), and the matrix as a
+        bool tensor on ``device``: made once per session and device."""
+        hb = self._checks.get(device)
+        if hb is None:
             with profiler.zone("fec.peel.build"):
                 full = self._full_check_matrix()
-                got = self._peels[key] = (Gf2Parity(full, psw, staircase=False),
-                                          torch.as_tensor(full != 0, device=device))
-            if len(self._peels) > _PEEL_WIDTHS:
-                del self._peels[next(iter(self._peels))]
-        return got
+                if self._peel is None:
+                    self._peel = Gf2Parity(full, 1, staircase=False)
+                hb = self._checks[device] = torch.as_tensor(full != 0, device=device)
+        return self._peel, hb
 
     def _decode_device_fn(self, ps: int, device: torch.device):
         """The peel for symbol size ``ps`` on ``device`` (reference
@@ -570,7 +565,8 @@ class LdgmSession:
         k, m = self.k, self.m
         n = k + m
         psw = -(-ps // 4)
-        peel, hb = self.peel_parity(psw, device)
+        peel, hb = self.peel_parity(device)
+        peel = peel.with_width(psw)
 
         def run(sym, have):
             # row n is the dummy target of idle check rows

@@ -773,8 +773,7 @@ class JpegEncoder:
 
     def escalate_and_retry(self, frame: torch.Tensor):
         """Double the slot width and re-encode."""
-        if self.wwords < 64:
-            self.wwords *= 2
+        self._widen(self.wwords)
         return self._encode(frame)
 
     def warm(self, widths=None, device="cuda") -> None:
@@ -805,30 +804,11 @@ class JpegEncoder:
     # -- public ---------------------------------------------------------
 
     def encode(self, frame, device="cuda") -> np.ndarray:
-        """frame: uint8 [H, linesize] -> np.uint8[1-D] complete JPEG file.
-
-        A tensor is encoded on its own device; an array is copied to
-        ``device`` (the card unless the caller names another) and encoded
-        there."""
-        if not isinstance(frame, torch.Tensor):
-            frame = torch.as_tensor(np.asarray(frame), device=get_device(device))
-        out, over = self._k1(self._encode, frame)
-        while over and self.wwords < 64:
-            out, over = self._k1(self.escalate_and_retry, frame)
-        body = self.assemble(*out[:-1])
-        return np.concatenate([
-            np.frombuffer(self._header, dtype=np.uint8),
-            body,
-            np.frombuffer(b"\xff\xd9", dtype=np.uint8),
-        ])
-
-    @staticmethod
-    def _k1(step, frame):
-        """``step(frame)`` (K1 at a slot width) through the host's read of
-        its overflow flag: (parts, overflow)."""
-        with profiler.zone("compress.k1"):
-            out = step(frame)
-            return out, bool(out[-1])
+        """frame: uint8 [H, linesize] -> np.uint8[1-D] complete JPEG file:
+        :meth:`encode_file`'s, copied to the host.  A tensor is encoded on
+        its own device; an array is copied to ``device`` (the card unless
+        the caller names another) and encoded there."""
+        return np.asarray(self.encode_file(frame, device))
 
     def header_tensor(self, device) -> torch.Tensor:
         """The file's header (SOI to SOS) as uint8 on ``device``, made once."""
@@ -843,16 +823,16 @@ class JpegEncoder:
         if self.wwords <= used:
             self.wwords = min(used * 2, 64)
 
-    def encode_into(self, frame: torch.Tensor, *, prefix: int = 0, first_segment: int = 0, eoi: bool = True,
-                    widen=None) -> torch.Tensor:
+    def encode_into(self, frame: torch.Tensor, *, prefix: int = 0, first_segment: int = 0,
+                    eoi: bool = True) -> torch.Tensor:
         """K1 and the entropy assembly on the frame's device, nothing on the
         host but one (overflow, length) read: uint8 [prefix + body (+ 2)]
         there, ``prefix`` bytes left for the caller, then the stuffed body,
         its restart markers numbered from ``first_segment``, then the EOI
         where ``eoi``.  K1 runs in ``compress.k1``; the assembly's count
         pass, the read and its write pass in ``compress.assemble``.  Where
-        K1 overflows, ``widen(width used)`` (default: this encoder's slot
-        width doubled) and again, as :meth:`encode` escalates."""
+        K1 overflows, the slot width is doubled past the width used and K1
+        runs again, up to 64 words."""
         while True:
             with profiler.zone("compress.k1"):
                 out = self._encode(frame)
@@ -864,13 +844,14 @@ class JpegEncoder:
                     buf = torch.empty(prefix + n + (2 if eoi else 0), dtype=torch.uint8, device=frame.device)
                     asm.write(buf[prefix:], eoi=eoi)
                     return buf
-            (widen or self._widen)(out[0].shape[1])
+            self._widen(out[0].shape[1])
 
     def encode_file(self, frame, device="cuda") -> DeviceFile:
         """frame: uint8 [H, linesize] -> the complete JPEG file as a uint8
-        tensor on the frame's device (:class:`DeviceFile`), byte-equal to
-        :meth:`encode`'s: the slots never leave the device.  An array is
-        copied to ``device`` first."""
+        tensor on the frame's device (:class:`DeviceFile`): the slots never
+        leave the device (on the card K1 and the assembly kernels, on the
+        CPU their plain versions).  An array is copied to ``device``
+        first."""
         if not isinstance(frame, torch.Tensor):
             frame = torch.as_tensor(np.asarray(frame), device=get_device(device))
         h = len(self._header)
@@ -890,15 +871,16 @@ class JpegEncoder:
 
     def assemble(self, ys, ybits, us, ubits, vs, vbits) -> np.ndarray:
         """Merge per-block slots into the stuffed entropy stream with the
-        shared C assembler (``native/jpeg_assemble.c``)."""
+        shared C assembler (``native/jpeg_assemble.c``), the independent
+        check of the assembly kernel: slots on the card are copied down
+        first."""
 
         def host(a, dt):
             a = a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
             return np.ascontiguousarray(a).view(dt)
 
-        with profiler.zone("compress.download"):
-            arrs = [host(a, np.uint32) for a in (ys, us, vs)]
-            bitsarr = [host(b, np.int32) for b in (ybits, ubits, vbits)]
+        arrs = [host(a, np.uint32) for a in (ys, us, vs)]
+        bitsarr = [host(b, np.int32) for b in (ybits, ubits, vbits)]
         return self.assemble_host(arrs[0], bitsarr[0], arrs[1], bitsarr[1], arrs[2], bitsarr[2])
 
     def assemble_host(self, ys, ybits, us, ubits, vs, vbits) -> np.ndarray:

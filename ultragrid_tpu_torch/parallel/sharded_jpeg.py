@@ -77,8 +77,8 @@ class ShardedJpegEncoder:
     tensor on the frame's device (:class:`DeviceFile`); :meth:`encode`, as
     a host array.  The frame's rows are copied from its device to the
     bands' (``compress.split``); then each band in turn, on a stream of its
-    own on its device (``compress.band``): K1 (``compress.k1``, escalated on
-    overflow like ``JpegEncoder.encode``) and the entropy assembly on the
+    own on its device (``compress.band``): K1 (``compress.k1``, widened on
+    overflow by ``JpegEncoder.encode_into``) and the entropy assembly on the
     card (``compress.assemble``: the count pass, the one read of the band's
     length, the write pass), its restart markers numbered in the frame, the
     marker before its first segment included, and the last band's EOI.  A
@@ -97,7 +97,6 @@ class ShardedJpegEncoder:
         # a whole-frame encoder for the header
         self.full = JpegEncoder(width, height, in_codec=in_codec, quality=quality,
                                 restart_interval=self.local.restart_interval, state=self.local.state)
-        self.full.wwords = self.local.wwords
         self._streams = [None] * self.nshards  # a band's stream on its card
 
     def shard(self, frame) -> List[torch.Tensor]:
@@ -112,14 +111,6 @@ class ShardedJpegEncoder:
         band's device: one K1 launch per band on the card."""
         return [self.local._encode(b) for b in self.shard(frame)]
 
-    def _escalate(self, used: int) -> None:
-        """Double the slot width past ``used``, the width a band overflowed
-        at (as ``JpegEncoder.escalate_and_retry``; keeps the band and
-        whole-frame encoders in step, once for bands that overflow
-        together)."""
-        if self.local.wwords <= used:
-            self.local.wwords = self.full.wwords = min(used * 2, 64)
-
     def _encode_band(self, s: int, band: torch.Tensor, frame_key) -> torch.Tensor:
         """One band's entropy-coded body on its device, its markers numbered
         in the frame; the last band's ends with the EOI."""
@@ -127,8 +118,7 @@ class ShardedJpegEncoder:
         if dev.type == "cuda" and self._streams[s] is None:
             self._streams[s] = torch.cuda.Stream(dev)
         with _on(dev, self._streams[s]), profiler.zone("compress.band", frame=frame_key):
-            return self.local.encode_into(band, first_segment=s * self.local.nseg, eoi=s == self.nshards - 1,
-                                          widen=self._escalate)
+            return self.local.encode_into(band, first_segment=s * self.local.nseg, eoi=s == self.nshards - 1)
 
     def encode(self, frame) -> np.ndarray:
         """-> the whole frame's JPEG file on the host (:meth:`encode_file`
